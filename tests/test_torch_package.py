@@ -1,0 +1,78 @@
+"""Package rules of the PyTorch port: it imports nothing of JAX or of
+molgym_tpu, and its entry points refuse to run on the CPU unless asked."""
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'molgym_tpu')
+
+
+def _port_files():
+    files = sorted((ROOT / 'molgym_tpu_torch').rglob('*.py'))
+    files.append(ROOT / 'chip_smoke.py')
+    return files
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            yield node.module
+        elif isinstance(node, ast.Call) and getattr(node.func, 'attr', getattr(
+                node.func, 'id', None)) in ('import_module', '__import__'):
+            for arg in node.args:
+                if isinstance(arg, ast.Constant) and isinstance(arg.value, str):
+                    yield arg.value
+
+
+def test_port_imports_no_jax_and_no_reference_package():
+    files = _port_files()
+    assert len(files) > 20
+    bad = []
+    for path in files:
+        for name in _imported_modules(path):
+            top = name.split('.')[0]
+            if top in FORBIDDEN:
+                bad.append(f'{path.relative_to(ROOT)}: {name}')
+    assert not bad, bad
+
+
+def test_kernel_sources_are_in_the_package():
+    from molgym_tpu_torch import cuda_build
+    for name in cuda_build.KERNEL_SOURCES:
+        src = cuda_build.CSRC / f'{name}.cu'
+        assert src.exists()
+        assert 'extern "C"' in src.read_text()
+
+
+def test_entry_points_refuse_cpu_without_device(monkeypatch):
+    from molgym_tpu_torch.agents.covariant import CovariantAC
+    from molgym_tpu_torch.envs.environment import MolecularEnv
+    from molgym_tpu_torch.envs.reward import make_lennard_jones_reward
+    from molgym_tpu_torch.spaces import ObservationSpace
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        CovariantAC(zs=(0, 1), canvas_size=3, network_width=8, maxl=1,
+                    num_cg_levels=1, num_channels_hidden=2,
+                    num_channels_per_element=1)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        MolecularEnv(make_lennard_jones_reward(), ObservationSpace(3, [0, 1]),
+                     np.array([[0, 2]]))
+
+
+def test_wrappers_raise_off_cpu_without_a_kernel():
+    """A tensor on neither the CPU nor a CUDA card is refused, never
+    computed by the plain version."""
+    from molgym_tpu_torch.ops import fused_agg
+    from molgym_tpu_torch.ops.cg import _fused_cg_table
+    table3, _ = _fused_cg_table(2, 2, 1)
+    a = torch.zeros(2, 4, device='meta')
+    with pytest.raises(ValueError, match='no kernel'):
+        fused_agg.cg_square_fused_ri(a, a, table3)
