@@ -37,7 +37,7 @@ def _host_ms(fn, reps=10):
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
-def _device_us(evt) -> float:
+def device_us(evt) -> float:
     for name in ('self_device_time_total', 'self_cuda_time_total'):
         if hasattr(evt, name):
             return float(getattr(evt, name))
@@ -98,16 +98,16 @@ def main() -> int:
     # device-side events only (kernels, copies, memsets): host ops also carry
     # their kernels' device time and would count it twice
     kernels = [e for e in prof.key_averages()
-               if str(e.device_type).endswith('CUDA') and _device_us(e) > 0]
-    device_ms = sum(_device_us(e) for e in kernels) / 1e3
+               if str(e.device_type).endswith('CUDA') and device_us(e) > 0]
+    device_ms = sum(device_us(e) for e in kernels) / 1e3
     launches = sum(e.count for e in kernels)
-    top = sorted(kernels, key=_device_us, reverse=True)[:12]
+    top = sorted(kernels, key=device_us, reverse=True)[:12]
     print(json.dumps({
         'card': card, 'num_envs': args.num_envs, 'steps': args.steps,
         'wall_ms_profiled': wall_ms, 'device_busy_ms': device_ms,
         'device_idle_share': 1.0 - device_ms / wall_ms,
         'kernel_launches_per_step': launches / args.steps,
-        'top_kernels': [dict(name=e.key[:90], device_ms=_device_us(e) / 1e3,
+        'top_kernels': [dict(name=e.key[:90], device_ms=device_us(e) / 1e3,
                              count=e.count) for e in top]}))
     return 0
 

@@ -1,0 +1,388 @@
+"""Proximal Policy Optimization (counterpart of molgym_tpu/rl/ppo.py), with
+the same training semantics:
+
+  * clipped surrogate + value MSE + entropy bonus
+  * gradients ACCUMULATE (sum) across all minibatches of an epoch, with ONE
+    clipped optimizer step per epoch
+  * the epoch loop stops when the epoch's mean approx-KL exceeds
+    1.5 * target_kl, checked on the pre-step parameters BEFORE the step: the
+    epoch that trips it computed its gradients but does not step, and the
+    reported info comes from the last epoch that stepped
+  * minibatches are a fresh permutation each epoch; the remainder forms a
+    final batch padded with zero-weight samples, and each minibatch's
+    weights are normalized by max(sum of weights, 1)
+
+The JAX package compiles the update as one XLA program (lax.scan over epochs
+with an `active` flag); here it is a Python loop over epochs and minibatches
+with autograd that breaks at the KL stop. The optimizer is optax's
+clip_by_global_norm followed by adam or amsgrad, written out (see
+`Optimizer`).
+"""
+from __future__ import annotations
+
+import logging
+import time
+from typing import Callable, Dict, Iterable, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from molgym_tpu_torch.envs.environment import MolecularEnv
+from molgym_tpu_torch.rl.buffer import (buffer_stats, compute_ppo_data,
+                                        episode_stats)
+from molgym_tpu_torch.rl.rollout import make_rollout_fn
+
+INFO_KEYS = ('policy_loss', 'entropy_loss', 'vf_loss', 'total_loss',
+             'approx_kl', 'clip_fraction')
+
+
+class PPOConfig(NamedTuple):
+    gamma: float = 0.99
+    lam: float = 0.97
+    clip_ratio: float = 0.2
+    vf_coef: float = 0.5
+    entropy_coef: float = 0.0
+    target_kl: float = 0.01
+    gradient_clip: float = 0.5
+    learning_rate: float = 3e-4
+    max_num_train_iters: int = 80
+    mini_batch_size: int = 64
+    amsgrad: bool = False
+
+
+def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(t * t) for t in tensors))
+
+
+class Optimizer:
+    """optax.chain(clip_by_global_norm(max_norm), adam(lr) or amsgrad(lr))
+    over the named parameters of a module, with optax's defaults (b1 0.9,
+    b2 0.999, eps 1e-8, eps_root 0).
+
+    Written out because the obvious torch calls differ from optax:
+    `clip_grad_norm_` scales by max_norm / (norm + 1e-6), optax by
+    max_norm / norm and only when norm >= max_norm; torch's AMSGrad keeps the
+    maximum of the raw second moment, optax the maximum of the bias-corrected
+    one. The state mirrors optax's ScaleByAdamState (count, mu, nu) and, for
+    amsgrad, ScaleByAmsgradState's nu_max."""
+
+    def __init__(self, named_params: Iterable[Tuple[str, nn.Parameter]],
+                 learning_rate: float, max_norm: float, amsgrad: bool = False,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+        self.params: Dict[str, nn.Parameter] = dict(named_params)
+        self.learning_rate = learning_rate
+        self.max_norm = max_norm
+        self.amsgrad = amsgrad
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.count = 0
+        self.mu = {k: torch.zeros_like(p) for k, p in self.params.items()}
+        self.nu = {k: torch.zeros_like(p) for k, p in self.params.items()}
+        self.nu_max = ({k: torch.zeros_like(p) for k, p in self.params.items()}
+                       if amsgrad else None)
+
+    def _bias_correction(self, decay: float) -> float:
+        # optax computes 1 - decay**count in float32
+        return float(np.float32(1.0) - np.float32(decay) ** np.float32(self.count))
+
+    @torch.no_grad()
+    def step(self, grads: Dict[str, torch.Tensor]) -> None:
+        """One update of every parameter from its gradient in `grads`."""
+        norm = global_norm(grads.values())
+        keep = norm < self.max_norm
+        self.count += 1
+        c1 = self._bias_correction(self.b1)
+        c2 = self._bias_correction(self.b2)
+        for name, p in self.params.items():
+            g = grads[name]
+            g = torch.where(keep, g, (g / norm) * self.max_norm)
+            mu, nu = self.mu[name], self.nu[name]
+            mu.copy_((1 - self.b1) * g + self.b1 * mu)
+            nu.copy_((1 - self.b2) * (g * g) + self.b2 * nu)
+            nu_hat = nu / c2
+            if self.nu_max is not None:
+                nu_hat = torch.maximum(self.nu_max[name], nu_hat)
+                self.nu_max[name].copy_(nu_hat)
+            p.add_((mu / c1) / (torch.sqrt(nu_hat) + self.eps) *
+                   -self.learning_rate)
+
+    def state_dict(self) -> dict:
+        out = {'count': self.count, 'mu': dict(self.mu), 'nu': dict(self.nu)}
+        if self.nu_max is not None:
+            out['nu_max'] = dict(self.nu_max)
+        return out
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        if ('nu_max' in state) != self.amsgrad:
+            raise ValueError('optimizer state of '
+                             f'{"amsgrad" if "nu_max" in state else "adam"} '
+                             f'for an {"amsgrad" if self.amsgrad else "adam"} '
+                             'optimizer')
+        self.count = int(state['count'])
+        for key in ('mu', 'nu') + (('nu_max', ) if self.amsgrad else ()):
+            ours = getattr(self, key)
+            if set(state[key]) != set(ours):
+                raise KeyError(f'optimizer state {key}: parameter names '
+                               'differ from the model\'s')
+            for name, t in ours.items():
+                t.copy_(state[key][name])
+
+
+def make_optimizer(config: PPOConfig, agent: nn.Module) -> Optimizer:
+    """clip-by-global-norm + (ams)adam over the agent's parameters."""
+    return Optimizer(agent.named_parameters(), config.learning_rate,
+                     config.gradient_clip, amsgrad=config.amsgrad)
+
+
+def make_loss_fn(agent: nn.Module, config: PPOConfig) -> Callable:
+    """loss_fn(obs, act, old_logp, adv, ret, weights) -> (loss, info) at the
+    agent's current parameters; info values are detached."""
+
+    def loss_fn(obs, act, old_logp, adv, ret, weights):
+        logp, ent, v = agent.evaluate(obs, act)
+        w = weights / weights.sum().clamp(min=1.0)
+        ratio = torch.exp(logp - old_logp)
+        obj = ratio * adv
+        clipped_obj = ratio.clamp(1 - config.clip_ratio,
+                                  1 + config.clip_ratio) * adv
+        policy_loss = -(w * torch.minimum(obj, clipped_obj)).sum()
+        entropy_loss = -config.entropy_coef * (w * ent).sum()
+        vf_loss = config.vf_coef * (w * torch.square(v - ret)).sum()
+        loss = policy_loss + entropy_loss + vf_loss
+        with torch.no_grad():
+            approx_kl = (w * (old_logp - logp)).sum()
+            clipped = ((ratio < 1 - config.clip_ratio) |
+                       (ratio > 1 + config.clip_ratio))
+            clip_fraction = (w * clipped.to(w.dtype)).sum()
+        info = dict(policy_loss=policy_loss.detach(),
+                    entropy_loss=entropy_loss.detach(),
+                    vf_loss=vf_loss.detach(), total_loss=loss.detach(),
+                    approx_kl=approx_kl, clip_fraction=clip_fraction)
+        return loss, info
+
+    return loss_fn
+
+
+def make_train_fn(agent: nn.Module, optimizer: Optimizer, config: PPOConfig,
+                  num_samples: int) -> Callable:
+    """Returns train(data, generator) -> info, which updates the agent's
+    parameters and the optimizer state in place. num_samples = T * B.
+
+    info holds the losses of the last epoch that stepped, its grad_norm,
+    num_opt_steps, and num_grad_passes: the epochs whose gradients were
+    computed (the steps, plus one when the KL stop fired)."""
+    loss_fn = make_loss_fn(agent, config)
+    params = optimizer.params
+    mb = min(config.mini_batch_size, num_samples)
+    num_batches = -(-num_samples // mb)
+    pad = num_batches * mb - num_samples
+
+    def epoch_grads(data, generator):
+        device = data['adv'].device
+        perm = torch.randperm(num_samples, generator=generator, device=device)
+        # pad with arbitrary (weight-0) indices so every batch has size mb
+        idx = (torch.cat([perm, perm[:pad]]) if pad else perm).reshape(
+            num_batches, mb)
+        weights = torch.ones((num_batches, mb), device=device)
+        if pad:
+            weights[-1, mb - pad:] = 0.0
+        for p in params.values():
+            p.grad = None
+        info_sum = dict.fromkeys(INFO_KEYS, 0.0)
+        for b in range(num_batches):
+            i = idx[b]
+            loss, info = loss_fn(data['obs'].map(lambda x: x[i]),
+                                 data['act'][i], data['logp'][i],
+                                 data['adv'][i], data['ret'][i], weights[b])
+            loss.backward()   # sums into .grad over the epoch's minibatches
+            info_sum = {k: info_sum[k] + info[k] for k in INFO_KEYS}
+        grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for k, p in params.items()}
+        return grads, {k: v / num_batches for k, v in info_sum.items()}
+
+    def train(data, generator: torch.Generator) -> Dict[str, float]:
+        last_info = dict.fromkeys(INFO_KEYS + ('grad_norm', ), 0.0)
+        num_opt_steps = num_grad_passes = 0
+        for _ in range(config.max_num_train_iters):
+            grads, info = epoch_grads(data, generator)
+            num_grad_passes += 1
+            info['grad_norm'] = global_norm(grads.values())
+            info = {k: float(v) for k, v in info.items()}
+            if not info['approx_kl'] <= 1.5 * config.target_kl:
+                break
+            optimizer.step(grads)
+            num_opt_steps += 1
+            last_info = info
+        for p in params.values():
+            p.grad = None
+        return dict(last_info, num_opt_steps=num_opt_steps,
+                    num_grad_passes=num_grad_passes)
+
+    return train
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == 'cuda':
+        torch.cuda.synchronize(device)
+
+
+def _episodes(traj, gamma: float) -> Tuple[list, list]:
+    return episode_stats(traj.rewards.cpu().numpy(),
+                         traj.terminals.cpu().numpy(), gamma)
+
+
+def _episode_info(returns: list, lengths: list) -> dict:
+    nan = float('nan')
+    return {
+        'return_mean': float(np.mean(returns)) if returns else nan,
+        'return_std': float(np.std(returns)) if returns else nan,
+        'episode_length_mean': float(np.mean(lengths)) if lengths else nan,
+        'episode_length_std': float(np.std(lengths)) if lengths else nan,
+    }
+
+
+def batch_ppo(
+    envs: MolecularEnv,
+    eval_envs: Optional[MolecularEnv],
+    agent: nn.Module,
+    *,
+    optimizer: Optional[Optimizer] = None,
+    num_envs: int,
+    num_eval_envs: int = 1,
+    config: PPOConfig = PPOConfig(),
+    start_num_steps: int = 0,
+    max_num_steps: int = 4096,
+    num_steps_per_iter: int = 200,
+    save_freq: int = 5,
+    eval_freq: int = 10,
+    num_eval_episodes: int = 1,
+    model_handler=None,
+    rollout_saver=None,
+    save_train_rollout: bool = False,
+    save_eval_rollout: bool = True,
+    info_saver=None,
+    seed: int = 0,
+    eval_sample_k: int = 0,
+) -> Tuple[nn.Module, Optimizer]:
+    """Top-level PPO loop: alternate the rollout and the multi-epoch update
+    on the agent's device, with JSONL metrics, periodic evaluation and
+    checkpointing on the host. Returns the trained agent and its optimizer.
+    The device rewards only: the JAX loop's host-reward transports and data
+    parallelism (`host_loop_calculator`, `mesh`) are ROADMAP.md Queue 2
+    items 4 and 8.
+
+    eval_sample_k = 0 (default) evaluates greedily; K > 0 samples K episodes
+    per eval formula and adds `return_best_mean`, the mean over formulas of
+    each formula's best return.
+
+    The opt stream's `iteration_time` is the rollout plus the update, host
+    clock, synchronized."""
+    if num_steps_per_iter % num_envs != 0:
+        raise ValueError('num_steps_per_iter must be divisible by num_envs')
+    steps_per_env = num_steps_per_iter // num_envs
+    device = next(agent.parameters()).device
+
+    if optimizer is None:
+        optimizer = make_optimizer(config, agent)
+    rollout_fn = make_rollout_fn(envs, agent, steps_per_env)
+    train_fn = make_train_fn(agent, optimizer, config, num_steps_per_iter)
+
+    eval_rollout_fn = None
+    if eval_envs is not None:
+        # every episode ends within canvas_size + 1 steps (each step places
+        # an atom or ends the episode), so this many steps with auto-reset
+        # complete at least the required episodes; the first are kept
+        total_eval_episodes = num_eval_episodes * max(1, eval_sample_k)
+        eval_steps = total_eval_episodes * (eval_envs.canvas_size + 1)
+        eval_rollout_fn = make_rollout_fn(eval_envs, agent, eval_steps,
+                                          deterministic=eval_sample_k == 0)
+
+    generator = torch.Generator(device=device).manual_seed(seed)
+    states = envs.init_states(num_envs)
+    eval_states = (eval_envs.init_states(num_eval_envs)
+                   if eval_envs is not None else None)
+
+    total_num_steps = start_num_steps
+    num_iterations = (max_num_steps - total_num_steps) // num_steps_per_iter
+    logging.info('Starting PPO')
+
+    for iteration in range(num_iterations):
+        logging.info(f'Iteration: {iteration}/{num_iterations - 1}, '
+                     f'steps: {total_num_steps}')
+
+        # -- training rollout
+        _sync(device)
+        t_iter = t0 = time.perf_counter()
+        states, traj = rollout_fn(agent, states, generator)
+        returns, lengths = _episodes(traj, config.gamma)
+        train_info = {'time': time.perf_counter() - t0,
+                      **_episode_info(returns, lengths)}
+        logging.info(f'Training rollout: return={train_info["return_mean"]:.3f} '
+                     f'({train_info["return_std"]:.1f}), episode '
+                     f'length={train_info["episode_length_mean"]:.1f}')
+        if info_saver:
+            train_info['total_num_steps'] = total_num_steps
+            train_info.update(buffer_stats(traj))
+            info_saver.save(train_info, name='train')
+        if rollout_saver and save_train_rollout:
+            rollout_saver.save(traj.to_numpy(), num_steps=total_num_steps,
+                               info='train')
+
+        # -- optimize
+        t0 = time.perf_counter()
+        data = compute_ppo_data(traj, config.gamma, config.lam)
+        opt_info = train_fn(data, generator)
+        _sync(device)
+        opt_info['time'] = time.perf_counter() - t0
+        opt_info['iteration_time'] = time.perf_counter() - t_iter
+        logging.info(
+            f'Optimization: policy loss={opt_info["policy_loss"]:.3f}, '
+            f'vf loss={opt_info["vf_loss"]:.3f}, total loss='
+            f'{opt_info["total_loss"]:.3f}, num steps='
+            f'{opt_info["num_opt_steps"]}')
+        if info_saver:
+            opt_info['total_num_steps'] = total_num_steps
+            info_saver.save(opt_info, name='opt')
+
+        total_num_steps += num_steps_per_iter
+
+        # -- evaluation
+        if eval_rollout_fn is not None and (
+                iteration % eval_freq == 0 or iteration == num_iterations - 1):
+            eval_states, eval_traj = eval_rollout_fn(agent, eval_states,
+                                                     generator)
+            e_returns, e_lengths = _episodes(eval_traj, config.gamma)
+            if len(e_returns) < total_eval_episodes:
+                raise RuntimeError(
+                    f'eval rollout of {eval_steps} steps completed only '
+                    f'{len(e_returns)} episodes: the canvas_size + 1 '
+                    'episode-length bound was violated')
+            e_returns = e_returns[:total_eval_episodes]
+            eval_info = _episode_info(e_returns,
+                                      e_lengths[:total_eval_episodes])
+            if eval_sample_k > 0:
+                # episodes cycle the eval formulas in order, so episode i
+                # belongs to formula i % num_eval_episodes
+                per_formula = np.asarray(e_returns).reshape(
+                    eval_sample_k, num_eval_episodes)
+                eval_info['return_best_mean'] = float(
+                    np.mean(per_formula.max(axis=0)))
+            logging.info(f'Evaluation rollout: return='
+                         f'{eval_info["return_mean"]:.3f} '
+                         f'({eval_info["return_std"]:.1f})')
+            if info_saver:
+                eval_info['total_num_steps'] = total_num_steps
+                eval_info.update(buffer_stats(eval_traj))
+                info_saver.save(eval_info, name='eval')
+            if rollout_saver and save_eval_rollout:
+                rollout_saver.save(eval_traj.to_numpy(),
+                                   num_steps=total_num_steps, info='eval')
+
+        # -- checkpoint
+        if model_handler and (iteration % save_freq == 0
+                              or iteration == num_iterations - 1):
+            model_handler.save(agent, optimizer, num_steps=total_num_steps)
+
+    logging.info('Finished PPO')
+    return agent, optimizer

@@ -16,10 +16,13 @@ from molgym_tpu_torch.spaces import Observation
 
 
 def make_rollout_fn(env: MolecularEnv, agent: nn.Module,
-                    num_steps_per_env: int) -> Callable:
+                    num_steps_per_env: int,
+                    deterministic: bool = False) -> Callable:
     """Returns rollout(params_or_module, states, generator) ->
     (states, Trajectory). `params_or_module` is the agent itself (or another
-    module of its kind) or a state_dict to load into `agent` first."""
+    module of its kind) or a state_dict to load into `agent` first.
+    `deterministic` takes the policy's mode at every step (greedy
+    evaluation) instead of sampling."""
 
     def rollout(params, states: EnvState,
                 generator: torch.Generator) -> Tuple[EnvState, Trajectory]:
@@ -33,7 +36,7 @@ def make_rollout_fn(env: MolecularEnv, agent: nn.Module,
         with torch.no_grad():
             states, obs = env.reset(states)
             for _ in range(num_steps_per_env):
-                out = module.act(obs, generator)
+                out = module.act(obs, generator, deterministic)
                 result = env.step(states, out.element, out.position)
                 obs_seq.append(obs)
                 next_obs_seq.append(result.observation)

@@ -1,0 +1,27 @@
+"""Single/multi-bag training run of the port (counterpart of scripts/run.py).
+
+The canonical SF6 covariant run, on the card:
+
+    python3 -m molgym_tpu_torch.run --name=sf6 --formulas=SF6 \\
+        --canvas_size=7 --symbols=X,S,F --bag_scale=5 --model=covariant \\
+        --beta=-10 --min_mean_distance=1.10 --max_mean_distance=2.10 \\
+        --num_envs=10 --num_steps_per_iter=140 --mini_batch_size=140 \\
+        --reward=device_lj --num_steps=50000
+
+Add `--device=cpu` to run on the CPU (slow; for tiny configurations).
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+from molgym_tpu_torch.tools.arg_parser import build_default_argparser
+from molgym_tpu_torch.tools.driver import run_experiment, standard_envs
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    config = vars(build_default_argparser().parse_args(argv))
+    run_experiment(config, env_builder=standard_envs)
+
+
+if __name__ == '__main__':
+    main()

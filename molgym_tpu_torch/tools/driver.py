@@ -1,0 +1,148 @@
+"""Experiment driver (counterpart of molgym_tpu/tools/driver.py): directories,
+logger, config snapshot, seeds, device, spaces, reward, model build or
+resume, and the PPO launch.
+
+The port runs the on-device rewards only; `arg_parser.check_supported`
+refuses every option it does not run yet before anything is built."""
+from __future__ import annotations
+
+import logging
+from typing import Callable, Tuple
+
+import numpy as np
+import torch
+
+from molgym_tpu_torch.device import DeviceLike, resolve_device
+from molgym_tpu_torch.envs import reward as device_reward
+from molgym_tpu_torch.envs.environment import MolecularEnv
+from molgym_tpu_torch.envs.reward import RewardFn
+from molgym_tpu_torch.formula import string_to_formula
+from molgym_tpu_torch.periodic import ATOMIC_NUMBERS
+from molgym_tpu_torch.rl.ppo import PPOConfig, batch_ppo, make_optimizer
+from molgym_tpu_torch.spaces import ObservationSpace
+from molgym_tpu_torch.tools import util
+from molgym_tpu_torch.tools.arg_parser import check_supported
+from molgym_tpu_torch.tools.model_io import ModelIO
+from molgym_tpu_torch.tools.model_util import build_model
+
+
+def symbols_to_zs(symbols: str):
+    """'X,H,C,N,O,F' -> [0, 1, 6, 7, 8, 9]."""
+    return [ATOMIC_NUMBERS[s.strip()] for s in symbols.split(',')]
+
+
+def make_reward_fn(config: dict) -> RewardFn:
+    """The batched device reward of `config['reward']`."""
+    backend = config.get('reward', 'sparrow')
+    if backend == 'device_lj':
+        return device_reward.make_lennard_jones_reward()
+    if backend == 'device_morse':
+        return device_reward.make_morse_reward()
+    raise NotImplementedError(
+        f"reward '{backend}' is not yet ported (host rewards: ROADMAP.md "
+        'Queue 2 item 4); use device_lj or device_morse')
+
+
+EnvBuilder = Callable[[dict, ObservationSpace, RewardFn, torch.device],
+                      Tuple[MolecularEnv, MolecularEnv]]
+
+
+def standard_envs(config: dict, observation_space: ObservationSpace,
+                  reward_fn: RewardFn, device: torch.device
+                  ) -> Tuple[MolecularEnv, MolecularEnv]:
+    """Training and evaluation environments over comma-separated bags."""
+
+    def env(strings: str) -> MolecularEnv:
+        bags = np.stack([observation_space.bag_from_formula(string_to_formula(s))
+                         for s in strings.split(',')])
+        return MolecularEnv(
+            reward_fn=reward_fn, observation_space=observation_space,
+            formulas=bags, min_atomic_distance=config['min_atomic_distance'],
+            max_solo_distance=config['max_solo_distance'],
+            min_reward=config['min_reward'], device=device)
+
+    return (env(config['formulas']),
+            env(config.get('eval_formulas') or config['formulas']))
+
+
+def ppo_config_from(config: dict) -> PPOConfig:
+    return PPOConfig(
+        gamma=config['discount'], lam=config['lam'],
+        clip_ratio=config['clip_ratio'], vf_coef=config['vf_coef'],
+        entropy_coef=config['entropy_coef'], target_kl=config['target_kl'],
+        gradient_clip=config['gradient_clip'],
+        learning_rate=config['learning_rate'],
+        max_num_train_iters=config['max_num_train_iters'],
+        mini_batch_size=config['mini_batch_size'],
+        amsgrad=config.get('optimizer', 'adam') == 'amsgrad')
+
+
+def run_experiment(config: dict, env_builder: EnvBuilder = standard_envs,
+                   device: DeviceLike = None):
+    """Trains as `config` says and returns (agent, optimizer). `device`
+    (else config['device']) is cuda unless it names the CPU; without a
+    visible card, cuda raises."""
+    check_supported(config)
+    device = resolve_device(device if device is not None
+                            else config.get('device'))
+    util.create_directories([config['log_dir'], config['model_dir'],
+                             config['data_dir'], config['results_dir']])
+    tag = util.get_tag(config)
+    util.setup_logger(config, directory=config['log_dir'], tag=tag)
+    util.save_config(config, directory=config['log_dir'], tag=tag)
+    util.set_seeds(config['seed'])
+    logging.info(f'Device: {device}' + (
+        f' ({torch.cuda.get_device_name(device)})' if device.type == 'cuda'
+        else ''))
+
+    observation_space = ObservationSpace(canvas_size=config['canvas_size'],
+                                         zs=symbols_to_zs(config['symbols']))
+    reward_fn = make_reward_fn(config)
+    train_env, eval_env = env_builder(config, observation_space, reward_fn,
+                                      device)
+
+    agent = build_model(config, observation_space, device=device)
+    logging.info(f'Model parameters: {util.count_params(agent)}')
+    ppo_config = ppo_config_from(config)
+    optimizer = make_optimizer(ppo_config, agent)
+
+    model_handler = ModelIO(directory=config['model_dir'], tag=tag,
+                            keep=config.get('keep_models', False))
+    start_num_steps = 0
+    if config.get('load_latest') or config.get('load_model'):
+        if config.get('load_latest'):
+            state, start_num_steps = model_handler.load_latest(device)
+        else:
+            state, start_num_steps = model_handler.load(config['load_model'],
+                                                        device)
+        agent.load_state_dict(state['model'])
+        if 'optimizer' in state:
+            optimizer.load_state_dict(state['optimizer'])
+
+    save_mode = config.get('save_rollouts', 'none')
+    rollout_saver = (util.RolloutSaver(directory=config['data_dir'], tag=tag)
+                     if save_mode != 'none' else None)
+    info_saver = util.InfoSaver(directory=config['results_dir'], tag=tag)
+
+    return batch_ppo(
+        train_env, eval_env, agent,
+        optimizer=optimizer,
+        num_envs=config['num_envs'],
+        num_eval_envs=1,
+        config=ppo_config,
+        start_num_steps=start_num_steps,
+        max_num_steps=config['max_num_steps'],
+        num_steps_per_iter=config['num_steps_per_iter'],
+        save_freq=config['save_freq'],
+        eval_freq=config['eval_freq'],
+        # one greedy episode per eval formula by default
+        num_eval_episodes=(config.get('num_eval_episodes')
+                           or int(eval_env.formulas.shape[0])),
+        eval_sample_k=config.get('eval_sample_k', 0) or 0,
+        model_handler=model_handler,
+        rollout_saver=rollout_saver,
+        save_train_rollout=save_mode in ('train', 'all'),
+        save_eval_rollout=save_mode in ('eval', 'all'),
+        info_saver=info_saver,
+        seed=config['seed'],
+    )

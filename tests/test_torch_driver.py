@@ -1,0 +1,127 @@
+"""The port's experiment driver on the CPU: the CLI's flags, a tiny covariant
+run of two PPO iterations through `run_experiment` with its JSON-lines
+streams and checkpoint, a resume from that checkpoint, and the refusal of
+every option the port does not run yet."""
+import json
+import pickle
+
+import pytest
+import torch
+
+from molgym_tpu.tools.arg_parser import \
+    build_default_argparser as jax_argparser
+from molgym_tpu_torch import run
+from molgym_tpu_torch.tools.arg_parser import (build_default_argparser,
+                                               check_supported)
+from molgym_tpu_torch.tools.driver import run_experiment
+from molgym_tpu_torch.tools.model_io import ModelIO
+
+TINY = ['--name=tiny', '--formulas=H2O,OH2', '--canvas_size=3',
+        '--symbols=X,H,O', '--bag_scale=3', '--model=covariant', '--maxl=2',
+        '--num_cg_levels=2', '--network_width=16', '--num_channels_hidden=3',
+        '--num_channels_per_element=2', '--num_gaussians=2',
+        '--reward=device_lj', '--num_envs=4', '--num_steps_per_iter=8',
+        '--mini_batch_size=6', '--max_num_train_iters=2', '--save_freq=1',
+        '--eval_freq=1', '--seed=1', '--save_rollouts=all']
+
+
+def _config(tmp_path, *extra):
+    dirs = [f'--{d}_dir={tmp_path / d}' for d in ('log', 'model', 'data',
+                                                  'results')]
+    return vars(build_default_argparser().parse_args(TINY + dirs + list(extra)))
+
+
+def _lines(path):
+    return [json.loads(line) for line in path.read_text().splitlines()]
+
+
+def test_flags_and_defaults_match_the_jax_cli():
+    """Every flag of the JAX CLI exists with the same default, except the
+    device, which names the card."""
+    args = ['--name=x', '--formulas=SF6', '--bag_scale=5']
+    ours = vars(build_default_argparser().parse_args(args))
+    ref = vars(jax_argparser().parse_args(args))
+    assert set(ours) == set(ref)
+    assert ours.pop('device') == 'cuda'
+    ref.pop('device')
+    assert ours == ref
+
+
+def test_run_experiment_trains_saves_and_resumes(tmp_path):
+    config = _config(tmp_path, '--num_steps=16')
+    agent, optimizer = run_experiment(config, device='cpu')
+    results = tmp_path / 'results'
+    opt = _lines(results / 'tiny_run-1_opt.txt')
+    train = _lines(results / 'tiny_run-1_train.txt')
+    evals = _lines(results / 'tiny_run-1_eval.txt')
+    assert [r['total_num_steps'] for r in opt] == [0, 8]
+    assert len(train) == len(evals) == 2
+    for rec in opt:
+        assert rec['num_opt_steps'] >= 1
+        assert all(v == v for v in rec.values())   # no NaN
+    assert optimizer.count == sum(r['num_opt_steps'] for r in opt)
+    assert (tmp_path / 'log' / 'tiny_run-1.json').exists()
+    with open(tmp_path / 'data' / 'tiny_run-1_steps-8_eval.pkl', 'rb') as f:
+        rollout = pickle.load(f)
+    assert rollout['obs']['elements'].shape[1:] == (1, 3)   # [T, 1 env, N]
+    # a training rollout is saved at the steps it starts from, an eval
+    # rollout at the steps after the update
+    assert {p.name for p in (tmp_path / 'data').iterdir()} == {
+        'tiny_run-1_steps-0_train.pkl', 'tiny_run-1_steps-8_train.pkl',
+        'tiny_run-1_steps-8_eval.pkl', 'tiny_run-1_steps-16_eval.pkl'}
+
+    # one checkpoint is kept, at 16 steps, and it holds the final state
+    models = sorted(p.name for p in (tmp_path / 'model').iterdir())
+    assert models == ['tiny_run-1_steps-16.model']
+    state, steps = ModelIO(tmp_path / 'model', 'tiny_run-1').load_latest()
+    assert steps == 16 and state['optimizer']['count'] == optimizer.count
+    for k, v in agent.state_dict().items():
+        torch.testing.assert_close(state['model'][k], v, rtol=0, atol=0)
+
+    # resume: one more iteration, from the checkpoint's step count and state
+    resumed, opt2 = run_experiment(
+        _config(tmp_path, '--num_steps=24', '--load_latest'), device='cpu')
+    opt = _lines(results / 'tiny_run-1_opt.txt')
+    assert [r['total_num_steps'] for r in opt] == [0, 8, 16]
+    assert opt2.count == optimizer.count + opt[-1]['num_opt_steps']
+    # as in the JAX package, a new run deletes only checkpoints it wrote
+    assert sorted(p.name for p in (tmp_path / 'model').iterdir()) == [
+        'tiny_run-1_steps-16.model', 'tiny_run-1_steps-24.model']
+    assert any(not torch.equal(v, resumed.state_dict()[k])
+               for k, v in agent.state_dict().items())
+
+
+def test_sampled_evaluation_reports_the_best_return(tmp_path):
+    """--eval_sample_k=3 samples 3 episodes for each of the 2 eval formulas
+    and adds the mean over formulas of each one's best return."""
+    run_experiment(_config(tmp_path, '--num_steps=8', '--eval_sample_k=3',
+                           '--save_rollouts=none'), device='cpu')
+    (rec, ) = _lines(tmp_path / 'results' / 'tiny_run-1_eval.txt')
+    assert rec['return_best_mean'] >= rec['return_mean']
+    assert not (tmp_path / 'data').exists() or not any(
+        (tmp_path / 'data').iterdir())
+
+
+def test_run_main_parses_the_cli(tmp_path, monkeypatch):
+    seen = {}
+    monkeypatch.setattr(run, 'run_experiment',
+                        lambda config, env_builder: seen.update(config))
+    run.main(TINY + ['--device=cpu'])
+    assert seen['model'] == 'covariant' and seen['device'] == 'cpu'
+
+
+@pytest.mark.parametrize('flag,match', [
+    ('--reward=sparrow', 'Queue 2 item 4'), ('--reward=pm6', 'Queue 2 item 4'),
+    ('--reward=lj', 'Queue 2 item 4'), ('--model=internal', 'Queue 2 item 6'),
+    ('--encoder_dtype=bfloat16', 'Queue 1 item 4, bf16'),
+    ('--num_devices=4', 'Queue 2 item 8'), ('--multihost', 'Queue 2 item 8'),
+    ('--tensorboard', 'tensorboard'), ('--agg_backend=einsum', 'agg_backend'),
+    ('--profile', 'profile'),
+    ('--host_reward_mode=loop', 'Queue 2 item 4')])
+def test_unported_options_are_refused(tmp_path, flag, match):
+    config = _config(tmp_path, flag)
+    with pytest.raises(NotImplementedError, match=match):
+        check_supported(config)
+    with pytest.raises(NotImplementedError, match=match):
+        run_experiment(config, device='cpu')
+    assert not (tmp_path / 'results').exists()

@@ -46,10 +46,41 @@ def test_port_imports_no_jax_and_no_reference_package():
 
 def test_kernel_sources_are_in_the_package():
     from molgym_tpu_torch import cuda_build
+    assert set(cuda_build.KERNEL_SOURCES) == {
+        'cg_aggregate', 'cg_square', 'cg_aggregate_bwd', 'cg_square_bwd'}
+    assert sorted(p.stem for p in cuda_build.CSRC.glob('*.cu')) == sorted(
+        cuda_build.KERNEL_SOURCES)
     for name in cuda_build.KERNEL_SOURCES:
         src = cuda_build.CSRC / f'{name}.cu'
         assert src.exists()
         assert 'extern "C"' in src.read_text()
+
+
+def test_new_entry_points_are_scanned():
+    names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    for module in ('rl/ppo.py', 'rl/buffer.py', 'ops/scan_math.py',
+                   'tools/driver.py', 'tools/model_io.py', 'tools/util.py',
+                   'tools/model_util.py', 'tools/arg_parser.py', 'run.py'):
+        assert f'molgym_tpu_torch/{module}' in names
+
+
+def test_run_experiment_refuses_cpu_without_device(monkeypatch, tmp_path):
+    """No device named (or cuda named) and no card: the driver raises
+    before it writes anything."""
+    from molgym_tpu_torch.tools.arg_parser import build_default_argparser
+    from molgym_tpu_torch.tools.driver import run_experiment
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    config = vars(build_default_argparser().parse_args([
+        '--name=x', '--formulas=H2O', '--bag_scale=3', '--symbols=X,H,O',
+        '--canvas_size=3', '--model=covariant', '--reward=device_lj',
+        f'--results_dir={tmp_path / "results"}']))
+    assert config['device'] == 'cuda'
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        run_experiment(config)
+    config.pop('device')
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        run_experiment(config)
+    assert not (tmp_path / 'results').exists()
 
 
 def test_entry_points_refuse_cpu_without_device(monkeypatch):
