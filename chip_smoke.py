@@ -7,11 +7,20 @@ Phases, each of which fails the run (non-zero exit) if it fails:
   2. build the port's CUDA kernels from molgym_tpu_torch/csrc, all nvcc
      processes at once;
   3. hold each kernel against its plain PyTorch version on the card at the
-     SF6 shapes of the main path (fused CG aggregate at levels 0 and 1-2,
-     B = 140 and B = 9; tri-fold CG square at tau = 10 and 12), and time the
-     kernel, the plain version and one library call computing the same
-     contraction (torch.einsum on complex tensors, a yardstick the port never
-     calls);
+     shapes of both main paths, forward and backward, and time the kernel,
+     the plain version and one library call computing the same function (a
+     yardstick the port never calls):
+       - fused CG aggregate at SF6 levels 0 and 1-2, B = 140 and B = 9, and
+         the tri-fold CG square at tau = 10 and 12; both again at the
+         stochastic configuration's M = 16, N = 10 (library: torch.einsum on
+         complex tensors, and its torch.autograd.grad);
+       - the channel-wise CG product of the policy's mixer, (1,25,25) and
+         (25,25,375) at 560 rows, 40 rows, the stochastic configuration's
+         M = 16, and a row count no tile divides (library: one complex
+         einsum against the dense table);
+       - the masked softmax of the focus and element heads at [140,7],
+         [140,3], [140,10], [140,4], [8192,128] and [33,200], some rows
+         fully masked (library: torch.softmax of the masked_fill-ed logits);
   4. the main path: a 140-env x 14-step rollout of the SF6 covariant agent
      (bench.py's configuration, random weights from a seed) with the
      Lennard-Jones reward, through make_rollout_fn; the kernels' launch
@@ -19,19 +28,24 @@ Phases, each of which fails the run (non-zero exit) if it fails:
   5. the rollout's outputs: finite rewards, log-probs and values, every
      episode ended within SF6's 7 atoms, and the agent on the card agrees
      with the same agent on the CPU (plain versions) on the rollout's data;
-  6. the two backward kernels against their plain backward versions at the
-     same shapes, timed against the plain versions and the backward of the
-     library yardstick (torch.autograd.grad of the complex einsum);
-  7. bench.py's loss on a minibatch of 140 at SF6 width: every parameter's
+  6. bench.py's loss on a minibatch of 140 at SF6 width, and the same loss
+     at the stochastic-bag configuration's width: every parameter's
      gradient on the card within 1e-3 of that leaf's max |g| on the CPU,
      none missing; the median ms of one fwd+bwd, and its launches and the
      device's idle share under torch.profiler;
-  8. the training path: 3 PPO iterations of the canonical SF6 run
+  7. the training path: 3 PPO iterations of the canonical SF6 run
      (README.md's command with the device LJ reward) through
-     tools.driver.run_experiment into a temporary directory, with the launch
+     molgym_tpu_torch.run into a temporary directory, with the launch
      counts zeroed just before and read just after: finite losses, a step in
      every update, changed weights, a checkpoint that loads back equal, and
-     launch counts equal to what the iterations imply.
+     launch counts equal to what the iterations imply;
+  8. the second configuration, the stochastic-bag run at its recorded width
+     (experiments/stochastic/logs/stoch_run-1.json: X,H,C,O; canvas 10;
+     maxl 3; 2 CG levels; bags of 4-8 atoms sampled around C2H6O): a 140-env
+     x 14-step rollout with finite outputs, every bag of 4-8 atoms with even
+     total valence, more than one distinct bag, exact launch counts and the
+     agent on the card against itself on the CPU; then 2 PPO iterations
+     through molgym_tpu_torch.run_stochastic with the checks of phase 7.
 
 The line before the last two is {"kernels": [...]}, then the card's name and
 power limit, and the last line is {"ok": true, "device": {...}}.
@@ -57,6 +71,10 @@ SF6_AGENT = dict(zs=(0, 9, 16), canvas_size=7, network_width=128, maxl=4,
                  num_cg_levels=3, num_channels_hidden=10,
                  num_channels_per_element=4, num_gaussians=3, bag_scale=5,
                  min_max_distance=(1.10, 2.10), beta=-10.0)
+STOCH_AGENT = dict(zs=(0, 1, 6, 8), canvas_size=10, network_width=128, maxl=3,
+                   num_cg_levels=2, num_channels_hidden=10,
+                   num_channels_per_element=4, num_gaussians=3, bag_scale=6,
+                   min_max_distance=(0.9, 1.8), beta=-10.0)
 
 
 def log(*args):
@@ -108,12 +126,11 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def check_aggregate(dev, B, atom_n_ells):
+def check_aggregate(dev, B, atom_n_ells, maxl=4, N=7, tau=10):
     from molgym_tpu_torch.ops import cg, fused_agg
-    maxl, N, tau = 4, 7, 10
     n_ells = maxl + 1
     m1, m2 = n_ells ** 2, atom_n_ells ** 2
-    gen = torch.Generator(device=dev).manual_seed(SEED + B + atom_n_ells)
+    gen = torch.Generator(device=dev).manual_seed(SEED + B + atom_n_ells + N)
     sph = torch.randn((B, N, N, m1, 2), generator=gen, device=dev)
     rad = torch.randn((B, N, N, tau, n_ells), generator=gen, device=dev)
     q_r = torch.randn((B, N, tau, m2), generator=gen, device=dev)
@@ -158,12 +175,12 @@ def check_aggregate(dev, B, atom_n_ells):
     return res
 
 
-def check_square(dev, tau):
+def check_square(dev, tau, maxl=4, N=7):
     from molgym_tpu_torch.ops import cg, fused_agg
-    maxl, B, N = 4, 140, 7
+    B = 140
     n_ells = maxl + 1
     m = n_ells ** 2
-    gen = torch.Generator(device=dev).manual_seed(SEED + tau)
+    gen = torch.Generator(device=dev).manual_seed(SEED + tau + N)
     a_r = torch.randn((B, N, tau, m), generator=gen, device=dev)
     a_i = torch.randn((B, N, tau, m), generator=gen, device=dev)
     table3, _sl = cg._fused_cg_table(n_ells, n_ells, maxl)
@@ -210,13 +227,13 @@ def _library_grad_ms(fn, leaves, grads):
                    stream=side)
 
 
-def check_aggregate_bwd(dev, B, atom_n_ells):
+def check_aggregate_bwd(dev, B, atom_n_ells, maxl=4, N=7, tau=10):
     """The aggregate's backward kernel against its plain backward."""
     from molgym_tpu_torch.ops import cg, fused_agg
-    maxl, N, tau = 4, 7, 10
     n_ells = maxl + 1
     m1, m2 = n_ells ** 2, atom_n_ells ** 2
-    gen = torch.Generator(device=dev).manual_seed(SEED + 7 * B + atom_n_ells)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7 * B + atom_n_ells
+                                                  + N)
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
@@ -264,14 +281,14 @@ def check_aggregate_bwd(dev, B, atom_n_ells):
     return res
 
 
-def check_square_bwd(dev, tau):
+def check_square_bwd(dev, tau, maxl=4, N=7):
     """The square's backward kernel against its plain backward (tri pairs,
     the main path's table mode)."""
     from molgym_tpu_torch.ops import cg, fused_agg
-    maxl, B, N = 4, 140, 7
+    B = 140
     n_ells = maxl + 1
     m = n_ells ** 2
-    gen = torch.Generator(device=dev).manual_seed(SEED + 3 * tau)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3 * tau + N)
     table3, _sl = cg._fused_cg_table(n_ells, n_ells, maxl)
     pairs, groups, _perm, _si = cg.fused_cg_table_tri(n_ells, maxl)
     tri = (pairs, groups)
@@ -307,27 +324,138 @@ def check_square_bwd(dev, tau):
     return res
 
 
-def _bench_batch(seed, batch=140):
-    """Random SF6 canvases, the bench.py recipe (1-7 atoms of F/S, 1-5 F and
-    one S in the bag)."""
+def check_contract(dev, lead, n1, n2, maxl):
+    """The channel-wise CG product's forward and backward kernels against
+    their plain versions at rows = prod(lead); (forward, backward) results."""
+    from molgym_tpu_torch.ops import cg, fused_cg
+    m1, m2 = n1 * n1, n2 * n2
+    rows = int(np.prod(lead))
+    gen = torch.Generator(device=dev).manual_seed(SEED + rows + m1 + m2)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    table3, _sl = cg._fused_cg_table(n1, n2, maxl)
+    k = table3.shape[2]
+    ops = (randn(*lead, m1), randn(*lead, m1), randn(*lead, m2),
+           randn(*lead, m2))
+    g_r, g_i = randn(*lead, k), randn(*lead, k)
+    tabs = fused_cg.kernel_tables(table3, dev)
+    nnz = tabs['coef'].numel()
+    shape = f'rows={rows} M1={m1} M2={m2} K={k} nnz={nnz}'
+
+    out = fused_cg.cg_contract_ri(*ops, table3)
+    torch.cuda.synchronize()
+    ref = fused_cg.cg_contract_ri_plain(*ops, table3)
+    abs_err, rel_err = max_err(out, ref)
+    if not rel_err <= KERNEL_TOL:
+        raise AssertionError(f'contract {shape}: rel err {rel_err}')
+    fwd = dict(shape=shape, max_abs_err=abs_err, max_rel_err=rel_err)
+    fwd['ms'] = time_ms(lambda: fused_cg.cg_contract_ri(*ops, table3))
+    fwd['plain_ms'] = time_ms(
+        lambda: fused_cg.cg_contract_ri_plain(*ops, table3))
+    # library yardstick: ONE complex einsum against the dense table
+    a_c = torch.complex(ops[0], ops[1]).reshape(rows, m1)
+    b_c = torch.complex(ops[2], ops[3]).reshape(rows, m2)
+    c_c = torch.from_numpy(table3).to(dev).to(torch.complex64)
+    fwd['library_ms'] = time_ms(
+        lambda: torch.einsum('rm,rn,mnk->rk', a_c, b_c, c_c))
+    fwd['bound_ms'], fwd['bound_by'] = bound_ms(
+        nbytes(*ops, *out, tabs['colptr'], tabs['ent_m'], tabs['ent_n'],
+               tabs['coef']), rows * nnz * 10)
+
+    got = fused_cg._bwd_kernel(*ops, g_r, g_i, table3)
+    torch.cuda.synchronize()
+    ref = fused_cg.cg_contract_ri_bwd_plain(*ops, g_r, g_i, table3)
+    abs_err, rel_err = max_err(got, ref)
+    if not rel_err <= KERNEL_TOL:
+        raise AssertionError(f'contract bwd {shape}: rel err {rel_err}')
+    bwd = dict(shape=shape, max_abs_err=abs_err, max_rel_err=rel_err)
+    bwd['ms'] = time_ms(lambda: fused_cg._bwd_kernel(*ops, g_r, g_i, table3))
+    bwd['plain_ms'] = time_ms(
+        lambda: fused_cg.cg_contract_ri_bwd_plain(*ops, g_r, g_i, table3))
+    bwd['library_ms'] = _library_grad_ms(
+        lambda a, b: torch.einsum('rm,rn,mnk->rk', a, b, c_c),
+        (a_c.requires_grad_(), b_c.requires_grad_()),
+        torch.complex(g_r, g_i).reshape(rows, k))
+    bwd['bound_ms'], bwd['bound_by'] = bound_ms(
+        nbytes(*ops, g_r, g_i, *got, tabs['rowptr'], tabs['col'],
+               tabs['coef_t']), rows * (nnz * 4 + m1 * m2 * 16))
+    return fwd, bwd
+
+
+def check_softmax(dev, rows, n):
+    """The masked softmax's forward and backward kernels against their plain
+    versions, every 7th row fully masked; (forward, backward) results."""
+    from molgym_tpu_torch.ops import fused_softmax
+    gen = torch.Generator(device=dev).manual_seed(SEED + rows + n)
+    logits = 3.0 * torch.randn((rows, n), generator=gen, device=dev)
+    mask = torch.rand((rows, n), generator=gen, device=dev) > 0.4
+    mask[::7] = False
+    grad = torch.randn((rows, n), generator=gen, device=dev)
+    shape = f'rows={rows} N={n}'
+
+    probs = fused_softmax.masked_softmax(logits, mask)
+    torch.cuda.synchronize()
+    ref = fused_softmax.masked_softmax_plain(logits, mask)
+    abs_err, rel_err = max_err([probs], [ref])
+    if (not rel_err <= KERNEL_TOL or probs[~mask].any()
+            or not torch.isfinite(probs).all()):
+        raise AssertionError(f'softmax {shape}: rel err {rel_err}, or a '
+                             'masked entry is not zero')
+    fwd = dict(shape=shape, max_abs_err=abs_err, max_rel_err=rel_err)
+    fwd['ms'] = time_ms(lambda: fused_softmax.masked_softmax(logits, mask))
+    fwd['plain_ms'] = time_ms(
+        lambda: fused_softmax.masked_softmax_plain(logits, mask))
+    # library yardstick: torch.softmax of the masked_fill-ed logits
+    fwd['library_ms'] = time_ms(
+        lambda: torch.softmax(logits.masked_fill(~mask, -1e9), dim=-1))
+    fwd['bound_ms'], fwd['bound_by'] = bound_ms(nbytes(logits, mask, probs),
+                                                rows * n * 5)
+
+    got = fused_softmax._bwd_kernel(probs, grad)
+    torch.cuda.synchronize()
+    ref = fused_softmax.masked_softmax_bwd_plain(probs, grad)
+    abs_err, rel_err = max_err([got], [ref])
+    if (not rel_err <= KERNEL_TOL or got[~mask].any()
+            or not torch.isfinite(got).all()):
+        raise AssertionError(f'softmax bwd {shape}: rel err {rel_err}, or a '
+                             'masked entry is not zero')
+    bwd = dict(shape=shape, max_abs_err=abs_err, max_rel_err=rel_err)
+    bwd['ms'] = time_ms(lambda: fused_softmax._bwd_kernel(probs, grad))
+    bwd['plain_ms'] = time_ms(
+        lambda: fused_softmax.masked_softmax_bwd_plain(probs, grad))
+    bwd['library_ms'] = _library_grad_ms(
+        lambda x: torch.softmax(x.masked_fill(~mask, -1e9), dim=-1),
+        (logits.clone().requires_grad_(), ), grad)
+    bwd['bound_ms'], bwd['bound_by'] = bound_ms(nbytes(probs, grad, got),
+                                                rows * n * 4)
+    return fwd, bwd
+
+
+def _bench_batch(seed, agent_kwargs, batch=140):
+    """Random canvases, the bench.py recipe (at SF6: 1-7 atoms of F/S, 1-5 F
+    and one S in the bag; a fourth element's count is 0-2)."""
     rng = np.random.RandomState(seed)
-    n_atoms = rng.randint(1, 8, size=batch)
-    elements = np.zeros((batch, 7), np.int64)
-    positions = np.zeros((batch, 7, 3), np.float32)
-    bag = np.zeros((batch, 3), np.int64)
+    canvas, num_zs = agent_kwargs['canvas_size'], len(agent_kwargs['zs'])
+    n_atoms = rng.randint(1, canvas + 1, size=batch)
+    elements = np.zeros((batch, canvas), np.int64)
+    positions = np.zeros((batch, canvas, 3), np.float32)
+    bag = np.zeros((batch, num_zs), np.int64)
     for b in range(batch):
-        elements[b, :n_atoms[b]] = rng.randint(1, 3, size=n_atoms[b])
+        elements[b, :n_atoms[b]] = rng.randint(1, num_zs, size=n_atoms[b])
         positions[b, :n_atoms[b]] = rng.randn(n_atoms[b], 3) * 1.2
         bag[b, 1] = rng.randint(1, 6)
         bag[b, 2] = 1
+        if num_zs > 3:
+            bag[b, 3:] = rng.randint(0, 3, size=num_zs - 3)
     return elements, positions, bag
 
 
-def check_agent_grads(dev):
-    """bench.py's loss on a minibatch of 140 at SF6 width: every gradient on
-    the card (through the four kernels) against the same agent's on the CPU
-    (plain versions), then the time of one fwd+bwd and, under
-    torch.profiler, its launches and the device's idle share."""
+def check_agent_grads(dev, agent_kwargs):
+    """bench.py's loss on a minibatch of 140 at the width of `agent_kwargs`:
+    every gradient on the card (through the kernels) against the same
+    agent's on the CPU (plain versions), then the time of one fwd+bwd and,
+    under torch.profiler, its launches and the device's idle share."""
     from torch.profiler import ProfilerActivity, profile
 
     from molgym_tpu_torch.agents.covariant import CovariantAC
@@ -335,10 +463,10 @@ def check_agent_grads(dev):
     from molgym_tpu_torch.spaces import Observation
 
     torch.manual_seed(SEED)
-    agents = {'cuda': CovariantAC(**SF6_AGENT, device=dev)}
-    agents['cpu'] = CovariantAC(**SF6_AGENT, device='cpu')
+    agents = {'cuda': CovariantAC(**agent_kwargs, device=dev)}
+    agents['cpu'] = CovariantAC(**agent_kwargs, device='cpu')
     agents['cpu'].load_state_dict(agents['cuda'].state_dict())
-    arrays = _bench_batch(SEED)
+    arrays = _bench_batch(SEED, agent_kwargs)
     obs = {name: Observation(*(torch.from_numpy(x).to(d) for x in arrays))
            for name, d in (('cuda', dev), ('cpu', 'cpu'))}
     with torch.no_grad():
@@ -421,29 +549,51 @@ CANONICAL = ['--name=sf6', '--formulas=SF6', '--canvas_size=7',
              '--max_mean_distance=2.10', '--num_envs=10',
              '--num_steps_per_iter=140', '--mini_batch_size=140',
              '--reward=device_lj', '--num_steps=420', '--log_level=WARNING']
+# experiments/stochastic/logs/stoch_run-1.json, cut to 2 iterations
+STOCHASTIC = ['--name=stoch', '--formulas=C2H6O', '--size_range=4,9',
+              '--canvas_size=10', '--symbols=X,H,C,O', '--bag_scale=6',
+              '--model=covariant', '--maxl=3', '--num_cg_levels=2',
+              '--beta=-10', '--min_mean_distance=0.9',
+              '--max_mean_distance=1.8', '--num_envs=10',
+              '--num_steps_per_iter=140', '--mini_batch_size=140',
+              '--reward=device_lj', '--num_steps=280', '--seed=1',
+              '--log_level=WARNING']
 
 
-def run_training(dev):
-    """The canonical SF6 run (README.md's command, device reward) for 3 PPO
-    iterations through run_experiment, from a checkpoint of random weights
-    written first, so that the initial weights are known; the launch counts
-    are zeroed just before and read just after."""
+def expected_launches(levels, forwards, passes):
+    """The launch counts a run implies. A policy forward launches one
+    aggregate and one square per CG level and, on the heads, two CG products
+    (the mixer) and two masked softmaxes (focus, element); a gradient pass
+    is one forward and as many backward launches."""
+    per_forward = {'cg_aggregate_edge_fused_ri': levels,
+                   'cg_square_fused_ri': levels, 'cg_contract_ri': 2,
+                   'masked_softmax': 2}
+    out = {}
+    for name, n in per_forward.items():
+        out[name] = n * (forwards + passes)
+        out[name + '_bwd'] = n * passes
+    return out
+
+
+def run_training(dev, entry, build_parser, argv, iterations):
+    """`iterations` PPO iterations of the run `argv` describes through the
+    main of the module `entry` (`build_parser` makes its parser, for the
+    configuration the checks read), from a checkpoint of random
+    weights written first, so that the initial weights are known; the launch
+    counts are zeroed just before and read just after."""
     import tempfile
 
     from molgym_tpu_torch.ops import fused_agg
     from molgym_tpu_torch.tools import util
-    from molgym_tpu_torch.tools.arg_parser import build_default_argparser
-    from molgym_tpu_torch.tools.driver import (run_experiment, standard_envs,
-                                               symbols_to_zs)
+    from molgym_tpu_torch.tools.driver import symbols_to_zs
     from molgym_tpu_torch.tools.model_io import ModelIO
     from molgym_tpu_torch.tools.model_util import build_model
     from molgym_tpu_torch.spaces import ObservationSpace
 
     with tempfile.TemporaryDirectory() as tmp:
-        config = vars(build_default_argparser().parse_args(
-            CANONICAL + [f'--{d}_dir={tmp}/{d}' for d in
-                         ('log', 'model', 'data', 'results')] +
-            ['--load_latest']))
+        argv = argv + [f'--{d}_dir={tmp}/{d}' for d in
+                       ('log', 'model', 'data', 'results')] + ['--load_latest']
+        config = vars(build_parser().parse_args(argv))
         util.create_directories([config['model_dir']])
         tag = util.get_tag(config)
         space = ObservationSpace(config['canvas_size'],
@@ -456,7 +606,7 @@ def run_training(dev):
         torch.cuda.synchronize()
         fused_agg.reset_launch_counts()
         t0 = time.perf_counter()
-        agent, optimizer = run_experiment(config, env_builder=standard_envs)
+        agent, optimizer = entry.main(argv)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = dict(fused_agg.launch_counts)
@@ -466,7 +616,7 @@ def run_training(dev):
             with open(path) as f:
                 return [json.loads(line) for line in f]
         opt, train, evals = lines('opt'), lines('train'), lines('eval')
-        if len(opt) != 3 or len(train) != 3:
+        if len(opt) != iterations or len(train) != iterations:
             raise AssertionError(f'{len(opt)} updates, {len(train)} rollouts')
         for rec in opt + train + evals:
             bad = [k for k, v in rec.items() if not np.isfinite(v)]
@@ -479,7 +629,8 @@ def run_training(dev):
             raise AssertionError('training changed no parameter')
 
         state, steps = ModelIO(config['model_dir'], tag).load_latest(dev)
-        if steps != 420 or state['optimizer']['count'] != optimizer.count:
+        if (steps != config['max_num_steps']
+                or state['optimizer']['count'] != optimizer.count):
             raise AssertionError(f'checkpoint at {steps} steps, count '
                                  f'{state["optimizer"]["count"]}')
         for k, v in after.items():
@@ -490,15 +641,13 @@ def run_training(dev):
                 if not torch.equal(v, getattr(optimizer, key)[k]):
                     raise AssertionError(f'checkpoint {key} differs in {k}')
 
-    # launches: 3 CG levels per policy forward; a rollout of 14 steps per
-    # env makes 15 forwards (the bootstrap), an eval rollout 8 + 1; every
-    # gradient pass makes one forward and one backward per level
-    levels = agent.encoder.num_cg_levels
+    # forwards: a rollout of 14 steps per env makes 15 (the bootstrap), an
+    # eval rollout of one episode canvas_size + 1 steps and the bootstrap;
+    # every gradient pass makes one forward and one backward
     passes = sum(r['num_grad_passes'] for r in opt)
-    fwd = levels * (len(train) * 15 + len(evals) * 9 + passes)
-    expected = {'cg_aggregate_edge_fused_ri': fwd, 'cg_square_fused_ri': fwd,
-                'cg_aggregate_edge_fused_ri_bwd': levels * passes,
-                'cg_square_fused_ri_bwd': levels * passes}
+    forwards = (len(train) * (NUM_STEPS + 1)
+                + len(evals) * (config['canvas_size'] + 2))
+    expected = expected_launches(agent.encoder.num_cg_levels, forwards, passes)
     if counts != expected:
         raise AssertionError(f'launches {counts}, expected {expected}')
     return dict(seconds=seconds, counts=counts, grad_passes=passes,
@@ -512,29 +661,23 @@ def run_training(dev):
                 eval_return_mean=[r['return_mean'] for r in evals])
 
 
-def run_main_path(dev):
+def run_rollout(dev, env, agent, agent_kwargs, max_episode_len):
+    """A NUM_ENVS x NUM_STEPS rollout of `agent` in `env` through
+    make_rollout_fn, with the launch counts zeroed just before and read just
+    after: exact forward-only launch counts, finite outputs, no episode
+    longer than `max_episode_len`, and the agent on the card against itself
+    on the CPU (plain versions) on the rollout's data."""
     from molgym_tpu_torch.agents.covariant import CovariantAC
-    from molgym_tpu_torch.envs.environment import MolecularEnv
-    from molgym_tpu_torch.envs.reward import make_lennard_jones_reward
-    from molgym_tpu_torch.formula import string_to_formula
     from molgym_tpu_torch.ops import fused_agg
     from molgym_tpu_torch.rl.rollout import make_rollout_fn
-    from molgym_tpu_torch.spaces import ObservationSpace
 
-    torch.manual_seed(SEED)
-    space = ObservationSpace(canvas_size=7, zs=list(SF6_AGENT['zs']))
-    bag = space.bag_from_formula(string_to_formula('SF6'))
-    env = MolecularEnv(make_lennard_jones_reward(), space, bag[None],
-                       device=dev)
-    agent = CovariantAC(**SF6_AGENT, device=dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-
     # warm-up: builds the tables and allocator pools outside the timed run
-    make_rollout_fn(env, agent, 2)(agent, env.init_states(NUM_ENVS), gen)
+    make_rollout_fn(env, agent, 2)(agent, env.init_states(NUM_ENVS, gen), gen)
     torch.cuda.synchronize()
 
     rollout = make_rollout_fn(env, agent, NUM_STEPS)
-    states = env.init_states(NUM_ENVS)
+    states = env.init_states(NUM_ENVS, gen)
     torch.cuda.synchronize()
     fused_agg.reset_launch_counts()
     t0 = time.perf_counter()
@@ -544,27 +687,26 @@ def run_main_path(dev):
     counts = dict(fused_agg.launch_counts)
 
     # the rollout runs forwards only: no backward kernel may launch
-    expected = agent.encoder.num_cg_levels * (NUM_STEPS + 1)
-    for name, n in counts.items():
-        if n != (0 if name.endswith('_bwd') else expected):
-            raise AssertionError(f'{name}: {n} launches on the rollout')
+    expected = expected_launches(agent.encoder.num_cg_levels, NUM_STEPS + 1, 0)
+    if counts != expected:
+        raise AssertionError(f'launches {counts}, expected {expected}')
     for name in ('rewards', 'logps', 'values', 'actions', 'bootstrap_value'):
         if not torch.isfinite(getattr(traj, name)).all():
             raise AssertionError(f'non-finite {name}')
-    # SF6 has 7 atoms: a step either places one or ends the episode, so
-    # every episode ends within 7 steps with at most 7 atoms on the canvas
+    # a step either places an atom of the bag or ends the episode, so every
+    # episode ends within the bag's size in steps
     term = traj.terminals.cpu().numpy()
     n_next = (traj.next_obs.elements != 0).sum(-1).cpu().numpy()
-    if (n_next > 7).any():
-        raise AssertionError('a canvas holds more than 7 atoms')
+    if (n_next > max_episode_len).any():
+        raise AssertionError(f'a canvas holds more than {max_episode_len} atoms')
     for b in range(NUM_ENVS):
         ends = np.flatnonzero(term[:, b])
-        if not len(ends) or ends[0] > 6 or (np.diff(ends) > 7).any():
-            raise AssertionError(f'env {b}: episode longer than 7 steps')
+        if (not len(ends) or ends[0] > max_episode_len - 1
+                or (np.diff(ends) > max_episode_len).any()):
+            raise AssertionError(f'env {b}: episode longer than '
+                                 f'{max_episode_len} steps')
 
-    # the agent on the card against itself on the CPU (plain versions), on
-    # the rollout's observations and actions
-    cpu_agent = CovariantAC(**SF6_AGENT, device='cpu')
+    cpu_agent = CovariantAC(**agent_kwargs, device='cpu')
     cpu_agent.load_state_dict(agent.state_dict())
     idx = slice(0, 16)
     obs = traj.obs.map(lambda x: x[3, idx])
@@ -578,18 +720,77 @@ def run_main_path(dev):
     if not model_err <= MODEL_TOL:
         raise AssertionError(f'card vs CPU agent: max |d logp|, |d v| = '
                              f'{model_err}')
-    return dict(seconds=seconds, counts=counts, model_err=model_err,
-                episodes=int(term.sum()),
-                mean_reward=float(traj.rewards.mean()),
-                ms_per_step=seconds * 1e3 / NUM_STEPS,
-                env_steps_per_s=NUM_ENVS * NUM_STEPS / seconds)
+    return traj, dict(seconds=seconds, counts=counts, model_err=model_err,
+                      episodes=int(term.sum()),
+                      mean_reward=float(traj.rewards.mean()),
+                      ms_per_step=seconds * 1e3 / NUM_STEPS,
+                      env_steps_per_s=NUM_ENVS * NUM_STEPS / seconds)
+
+
+def run_main_path(dev):
+    """The SF6 rollout: 7 atoms, so no episode is longer than 7 steps."""
+    from molgym_tpu_torch.agents.covariant import CovariantAC
+    from molgym_tpu_torch.envs.environment import MolecularEnv
+    from molgym_tpu_torch.envs.reward import make_lennard_jones_reward
+    from molgym_tpu_torch.formula import string_to_formula
+    from molgym_tpu_torch.spaces import ObservationSpace
+
+    torch.manual_seed(SEED)
+    space = ObservationSpace(canvas_size=7, zs=list(SF6_AGENT['zs']))
+    bag = space.bag_from_formula(string_to_formula('SF6'))
+    env = MolecularEnv(make_lennard_jones_reward(), space, bag[None],
+                       device=dev)
+    agent = CovariantAC(**SF6_AGENT, device=dev)
+    _traj, res = run_rollout(dev, env, agent, SF6_AGENT, max_episode_len=7)
+    return res
+
+
+def run_stochastic_rollout(dev):
+    """The stochastic-bag configuration at its recorded width: the training
+    env that run_stochastic.stochastic_envs makes, 140 envs. Every bag an episode starts
+    from has 4-8 atoms and an even total valence, and the batch holds more
+    than one distinct bag."""
+    from molgym_tpu_torch import run_stochastic
+    from molgym_tpu_torch.agents.covariant import CovariantAC
+    from molgym_tpu_torch.envs.reward import make_lennard_jones_reward
+    from molgym_tpu_torch.periodic import Z_TO_BOND_COUNT
+    from molgym_tpu_torch.spaces import ObservationSpace
+
+    config = vars(run_stochastic.build_parser().parse_args(STOCHASTIC))
+    space = ObservationSpace(canvas_size=STOCH_AGENT['canvas_size'],
+                             zs=list(STOCH_AGENT['zs']))
+    env, _eval_env = run_stochastic.stochastic_envs(
+        config, space, make_lennard_jones_reward(), dev)
+    torch.manual_seed(SEED + 2)
+    agent = CovariantAC(**STOCH_AGENT, device=dev)
+    traj, res = run_rollout(dev, env, agent, STOCH_AGENT, max_episode_len=8)
+
+    # the bag an episode starts from: step 0, and the step after a terminal
+    term = traj.terminals
+    fresh = torch.cat([torch.ones_like(term[:1]), term[:-1]])
+    bags = traj.obs.bag[fresh].cpu().numpy()
+    sizes = bags.sum(-1)
+    valence = bags @ np.array([Z_TO_BOND_COUNT.get(z, 0)
+                               for z in STOCH_AGENT['zs']])
+    distinct = len({tuple(b) for b in bags})
+    if sizes.min() < 4 or sizes.max() > 8 or (valence % 2).any():
+        raise AssertionError(f'bag sizes {sizes.min()}-{sizes.max()}, '
+                             f'{int((valence % 2).sum())} of odd valence')
+    if bags[:, 0].any() or distinct < 2:
+        raise AssertionError(f'{distinct} distinct bags, or a bag holds X')
+    first = traj.obs.bag[0].cpu().numpy()
+    return dict(res, bags_sampled=len(bags), distinct_bags=distinct,
+                distinct_bags_at_step_0=len({tuple(b) for b in first}),
+                bag_size_min=int(sizes.min()), bag_size_max=int(sizes.max()),
+                bag_size_mean=float(sizes.mean()))
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         log('chip_smoke: no CUDA device is visible')
         return 2
-    from molgym_tpu_torch import cuda_build
+    from molgym_tpu_torch import cuda_build, run, run_stochastic
+    from molgym_tpu_torch.tools.arg_parser import build_default_argparser
 
     card = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
@@ -613,9 +814,28 @@ def main() -> int:
     agg_bwd = {(B, n): check_aggregate_bwd(dev, B, n)
                for B in (140, 9) for n in (1, 5)}
     sq_bwd = {tau: check_square_bwd(dev, tau) for tau in (10, 12)}
+    # the same four kernels at the stochastic configuration's shapes: maxl 3
+    # (M = 16), canvas 10, levels 0 and 1, square at tau 10 and 16
+    stoch = dict(maxl=3, N=10)
+    for n in (1, 4):
+        agg[('stoch', n)] = check_aggregate(dev, 140, n, **stoch)
+        agg_bwd[('stoch', n)] = check_aggregate_bwd(dev, 140, n, **stoch)
+    for tau in (10, 16):
+        sq[('stoch', tau)] = check_square(dev, tau, **stoch)
+        sq_bwd[('stoch', tau)] = check_square_bwd(dev, tau, **stoch)
+    # the mixer's two products at SF6 (140 envs x 4 channels, then 10 envs),
+    # at the stochastic configuration (M = 16), and 111 rows
+    contract = {case: check_contract(dev, *case) for case in (
+        ((140, 4), 5, 5, 4), ((140, 4), 1, 5, 4), ((10, 4), 5, 5, 4),
+        ((140, 4), 4, 4, 3), ((140, 4), 1, 4, 3), ((37, 3), 5, 5, 4))}
+    softmax = {case: check_softmax(dev, *case) for case in (
+        (140, 7), (140, 3), (140, 10), (140, 4), (8192, 128), (33, 200))}
     for k, v in (list(agg.items()) + list(sq.items()) +
                  list(agg_bwd.items()) + list(sq_bwd.items())):
         log('parity', k, json.dumps(v))
+    for k, (fwd, bwd) in list(contract.items()) + list(softmax.items()):
+        log('parity', k, 'fwd', json.dumps(fwd))
+        log('parity', k, 'bwd', json.dumps(bwd))
 
     main_path = run_main_path(dev)
     log('main path:', json.dumps(main_path))
@@ -623,15 +843,25 @@ def main() -> int:
         f'{main_path["ms_per_step"]:.3f} ms/step, '
         f'{main_path["env_steps_per_s"]:.1f} env-steps/s on {card}')
 
-    agent_grads = check_agent_grads(dev)
+    agent_grads = check_agent_grads(dev, SF6_AGENT)
     log('agent gradients:', json.dumps(agent_grads))
     log(f'fwd+bwd of the SF6 agent, minibatch 140: '
         f'{agent_grads["fwd_bwd_ms_median"]:.3f} ms (median of 20) on {card}')
 
-    training = run_training(dev)
+    training = run_training(dev, run, build_default_argparser, CANONICAL,
+                            iterations=3)
     log('training:', json.dumps(training))
 
-    def entry(name, source, replaces, main, others):
+    stoch_rollout = run_stochastic_rollout(dev)
+    log('stochastic rollout:', json.dumps(stoch_rollout))
+    stoch_grads = check_agent_grads(dev, STOCH_AGENT)
+    log('stochastic agent gradients:', json.dumps(stoch_grads))
+    stoch_training = run_training(dev, run_stochastic,
+                                  run_stochastic.build_parser, STOCHASTIC,
+                                  iterations=2)
+    log('stochastic training:', json.dumps(stoch_training))
+
+    def entry(name, source, replaces, main, others, **extra):
         return dict(name=name, route='cuda', source=source, replaces=replaces,
                     launches=training['counts'][name],
                     max_abs_err=max(r['max_abs_err'] for r in others),
@@ -639,29 +869,57 @@ def main() -> int:
                     bound_ms=main['bound_ms'], bound_by=main['bound_by'],
                     library_ms=main['library_ms'], at=main['shape'],
                     checked=[r['shape'] for r in others],
-                    rollout_launches=main_path['counts'].get(name, 0))
+                    rollout_launches=main_path['counts'][name],
+                    stochastic_rollout_launches=stoch_rollout['counts'][name],
+                    stochastic_training_launches=stoch_training['counts'][name],
+                    **extra)
 
+    csrc = 'molgym_tpu_torch/csrc/'
+    pallas = 'molgym_tpu/ops/'
+    contract_main, softmax_main = contract[((140, 4), 5, 5, 4)], softmax[(140, 7)]
     kernels = [
-        entry('cg_aggregate_edge_fused_ri',
-              'molgym_tpu_torch/csrc/cg_aggregate.cu',
-              'molgym_tpu/ops/pallas_agg.py:334', agg[(140, 5)],
-              list(agg.values())),
-        entry('cg_square_fused_ri', 'molgym_tpu_torch/csrc/cg_square.cu',
-              'molgym_tpu/ops/pallas_agg.py:91', sq[10], list(sq.values())),
-        entry('cg_aggregate_edge_fused_ri_bwd',
-              'molgym_tpu_torch/csrc/cg_aggregate_bwd.cu',
-              'molgym_tpu/ops/pallas_agg.py:392', agg_bwd[(140, 5)],
+        entry('cg_aggregate_edge_fused_ri', csrc + 'cg_aggregate.cu',
+              pallas + 'pallas_agg.py:334', agg[(140, 5)],
+              [r for (_b, n), r in agg.items() if n != 1]),
+        # the same kernel and launch counter on the dense (ungrouped) table
+        # of level 0: what the TPU's row-fallback kernel computes
+        entry('cg_aggregate_edge_fused_ri', csrc + 'cg_aggregate.cu',
+              pallas + 'pallas_agg.py:91', agg[(140, 1)],
+              [r for (_b, n), r in agg.items() if n == 1],
+              counter_shared_with=pallas + 'pallas_agg.py:334'),
+        entry('cg_square_fused_ri', csrc + 'cg_square.cu',
+              pallas + 'pallas_agg.py:91', sq[10], list(sq.values())),
+        entry('cg_aggregate_edge_fused_ri_bwd', csrc + 'cg_aggregate_bwd.cu',
+              pallas + 'pallas_agg.py:392', agg_bwd[(140, 5)],
               list(agg_bwd.values())),
-        entry('cg_square_fused_ri_bwd',
-              'molgym_tpu_torch/csrc/cg_square_bwd.cu',
-              'molgym_tpu/ops/pallas_agg.py:132', sq_bwd[10],
-              list(sq_bwd.values())),
+        entry('cg_square_fused_ri_bwd', csrc + 'cg_square_bwd.cu',
+              pallas + 'pallas_agg.py:132', sq_bwd[10], list(sq_bwd.values())),
+        entry('cg_contract_ri', csrc + 'cg_product.cu',
+              pallas + 'pallas_cg.py:40', contract_main[0],
+              [f for f, _b in contract.values()]),
+        entry('cg_contract_ri_bwd', csrc + 'cg_product_bwd.cu',
+              pallas + 'pallas_cg.py:60', contract_main[1],
+              [b for _f, b in contract.values()]),
+        entry('masked_softmax', csrc + 'masked_softmax.cu',
+              pallas + 'pallas_softmax.py:29', softmax_main[0],
+              [f for f, _b in softmax.values()]),
+        entry('masked_softmax_bwd', csrc + 'masked_softmax.cu',
+              pallas + 'pallas_softmax.py:29', softmax_main[1],
+              [b for _f, b in softmax.values()]),
     ]
+
+    def by_shape(results):
+        return {f['shape']: dict(fwd=f, bwd=b) for f, b in results.values()}
     print(json.dumps({'main_path': main_path, 'aggregate_level0': agg[(140, 1)],
                       'square_tau12': sq[12],
                       'aggregate_bwd_level0': agg_bwd[(140, 1)],
                       'square_bwd_tau12': sq_bwd[12],
-                      'agent_grads': agent_grads, 'training': training}))
+                      'contract': by_shape(contract),
+                      'softmax': by_shape(softmax),
+                      'agent_grads': agent_grads, 'training': training,
+                      'stochastic_rollout': stoch_rollout,
+                      'stochastic_agent_grads': stoch_grads,
+                      'stochastic_training': stoch_training}))
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

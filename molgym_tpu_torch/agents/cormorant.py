@@ -22,7 +22,7 @@ from torch import nn
 from molgym_tpu_torch.ops.cg import (_fused_cg_table, cg_product_packed_ri,
                                      fused_cg_table_grouped,
                                      fused_cg_table_tri, m_slices, pack_so3,
-                                     unpack_so3)
+                                     pack_so3_ri, unpack_so3)
 from molgym_tpu_torch.ops.fused_agg import (cg_aggregate_edge_fused_ri,
                                             cg_square_fused_ri)
 from molgym_tpu_torch.ops.sph import spherical_harmonics_rel
@@ -245,7 +245,9 @@ class CormorantEncoder(nn.Module):
 
 class CormorantMixer(nn.Module):
     """Condition covariants on another rep: ag = other (x) in; sq = ag (x) ag;
-    out = CatMix([ag, sq, in]) — small [B, tau] reps, plain contractions."""
+    out = CatMix([ag, sq, in]) on small [B, tau] reps. Both products are the
+    channel-wise CG product of ops/fused_cg.py (a kernel on the card), given
+    real and imaginary parts packed separately, each contiguous."""
 
     def __init__(self, maxl: int, tau: int, tau_out: int, n_other: int,
                  n_atom: int):
@@ -263,15 +265,15 @@ class CormorantMixer(nn.Module):
                             (tau, m_slices(n_atom, maxl))])
 
     def forward(self, atom_rep: SO3Vec, other_rep: SO3Vec) -> SO3Vec:
-        other = pack_so3(other_rep)
-        atom = pack_so3(atom_rep)
+        other_r, other_i = pack_so3_ri(other_rep)
+        atom_r, atom_i = pack_so3_ri(atom_rep)
         n_ells = self.maxl + 1
         (ag_kr, ag_ki), _sl = cg_product_packed_ri(
-            other[..., 0], other[..., 1], atom[..., 0], atom[..., 1],
-            self.n_other, self.n_atom, self.maxl)
+            other_r, other_i, atom_r, atom_i, self.n_other, self.n_atom,
+            self.maxl)
         ag_r, ag_i = self.ag_mix([(ag_kr, ag_ki)])
         (sq_r, sq_i), _sl = cg_product_packed_ri(ag_r, ag_i, ag_r, ag_i,
                                                  n_ells, n_ells, self.maxl)
         out_r, out_i = self.cat_mix([(ag_r, ag_i), (sq_r, sq_i),
-                                     (atom[..., 0], atom[..., 1])])
+                                     (atom_r, atom_i)])
         return unpack_so3(torch.stack([out_r, out_i], dim=-1), n_ells)

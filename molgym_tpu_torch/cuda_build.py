@@ -25,7 +25,8 @@ BUILD_DIR = _PKG / '_build'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 KERNEL_SOURCES = ('cg_aggregate', 'cg_square', 'cg_aggregate_bwd',
-                  'cg_square_bwd')
+                  'cg_square_bwd', 'cg_product', 'cg_product_bwd',
+                  'masked_softmax')
 
 
 def _nvcc() -> str:

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from molgym_tpu_torch.ops.masked import masked_softmax
+from molgym_tpu_torch.ops.fused_softmax import masked_softmax
 
 _EPS = 1e-10
 
@@ -18,6 +18,9 @@ def gumbel(shape, generator: torch.Generator, device) -> torch.Tensor:
 
 
 def masked_categorical_probs(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Probabilities over the unmasked entries of the last axis: the masked
+    softmax kernel on the card (contiguous float32 logits and a bool mask),
+    its plain version on the CPU."""
     return masked_softmax(logits, mask)
 
 

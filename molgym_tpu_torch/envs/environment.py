@@ -12,7 +12,14 @@ molgym_tpu/envs/environment.py).
 The JAX package writes single-env functions and vmaps them; here every
 method works on a batch of envs ([B, ...] tensors) directly. The state is a
 dataclass of tensors and methods return new states without mutating their
-inputs. The stochastic-bag variant is not ported yet.
+inputs.
+
+Variants are configuration, not subclasses: a formula table with a cycling
+cursor, an optional initial structure, a refill budget, and an optional
+stochastic bag sampler (`stochastic_size_range`). The JAX state carries a
+PRNG key per env; here the sampler draws the bags of all envs of a reset at
+once from the `torch.Generator` the caller passes to `reset`,
+`reset_if_terminal` and `init_states`.
 """
 from __future__ import annotations
 
@@ -24,7 +31,7 @@ import torch
 
 from molgym_tpu_torch.device import DeviceLike, resolve_device
 from molgym_tpu_torch.envs.reward import RewardFn
-from molgym_tpu_torch.periodic import SOLO_CANDIDATE_ZS
+from molgym_tpu_torch.periodic import SOLO_CANDIDATE_ZS, Z_TO_BOND_COUNT
 from molgym_tpu_torch.spaces import Observation, ObservationSpace
 
 
@@ -76,6 +83,7 @@ class MolecularEnv:
         num_refills: int = 0,
         scaffold_halfspaces: Optional[Tuple[np.ndarray, np.ndarray]] = None,
         n_scaffold: int = 0,
+        stochastic_size_range: Optional[Tuple[int, int]] = None,
         device: DeviceLike = None,
     ) -> None:
         self.device = resolve_device(device)
@@ -114,17 +122,64 @@ class MolecularEnv:
             self.hull_a = self.hull_b = None
         self._slots = torch.arange(self.canvas_size, device=self.device)
 
+        self.stochastic_size_range = stochastic_size_range
+        if stochastic_size_range is not None:
+            # bags are drawn from the base formula's element distribution
+            base = np.asarray(formulas, dtype=np.float64)[0]
+            self.z_probs = dev(base / max(base.sum(), 1.0), torch.float32)
+            self.bond_counts = dev(
+                [Z_TO_BOND_COUNT.get(int(z), 0) for z in observation_space.zs],
+                torch.int64)
+
     # -- reset ---------------------------------------------------------------
 
-    def reset(self, states: EnvState) -> Tuple[EnvState, Observation]:
+    def _sample_bags(self, num: int,
+                     generator: Optional[torch.Generator]) -> torch.Tensor:
+        """int64[num, Z] bags of lo <= size < hi atoms (hi atoms when
+        lo == hi) drawn from z_probs, each with even total valence: a bag of
+        odd parity is drawn again, at most 64 times. The loop ends as soon
+        as no bag of the batch is odd, which the host reads from the device
+        once per round."""
+        if generator is None:
+            raise ValueError('a stochastic-bag environment needs the '
+                             'torch.Generator its bags are drawn from')
+        lo, hi = self.stochastic_size_range
+        probs = self.z_probs.expand(num, -1)
+        slots = torch.arange(hi, device=self.device)
+
+        def draw():
+            size = (torch.randint(lo, hi, (num, ), generator=generator,
+                                  device=self.device) if lo < hi
+                    else torch.full((num, ), hi, device=self.device))
+            draws = torch.multinomial(probs, hi, replacement=True,
+                                      generator=generator)
+            picked = torch.nn.functional.one_hot(draws, self.num_zs)
+            return (picked * (slots < size[:, None])[..., None]).sum(dim=1)
+
+        bags = draw()
+        for _ in range(64):
+            odd = (bags * self.bond_counts).sum(dim=-1) % 2 != 0
+            if not bool(odd.any()):
+                break
+            bags = torch.where(odd[:, None], draw(), bags)
+        return bags
+
+    def reset(self, states: EnvState,
+              generator: Optional[torch.Generator] = None
+              ) -> Tuple[EnvState, Observation]:
         """Restore every env's (possibly pre-seeded) canvas and load the next
-        bag of its formula cycle."""
+        bag of its formula cycle, or a bag drawn from `generator` by the
+        stochastic sampler."""
         b = states.elements.shape[0]
         cursor = states.formula_cursor % self.formulas.shape[0]
+        if self.stochastic_size_range is not None:
+            bag = self._sample_bags(b, generator)
+        else:
+            bag = self.formulas[cursor]
         new_state = EnvState(
             elements=self.initial_elements.expand(b, -1).clone(),
             positions=self.initial_positions.expand(b, -1, -1).clone(),
-            bag=self.formulas[cursor],
+            bag=bag,
             n_atoms=torch.full((b, ), self.initial_n_atoms, dtype=torch.int64,
                                device=self.device),
             formula_cursor=cursor + 1,
@@ -132,8 +187,10 @@ class MolecularEnv:
         )
         return new_state, new_state.observation()
 
-    def init_states(self, num_envs: int) -> EnvState:
-        """A reset batch of `num_envs` env states, each at formula 0."""
+    def init_states(self, num_envs: int,
+                    generator: Optional[torch.Generator] = None) -> EnvState:
+        """A reset batch of `num_envs` env states, each at formula 0 (or
+        with a bag drawn from `generator`)."""
         zeros = torch.zeros(num_envs, dtype=torch.int64, device=self.device)
         proto = EnvState(
             elements=self.initial_elements.expand(num_envs, -1).clone(),
@@ -141,7 +198,7 @@ class MolecularEnv:
             bag=torch.zeros((num_envs, self.num_zs), dtype=torch.int64,
                             device=self.device),
             n_atoms=zeros, formula_cursor=zeros, refill_count=zeros)
-        states, _ = self.reset(proto)
+        states, _ = self.reset(proto, generator)
         return states
 
     # -- step ----------------------------------------------------------------
@@ -227,10 +284,11 @@ class MolecularEnv:
                           observation=new_states.observation(),
                           reward=reward, done=done)
 
-    def reset_if_terminal(self, states: EnvState,
-                          dones: torch.Tensor) -> Tuple[EnvState, Observation]:
+    def reset_if_terminal(self, states: EnvState, dones: torch.Tensor,
+                          generator: Optional[torch.Generator] = None
+                          ) -> Tuple[EnvState, Observation]:
         """Auto-reset finished envs."""
-        reset_states, _ = self.reset(states)
+        reset_states, _ = self.reset(states, generator)
         new_states = reset_states.where(dones, states)
         return new_states, new_states.observation()
 

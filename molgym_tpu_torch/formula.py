@@ -48,3 +48,11 @@ def _parse_formula_counts(string: str) -> Dict[str, int]:
 def string_to_formula(string: str) -> FormulaType:
     counts = _parse_formula_counts(string)
     return tuple((ATOMIC_NUMBERS[symbol], count) for symbol, count in counts.items())
+
+
+def parse_size_range(size_range: str) -> Tuple[int, int]:
+    """'4,9' -> (4, 9): sampled bag sizes lo <= size < hi."""
+    parts = [int(i) for i in size_range.split(',')]
+    if len(parts) != 2:
+        raise ValueError(f'size range must be "lo,hi", got {size_range!r}')
+    return parts[0], parts[1]

@@ -5,8 +5,9 @@ Coefficients are computed exactly on the host (float64, Racah formula) and
 packed into one combined block table per product. The table builders are the
 port's own copies of the JAX package's numpy builders and give bit-equal
 tables. There is no backend switch: the fused edge aggregate and the CG
-square live in ops/fused_agg.py, and the device of the tensors decides
-between a kernel and the plain version.
+square live in ops/fused_agg.py, the channel-wise product in
+ops/fused_cg.py, and the device of the tensors decides between a kernel and
+the plain version.
 
 Packed reps keep all l blocks concatenated along one m axis
 ([..., tau, M], M = sum_l (2l+1)); complex parts travel as separate tensors
@@ -20,6 +21,8 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from molgym_tpu_torch.ops.fused_cg import cg_contract_ri
 
 
 @lru_cache(maxsize=None)
@@ -220,29 +223,32 @@ def m_slices(n_ells: int, maxl: int) -> Tuple[Tuple[int, int], ...]:
     return tuple(out)
 
 
+def pack_so3_ri(rep: Sequence[torch.Tensor]):
+    """Per-l SO3Vec -> packed (real, imag), each a contiguous [..., tau, M]:
+    the parts are packed separately, so that neither is a strided view of a
+    stacked tensor."""
+    return (torch.cat([x[..., 0] for x in rep], dim=-1),
+            torch.cat([x[..., 1] for x in rep], dim=-1))
+
+
 def cg_product_packed_ri(a_r: torch.Tensor, a_i: torch.Tensor,
                          b_r: torch.Tensor, b_i: torch.Tensor,
                          n_ells1: int, n_ells2: int, maxl: int):
     """Channel-wise CG product of two packed reps, complex parts separate:
-    ((out_r, out_i) [..., tau, K], slices)."""
-    _table, slices = _fused_cg_table(n_ells1, n_ells2, maxl)
-    tab2 = _table_on(n_ells1, n_ells2, maxl, a_r.device)
-    m1, m2 = a_r.shape[-1], b_r.shape[-1]
-    u = (a_r[..., :, None] * b_r[..., None, :]
-         - a_i[..., :, None] * b_i[..., None, :])
-    v = (a_r[..., :, None] * b_i[..., None, :]
-         + a_i[..., :, None] * b_r[..., None, :])
-    out_r = u.reshape(u.shape[:-2] + (m1 * m2, )) @ tab2
-    out_i = v.reshape(v.shape[:-2] + (m1 * m2, )) @ tab2
-    return (out_r, out_i), slices
+    ((out_r, out_i) [..., tau, K], slices). On the card this is the kernel
+    of ops/fused_cg.py, which takes contiguous operands."""
+    table, slices = _fused_cg_table(n_ells1, n_ells2, maxl)
+    return cg_contract_ri(a_r, a_i, b_r, b_i, table), slices
 
 
 def cg_product_packed(a: torch.Tensor, b: torch.Tensor, n_ells1: int,
                       n_ells2: int, maxl: int):
     """cg_product_packed_ri on stacked complex reps [..., tau, M, 2]:
-    (packed_out [..., tau, K, 2], slices)."""
+    (packed_out [..., tau, K, 2], slices). The stacked parts are unstacked
+    into contiguous tensors first (one copy each)."""
     (out_r, out_i), slices = cg_product_packed_ri(
-        a[..., 0], a[..., 1], b[..., 0], b[..., 1], n_ells1, n_ells2, maxl)
+        a[..., 0].contiguous(), a[..., 1].contiguous(),
+        b[..., 0].contiguous(), b[..., 1].contiguous(), n_ells1, n_ells2, maxl)
     return torch.stack([out_r, out_i], dim=-1), slices
 
 
@@ -262,3 +268,137 @@ def cg_aggregate_packed(edge: torch.Tensor, atom: torch.Tensor,
     out = torch.stack([zr.reshape(shape) @ tab2, zi.reshape(shape) @ tab2],
                       dim=-1)
     return out, slices
+
+
+# ---------------------------------------------------------------------------
+# per-l API: SO3Vecs as lists of [..., tau_l, 2l+1, 2] tensors
+# ---------------------------------------------------------------------------
+
+def _pair_taus(t1: int, t2: int) -> int:
+    if not (t1 == t2 or t1 == 1 or t2 == 1):
+        raise ValueError('CG product needs matching or broadcastable taus, '
+                         f'got {t1}, {t2}')
+    return max(t1, t2)
+
+
+def _broadcast_taus(rep1: Sequence[torch.Tensor],
+                    rep2: Sequence[torch.Tensor]):
+    """Both reps with every entry expanded to their common tau."""
+    tau = _pair_taus(max(a.shape[-3] for a in rep1),
+                     max(b.shape[-3] for b in rep2))
+
+    def expand(rep):
+        out = []
+        for a in rep:
+            t = a.shape[-3]
+            if t != tau and t != 1:
+                raise ValueError(f'per-l tau {t} vs {tau}')
+            if t != tau:
+                a = a.expand(a.shape[:-3] + (tau, ) + a.shape[-2:])
+            out.append(a)
+        return out
+
+    return expand(rep1), expand(rep2)
+
+
+def _pack_m(rep: Sequence[torch.Tensor]) -> torch.Tensor:
+    return torch.cat(list(rep), dim=-2)  # [..., tau, M, 2]
+
+
+def _unpack_out(out_flat: torch.Tensor, slices,
+                maxl: int) -> List[torch.Tensor]:
+    """out_flat [..., tau, K, 2] -> per-l [..., n_pairs*tau, 2l+1, 2] with
+    the loop implementation's pair-major tau order."""
+    outs = []
+    for l in range(maxl + 1):
+        offset, n_pairs = slices[l]
+        width = n_pairs * (2 * l + 1)
+        part = out_flat[..., :, offset:offset + width, :]
+        shape = part.shape
+        tau = shape[-3]
+        part = part.reshape(shape[:-2] + (n_pairs, 2 * l + 1, 2))
+        part = part.movedim(-3, -4)      # [..., n_pairs, tau, 2l+1, 2]
+        outs.append(part.reshape(shape[:-3] + (n_pairs * tau, 2 * l + 1, 2)))
+    return outs
+
+
+def cg_product(rep1: Sequence[torch.Tensor], rep2: Sequence[torch.Tensor],
+               maxl: int) -> List[torch.Tensor]:
+    """Channel-wise CG tensor product of two SO3Vecs. Output entry l
+    concatenates, along tau, the (l1, l2) pairs with
+    |l1-l2| <= l <= min(l1+l2, maxl). A tau of 1 is broadcast; packing
+    copies it out, so no stride-0 view reaches the kernel."""
+    rep1, rep2 = _broadcast_taus(rep1, rep2)
+    out, slices = cg_product_packed(_pack_m(rep1), _pack_m(rep2),
+                                    len(rep1), len(rep2), maxl)
+    return _unpack_out(out, slices, maxl)
+
+
+def cg_aggregate(edge_rep: Sequence[torch.Tensor],
+                 atom_rep: Sequence[torch.Tensor],
+                 maxl: int) -> List[torch.Tensor]:
+    """Neighbourhood-aggregating CG product: out_i = sum_j edge_ij (x)_CG
+    atom_j.
+
+    edge_rep entry l2: [..., N, M, tau, 2*l2+1, 2]
+    atom_rep entry l1: [..., M, tau, 2*l1+1, 2]
+    output entry l:    [..., N, tau_out, 2*l+1, 2]
+    """
+    edge_rep, atom_rep = _broadcast_taus(edge_rep, atom_rep)
+    out, slices = cg_aggregate_packed(_pack_m(edge_rep), _pack_m(atom_rep),
+                                      len(edge_rep), len(atom_rep), maxl)
+    return _unpack_out(out, slices, maxl)
+
+
+def cg_output_taus(taus1: Sequence[int], taus2: Sequence[int],
+                   maxl: int) -> Tuple[int, ...]:
+    """Channel counts of the cg_product output."""
+    out = [0] * (maxl + 1)
+    for l1, t1 in enumerate(taus1):
+        for l2, t2 in enumerate(taus2):
+            tau = _pair_taus(t1, t2)
+            for l in range(abs(l1 - l2), min(l1 + l2, maxl) + 1):
+                out[l] += tau
+    return tuple(out)
+
+
+def _complex_contract(a: torch.Tensor, b: torch.Tensor, table: torch.Tensor,
+                      pattern: str) -> torch.Tensor:
+    """einsum of stacked complex operands against a real CG table."""
+    ar, ai = a[..., 0], a[..., 1]
+    br, bi = b[..., 0], b[..., 1]
+    rr = torch.einsum(pattern, ar, br, table)
+    ii = torch.einsum(pattern, ai, bi, table)
+    ri = torch.einsum(pattern, ar, bi, table)
+    ir = torch.einsum(pattern, ai, br, table)
+    return torch.stack([rr - ii, ri + ir], dim=-1)
+
+
+def _loops(rep1, rep2, maxl: int, pattern: str) -> List[torch.Tensor]:
+    """Per-(l1, l2, l) products of rep1[l1] with rep2[l2], in loop order."""
+    out_parts: List[List[torch.Tensor]] = [[] for _ in range(maxl + 1)]
+    for l1, a in enumerate(rep1):
+        for l2, b in enumerate(rep2):
+            tau = _pair_taus(a.shape[-3], b.shape[-3])
+            a_t = a.expand(a.shape[:-3] + (tau, ) + a.shape[-2:])
+            b_t = b.expand(b.shape[:-3] + (tau, ) + b.shape[-2:])
+            for l in range(abs(l1 - l2), min(l1 + l2, maxl) + 1):
+                table = torch.from_numpy(
+                    cg_table(l1, l2, l).astype(np.float32)).to(a.device)
+                out_parts[l].append(_complex_contract(a_t, b_t, table, pattern))
+    return [torch.cat(parts, dim=-3) for parts in out_parts]
+
+
+def _cg_product_loops(rep1: Sequence[torch.Tensor],
+                      rep2: Sequence[torch.Tensor],
+                      maxl: int) -> List[torch.Tensor]:
+    """Per-(l1, l2, l) loop implementation of cg_product: the oracle the
+    tests hold the packed path against."""
+    return _loops(rep1, rep2, maxl, '...tm,...tn,mnk->...tk')
+
+
+def _cg_aggregate_loops(edge_rep: Sequence[torch.Tensor],
+                        atom_rep: Sequence[torch.Tensor],
+                        maxl: int) -> List[torch.Tensor]:
+    """Loop implementation of cg_aggregate: the tests' oracle."""
+    return _loops(edge_rep, atom_rep, maxl, '...ijtm,...jtn,mnk->...itk')

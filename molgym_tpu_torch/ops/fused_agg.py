@@ -17,37 +17,33 @@ forward launches the hand-written kernel (csrc/cg_aggregate.cu,
 csrc/cg_square.cu) and whose backward launches the backward kernel
 (csrc/cg_aggregate_bwd.cu, csrc/cg_square_bwd.cu), or raises. The plain
 backward versions (`*_bwd_plain`) compute the same vector-Jacobian products
-from their formulas. `launch_counts` counts kernel launches only, so a run
-can show that its main path went through the kernels.
+from their formulas. `launch_counts` (the registry of ops/kernel_common.py,
+shared by all kernels) counts kernel launches only, so a run can show that
+its main path went through the kernels.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, List, Optional, Tuple
+from typing import List, Tuple
 
 import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
 from molgym_tpu_torch import cuda_build
-
-launch_counts: Dict[str, int] = {'cg_aggregate_edge_fused_ri': 0,
-                                 'cg_aggregate_edge_fused_ri_bwd': 0,
-                                 'cg_square_fused_ri': 0,
-                                 'cg_square_fused_ri_bwd': 0}
-
-# what one thread block may hold (H100: 227 KB of the SM's shared memory)
-_MAX_SMEM = 232448
+# launch_counts and reset_launch_counts are read and reset through this
+# module too
+from molgym_tpu_torch.ops.kernel_common import (MAX_SMEM,
+                                                check_cuda_operands,
+                                                incoming, launch_counts,
+                                                ptrs, raise_on,
+                                                reset_launch_counts,
+                                                table_cache)
 
 # (row_a, row_b, table [row_b - row_a, K_g]) blocks of a contraction: output
 # columns are the blocks' columns in order, each contracting z[..., a:b].
 Blocks = List[Tuple[int, int, np.ndarray]]
-
-
-def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -133,28 +129,6 @@ def pair_incidence(pairs: np.ndarray, m: int):
             other[order].astype(np.int32))
 
 
-class _TableCache:
-    """Device tensors derived from host tables, built once per (tables,
-    device). Keyed by the ids of the host arrays, which the entry keeps
-    alive so that no other array can take their ids while it exists; the
-    table builders are lru-cached, so callers pass the same arrays each
-    call."""
-
-    def __init__(self):
-        self._entries = {}
-
-    def get(self, tag, arrays, device, build):
-        key = (tag, tuple(id(a) for a in arrays), str(device))
-        entry = self._entries.get(key)
-        if entry is None:
-            entry = (arrays, build())
-            self._entries[key] = entry
-        return entry[1]
-
-
-_cache = _TableCache()
-
-
 def _flat_arrays(table3, grouped=None, tri=None):
     out = [table3]
     if grouped is not None:
@@ -176,7 +150,7 @@ def _plain_tables(kind, table3, grouped, tri, device):
             pairs, blocks = _square_blocks(table3, grouped, tri)
         return (None if pairs is None else _to(pairs, device),
                 [(a, b, _to(t, device)) for a, b, t in blocks])
-    return _cache.get(('plain', kind), _flat_arrays(table3, grouped, tri),
+    return table_cache.get(('plain', kind), _flat_arrays(table3, grouped, tri),
                       device, build)
 
 
@@ -202,7 +176,7 @@ def _kernel_tables(kind, table3, grouped, tri, device):
             out['inc_pair'] = _to(inc_pair, device)
             out['inc_other'] = _to(inc_other, device)
         return out
-    return _cache.get(('kernel', kind), _flat_arrays(table3, grouped, tri),
+    return table_cache.get(('kernel', kind), _flat_arrays(table3, grouped, tri),
                       device, build)
 
 
@@ -278,39 +252,6 @@ def _square_bwd_lib() -> ctypes.CDLL:
     lib.cg_square_bwd_smem_bytes.argtypes = [_I] * 3
     lib.cg_square_bwd_smem_bytes.restype = ctypes.c_size_t
     return lib
-
-
-def _check_cuda_operands(name, tensors):
-    device = tensors[0].device
-    for t in tensors:
-        if t.device != device:
-            raise ValueError(f'{name}: operands on {t.device} and {device}')
-        if t.dtype != torch.float32:
-            raise TypeError(f'{name}: the kernel takes float32, got {t.dtype}')
-        if not t.is_contiguous():
-            raise ValueError(f'{name}: the kernel takes contiguous tensors')
-    if device.type != 'cuda':
-        raise ValueError(f'{name}: no kernel for device {device}')
-    return device
-
-
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f'{name}: kernel launch failed with CUDA error '
-                           f'{err}')
-
-
-def _incoming(grad: Optional[torch.Tensor], shape,
-              like: torch.Tensor) -> torch.Tensor:
-    """An output's gradient as the backward kernels take it: zeros of
-    `shape` where autograd passes None, contiguous otherwise."""
-    if grad is None:
-        return like.new_zeros(shape)
-    return grad.contiguous()
-
-
-def _ptrs(*tensors):
-    return [t.data_ptr() for t in tensors]
 
 
 # ---------------------------------------------------------------------------
@@ -398,10 +339,10 @@ def _aggregate_fwd_kernel(sph_packed, rad_feats, atom_r, atom_i, table3,
                           grouped):
     name = 'cg_aggregate_edge_fused_ri'
     operands = (sph_packed, rad_feats, atom_r, atom_i)
-    device = _check_cuda_operands(name, operands)
+    device = check_cuda_operands(name, operands)
     B, N, tau, n_l, m1, m2 = _aggregate_shapes(name, *operands, table3)
     lib = _aggregate_lib()
-    if lib.cg_aggregate_smem_bytes(N, tau, m1, m2) > _MAX_SMEM:
+    if lib.cg_aggregate_smem_bytes(N, tau, m1, m2) > MAX_SMEM:
         raise ValueError(f'{name}: N={N}, tau={tau}, M1={m1}, M2={m2} need '
                          'more shared memory than a block has')
     tabs = _kernel_tables('aggregate', table3, grouped, None, device)
@@ -410,9 +351,9 @@ def _aggregate_fwd_kernel(sph_packed, rad_feats, atom_r, atom_i, table3,
     out_i = torch.empty_like(out_r)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.cg_aggregate_edge_fused_f32(
-        *_ptrs(*operands, tabs['colptr'], tabs['pair'], tabs['coef'], out_r,
+        *ptrs(*operands, tabs['colptr'], tabs['pair'], tabs['coef'], out_r,
                out_i), B, N, tau, n_l, m1, m2, k, stream)
-    _raise_on(err, name)
+    raise_on(err, name)
     launch_counts[name] += 1
     return out_r, out_i
 
@@ -421,7 +362,7 @@ def _aggregate_bwd_kernel(sph_packed, rad_feats, atom_r, atom_i, g_r, g_i,
                           table3, grouped):
     name = 'cg_aggregate_edge_fused_ri_bwd'
     operands = (sph_packed, rad_feats, atom_r, atom_i, g_r, g_i)
-    device = _check_cuda_operands(name, operands)
+    device = check_cuda_operands(name, operands)
     B, N, tau, n_l, m1, m2 = _aggregate_shapes(name, *operands[:4], table3)
     tabs = _kernel_tables('aggregate', table3, grouped, None, device)
     k = tabs['k']
@@ -429,7 +370,7 @@ def _aggregate_bwd_kernel(sph_packed, rad_feats, atom_r, atom_i, g_r, g_i,
         raise ValueError(f'{name}: gradients {tuple(g_r.shape)} / '
                          f'{tuple(g_i.shape)}, expected {(B, N, tau, k)}')
     lib = _aggregate_bwd_lib()
-    if lib.cg_aggregate_bwd_smem_bytes(N, m1, m2, k) > _MAX_SMEM:
+    if lib.cg_aggregate_bwd_smem_bytes(N, m1, m2, k) > MAX_SMEM:
         raise ValueError(f'{name}: N={N}, M1={m1}, M2={m2}, K={k} need more '
                          'shared memory than a block has')
     drad = torch.empty_like(rad_feats)
@@ -437,9 +378,9 @@ def _aggregate_bwd_kernel(sph_packed, rad_feats, atom_r, atom_i, g_r, g_i,
     dq_i = torch.empty_like(atom_i)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.cg_aggregate_bwd_f32(
-        *_ptrs(*operands, tabs['rowptr'], tabs['col'], tabs['coef_t'], drad,
+        *ptrs(*operands, tabs['rowptr'], tabs['col'], tabs['coef_t'], drad,
                dq_r, dq_i), B, N, tau, n_l, m1, m2, k, stream)
-    _raise_on(err, name)
+    raise_on(err, name)
     launch_counts[name] += 1
     return drad, dq_r, dq_i
 
@@ -464,7 +405,7 @@ class _AggregateFn(torch.autograd.Function):
         shape = ctx.out_shape
         drad, dq_r, dq_i = _aggregate_bwd_kernel(
             sph_packed, rad_feats, atom_r, atom_i,
-            _incoming(g_r, shape, atom_r), _incoming(g_i, shape, atom_r),
+            incoming(g_r, shape, atom_r), incoming(g_i, shape, atom_r),
             *ctx.tables)
         return None, drad, dq_r, dq_i, None, None
 
@@ -542,12 +483,12 @@ def _square_shapes(name, a_r, a_i, table3):
 
 def _square_fwd_kernel(a_r, a_i, table3, grouped, tri):
     name = 'cg_square_fused_ri'
-    device = _check_cuda_operands(name, (a_r, a_i))
+    device = check_cuda_operands(name, (a_r, a_i))
     m, batch = _square_shapes(name, a_r, a_i, table3)
     tabs = _kernel_tables('square', table3, grouped, tri, device)
     n_pairs = tabs['pair_m'].shape[0]
     lib = _square_lib()
-    if lib.cg_square_smem_bytes(m, n_pairs) > _MAX_SMEM:
+    if lib.cg_square_smem_bytes(m, n_pairs) > MAX_SMEM:
         raise ValueError(f'{name}: M={m} with {n_pairs} pairs needs more '
                          'shared memory than a block has')
     k = tabs['k']
@@ -555,17 +496,17 @@ def _square_fwd_kernel(a_r, a_i, table3, grouped, tri):
     out_i = torch.empty_like(out_r)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.cg_square_fused_f32(
-        *_ptrs(a_r, a_i, tabs['pair_m'], tabs['pair_n'], tabs['colptr'],
+        *ptrs(a_r, a_i, tabs['pair_m'], tabs['pair_n'], tabs['colptr'],
                tabs['pair'], tabs['coef'], out_r, out_i),
         int(np.prod(batch)), m, n_pairs, k, stream)
-    _raise_on(err, name)
+    raise_on(err, name)
     launch_counts[name] += 1
     return out_r, out_i
 
 
 def _square_bwd_kernel(a_r, a_i, g_r, g_i, table3, grouped, tri):
     name = 'cg_square_fused_ri_bwd'
-    device = _check_cuda_operands(name, (a_r, a_i, g_r, g_i))
+    device = check_cuda_operands(name, (a_r, a_i, g_r, g_i))
     m, batch = _square_shapes(name, a_r, a_i, table3)
     tabs = _kernel_tables('square', table3, grouped, tri, device)
     k = tabs['k']
@@ -574,18 +515,18 @@ def _square_bwd_kernel(a_r, a_i, g_r, g_i, table3, grouped, tri):
                          f'{tuple(g_i.shape)}, expected {batch + (k, )}')
     n_pairs = tabs['pair_m'].shape[0]
     lib = _square_bwd_lib()
-    if lib.cg_square_bwd_smem_bytes(m, n_pairs, k) > _MAX_SMEM:
+    if lib.cg_square_bwd_smem_bytes(m, n_pairs, k) > MAX_SMEM:
         raise ValueError(f'{name}: M={m}, {n_pairs} pairs, K={k} need more '
                          'shared memory than a block has')
     da_r = torch.empty_like(a_r)
     da_i = torch.empty_like(a_i)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.cg_square_bwd_f32(
-        *_ptrs(a_r, a_i, g_r, g_i, tabs['rowptr'], tabs['col'],
+        *ptrs(a_r, a_i, g_r, g_i, tabs['rowptr'], tabs['col'],
                tabs['coef_t'], tabs['mptr'], tabs['inc_pair'],
                tabs['inc_other'], da_r, da_i),
         int(np.prod(batch)), m, n_pairs, k, stream)
-    _raise_on(err, name)
+    raise_on(err, name)
     launch_counts[name] += 1
     return da_r, da_i
 
@@ -606,8 +547,8 @@ class _SquareFn(torch.autograd.Function):
     def backward(ctx, g_r, g_i):
         a_r, a_i = ctx.saved_tensors
         shape = ctx.out_shape
-        da_r, da_i = _square_bwd_kernel(a_r, a_i, _incoming(g_r, shape, a_r),
-                                        _incoming(g_i, shape, a_r),
+        da_r, da_i = _square_bwd_kernel(a_r, a_i, incoming(g_r, shape, a_r),
+                                        incoming(g_i, shape, a_r),
                                         *ctx.tables)
         return da_r, da_i, None, None, None
 

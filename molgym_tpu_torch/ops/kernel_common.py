@@ -1,0 +1,90 @@
+"""What every kernel wrapper of the port shares: the one registry of launch
+counts, the cache of device-side tables, the operand checks, and the small
+helpers around a ctypes launch.
+
+`launch_counts` has one entry per kernel, and a wrapper adds one to its
+entry where it launches its kernel and nowhere else, so a run can show that
+its main path went through the kernels; `reset_launch_counts` zeroes them
+all.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+launch_counts: Dict[str, int] = {'cg_aggregate_edge_fused_ri': 0,
+                                 'cg_aggregate_edge_fused_ri_bwd': 0,
+                                 'cg_square_fused_ri': 0,
+                                 'cg_square_fused_ri_bwd': 0,
+                                 'cg_contract_ri': 0,
+                                 'cg_contract_ri_bwd': 0,
+                                 'masked_softmax': 0,
+                                 'masked_softmax_bwd': 0}
+
+# what one thread block may hold (H100: 227 KB of the SM's shared memory)
+MAX_SMEM = 232448
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+class TableCache:
+    """Device tensors derived from host tables, built once per (tables,
+    device). Keyed by the ids of the host arrays, which the entry keeps
+    alive so that no other array can take their ids while it exists; the
+    functions that make the tables are lru-cached, so callers pass the same
+    arrays each call."""
+
+    def __init__(self):
+        self._entries = {}
+
+    def get(self, tag, arrays, device, build):
+        key = (tag, tuple(id(a) for a in arrays), str(device))
+        entry = self._entries.get(key)
+        if entry is None:
+            entry = (arrays, build())
+            self._entries[key] = entry
+        return entry[1]
+
+
+table_cache = TableCache()
+
+
+def check_cuda_operands(name, tensors, dtypes=(torch.float32, )):
+    """The device of `tensors`, after checking that all lie on one CUDA
+    device, are contiguous and have one of `dtypes`; raises otherwise."""
+    device = tensors[0].device
+    for t in tensors:
+        if t.device != device:
+            raise ValueError(f'{name}: operands on {t.device} and {device}')
+        if t.dtype not in dtypes:
+            raise TypeError(f'{name}: the kernel takes '
+                            f'{" or ".join(str(d) for d in dtypes)}, got '
+                            f'{t.dtype}')
+        if not t.is_contiguous():
+            raise ValueError(f'{name}: the kernel takes contiguous tensors')
+    if device.type != 'cuda':
+        raise ValueError(f'{name}: no kernel for device {device}')
+    return device
+
+
+def raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f'{name}: kernel launch failed with CUDA error '
+                           f'{err}')
+
+
+def incoming(grad: Optional[torch.Tensor], shape,
+             like: torch.Tensor) -> torch.Tensor:
+    """An output's gradient as the backward kernels take it: zeros of
+    `shape` where autograd passes None, contiguous otherwise."""
+    if grad is None:
+        return like.new_zeros(shape)
+    return grad.contiguous()
+
+
+def ptrs(*tensors):
+    return [t.data_ptr() for t in tensors]

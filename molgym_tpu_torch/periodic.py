@@ -1,6 +1,6 @@
 """Standalone periodic-table data (the port's own copy of
-molgym_tpu/periodic.py: symbols, atomic numbers, covalent radii and the
-validity-rule element sets)."""
+molgym_tpu/periodic.py: symbols, atomic numbers, covalent radii, the
+validity-rule element sets and the default valences)."""
 from __future__ import annotations
 
 # Index == atomic number. Index 0 is the null element 'X' used for canvas
@@ -39,3 +39,7 @@ def covalent_radius(z: int) -> float:
 # Elements that must stay near a heavy atom in the environment validity
 # check (H, F, Cl, Br).
 SOLO_CANDIDATE_ZS = (1, 9, 17, 35)
+
+# Default valence (bond count) of the stochastic environment's even-parity
+# check on a sampled bag.
+Z_TO_BOND_COUNT = {1: 1, 5: 3, 6: 4, 7: 3, 8: 2, 9: 1}

@@ -1,9 +1,11 @@
 """Where a rollout step's time goes on the card.
 
     python -m molgym_tpu_torch.profile_rollout [--num_envs 140] [--steps 14]
+                                               [--config sf6|stochastic]
 
-Runs the SF6 covariant rollout of chip_smoke.py (random weights from a seed)
-and prints JSON lines:
+Runs the SF6 covariant rollout of chip_smoke.py, or its stochastic-bag
+rollout (bags of 4-8 atoms sampled around C2H6O, canvas 10, maxl 3, 2 CG
+levels), with random weights from a seed, and prints JSON lines:
   * phases: host-clock ms of one policy forward (`act`), one env step and
     one auto-reset at the rollout's shapes, each ended by a synchronize;
   * profile: over one whole rollout under torch.profiler, the wall time, the
@@ -25,6 +27,10 @@ SF6_AGENT = dict(zs=(0, 9, 16), canvas_size=7, network_width=128, maxl=4,
                  num_cg_levels=3, num_channels_hidden=10,
                  num_channels_per_element=4, num_gaussians=3, bag_scale=5,
                  min_max_distance=(1.10, 2.10), beta=-10.0)
+STOCH_AGENT = dict(zs=(0, 1, 6, 8), canvas_size=10, network_width=128, maxl=3,
+                   num_cg_levels=2, num_channels_hidden=10,
+                   num_channels_per_element=4, num_gaussians=3, bag_scale=6,
+                   min_max_distance=(0.9, 1.8), beta=-10.0)
 
 
 def _host_ms(fn, reps=10):
@@ -49,6 +55,8 @@ def main() -> int:
     parser.add_argument('--num_envs', type=int, default=140)
     parser.add_argument('--steps', type=int, default=14)
     parser.add_argument('--seed', type=int, default=0)
+    parser.add_argument('--config', choices=['sf6', 'stochastic'],
+                        default='sf6')
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit('profile_rollout: no CUDA device is visible')
@@ -65,15 +73,21 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     dev = torch.device('cuda')
     torch.manual_seed(args.seed)
-    space = ObservationSpace(canvas_size=7, zs=list(SF6_AGENT['zs']))
-    bag = space.bag_from_formula(string_to_formula('SF6'))
-    env = MolecularEnv(make_lennard_jones_reward(), space, bag[None], device=dev)
-    agent = CovariantAC(**SF6_AGENT, device=dev)
+    stochastic = args.config == 'stochastic'
+    agent_kwargs = STOCH_AGENT if stochastic else SF6_AGENT
+    space = ObservationSpace(canvas_size=agent_kwargs['canvas_size'],
+                             zs=list(agent_kwargs['zs']))
+    bag = space.bag_from_formula(
+        string_to_formula('C2H6O' if stochastic else 'SF6'))
+    env = MolecularEnv(make_lennard_jones_reward(), space, bag[None],
+                       stochastic_size_range=(4, 9) if stochastic else None,
+                       device=dev)
+    agent = CovariantAC(**agent_kwargs, device=dev)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     rollout = make_rollout_fn(env, agent, args.steps)
-    rollout(agent, env.init_states(args.num_envs), gen)   # warm-up
+    rollout(agent, env.init_states(args.num_envs, gen), gen)   # warm-up
 
-    states = env.init_states(args.num_envs)
+    states = env.init_states(args.num_envs, gen)
     obs = states.observation()
     with torch.no_grad():
         out = agent.act(obs, gen)
@@ -84,11 +98,12 @@ def main() -> int:
             env_step_ms=_host_ms(lambda: env.step(states, out.element,
                                                   out.position)),
             reset_if_terminal_ms=_host_ms(
-                lambda: env.reset_if_terminal(result.state, result.done)))
-    print(json.dumps({'card': card, 'num_envs': args.num_envs,
-                      'phases': phases}))
+                lambda: env.reset_if_terminal(result.state, result.done,
+                                              gen)))
+    print(json.dumps({'card': card, 'config': args.config,
+                      'num_envs': args.num_envs, 'phases': phases}))
 
-    states = env.init_states(args.num_envs)
+    states = env.init_states(args.num_envs, gen)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -103,7 +118,8 @@ def main() -> int:
     launches = sum(e.count for e in kernels)
     top = sorted(kernels, key=device_us, reverse=True)[:12]
     print(json.dumps({
-        'card': card, 'num_envs': args.num_envs, 'steps': args.steps,
+        'card': card, 'config': args.config, 'num_envs': args.num_envs,
+        'steps': args.steps,
         'wall_ms_profiled': wall_ms, 'device_busy_ms': device_ms,
         'device_idle_share': 1.0 - device_ms / wall_ms,
         'kernel_launches_per_step': launches / args.steps,

@@ -299,8 +299,8 @@ def batch_ppo(
                                           deterministic=eval_sample_k == 0)
 
     generator = torch.Generator(device=device).manual_seed(seed)
-    states = envs.init_states(num_envs)
-    eval_states = (eval_envs.init_states(num_eval_envs)
+    states = envs.init_states(num_envs, generator)
+    eval_states = (eval_envs.init_states(num_eval_envs, generator)
                    if eval_envs is not None else None)
 
     total_num_steps = start_num_steps

@@ -2,7 +2,8 @@
 molgym_tpu/rl/rollout.py): all envs are reset at rollout start, stepped T
 times with auto-reset at terminals, and the value head on the final
 observation gives the bootstrap value. The JAX `lax.scan` becomes a Python
-loop; the rollout runs without autograd."""
+loop; the rollout runs without autograd. A stochastic-bag env draws its
+bags from the rollout's generator."""
 from __future__ import annotations
 
 from typing import Callable, Tuple
@@ -34,7 +35,7 @@ def make_rollout_fn(env: MolecularEnv, agent: nn.Module,
         obs_seq, next_obs_seq = [], []
         act_seq, rew_seq, term_seq, val_seq, logp_seq = [], [], [], [], []
         with torch.no_grad():
-            states, obs = env.reset(states)
+            states, obs = env.reset(states, generator)
             for _ in range(num_steps_per_env):
                 out = module.act(obs, generator, deterministic)
                 result = env.step(states, out.element, out.position)
@@ -45,7 +46,8 @@ def make_rollout_fn(env: MolecularEnv, agent: nn.Module,
                 term_seq.append(result.done)
                 val_seq.append(out.v)
                 logp_seq.append(out.logp)
-                states, obs = env.reset_if_terminal(result.state, result.done)
+                states, obs = env.reset_if_terminal(
+                    result.state, result.done, generator)
             final_out = module.act(obs, generator, True)
         traj = Trajectory(obs=Observation.stack(obs_seq),
                           next_obs=Observation.stack(next_obs_seq),

@@ -18,9 +18,11 @@ from molgym_tpu_torch.tools.arg_parser import build_default_argparser
 from molgym_tpu_torch.tools.driver import run_experiment, standard_envs
 
 
-def main(argv: Optional[Sequence[str]] = None) -> None:
+def main(argv: Optional[Sequence[str]] = None):
+    """Parses `argv` (else the command line), trains, and returns the
+    trained (agent, optimizer)."""
     config = vars(build_default_argparser().parse_args(argv))
-    run_experiment(config, env_builder=standard_envs)
+    return run_experiment(config, env_builder=standard_envs)
 
 
 if __name__ == '__main__':

@@ -105,3 +105,117 @@ def test_pack_unpack_and_m_slices():
     for a, b in zip(tcg.unpack_so3(packed, 4), rep):
         np.testing.assert_array_equal(a.numpy(), b)
     assert tcg.m_slices(3, 4) == jcg.m_slices(3, 4)
+
+
+def _so3vec(rng, taus, batch=(3, )):
+    return [rng.randn(*batch, t, 2 * l + 1, 2).astype(np.float32)
+            for l, t in enumerate(taus)]
+
+
+# (taus of rep1, taus of rep2, maxl): even taus, a rep of tau 1 broadcast
+# against tau 3 (the mixer's distance rep, then a two-l rep), and maxl below
+# l1 + l2
+PRODUCT_CASES = [((2, 2, 2), (2, 2, 2), 2), ((1, ), (3, 3, 3), 2),
+                 ((3, 3, 3), (1, 1), 3), ((2, 2, 2, 2), (2, 2), 3)]
+
+
+@pytest.mark.parametrize('taus1,taus2,maxl', PRODUCT_CASES)
+def test_cg_product_per_l(taus1, taus2, maxl):
+    """The per-l product against the JAX one (einsum backend and the Pallas
+    kernel in interpret mode, 2e-5 as the JAX test) and the loop oracles."""
+    rng = np.random.RandomState(4)
+    a, b = _so3vec(rng, taus1), _so3vec(rng, taus2)
+    ja, jb = [jnp.asarray(x) for x in a], [jnp.asarray(x) for x in b]
+    ref = jcg.cg_product(ja, jb, maxl)
+    jcg.set_cg_backend('pallas_interpret')
+    try:
+        ref_kernel = jcg.cg_product(ja, jb, maxl)
+    finally:
+        jcg.set_cg_backend('einsum')
+    ta, tb = [torch.from_numpy(x) for x in a], [torch.from_numpy(x) for x in b]
+    out = tcg.cg_product(ta, tb, maxl)
+    loops = tcg._cg_product_loops(ta, tb, maxl)
+    jloops = jcg._cg_product_loops(ja, jb, maxl)
+    assert len(out) == maxl + 1
+    taus = tcg.cg_output_taus(taus1, taus2, maxl)
+    assert taus == jcg.cg_output_taus(taus1, taus2, maxl)
+    for l, (o, r, rk, lo, jl) in enumerate(zip(out, ref, ref_kernel, loops,
+                                               jloops)):
+        assert o.shape == (3, taus[l], 2 * l + 1, 2)
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(o.numpy(), np.asarray(rk), atol=2e-5)
+        np.testing.assert_allclose(lo.numpy(), np.asarray(jl), rtol=RTOL,
+                                   atol=ATOL)
+        np.testing.assert_allclose(o.numpy(), lo.numpy(), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize('taus_e,taus_a,maxl', [((2, 2, 2), (2, 2, 2), 2),
+                                                ((3, 3, 3), (1, ), 2),
+                                                ((1, 2), (2, 2, 2), 3)])
+def test_cg_aggregate_per_l(taus_e, taus_a, maxl):
+    rng = np.random.RandomState(5)
+    edge = _so3vec(rng, taus_e, batch=(2, 4, 4))
+    atom = _so3vec(rng, taus_a, batch=(2, 4))
+    je, ja = [jnp.asarray(x) for x in edge], [jnp.asarray(x) for x in atom]
+    te = [torch.from_numpy(x) for x in edge]
+    ta = [torch.from_numpy(x) for x in atom]
+    out = tcg.cg_aggregate(te, ta, maxl)
+    loops = tcg._cg_aggregate_loops(te, ta, maxl)
+    for o, lo, r, jl in zip(out, loops, jcg.cg_aggregate(je, ja, maxl),
+                            jcg._cg_aggregate_loops(je, ja, maxl)):
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(lo.numpy(), np.asarray(jl), rtol=RTOL,
+                                   atol=ATOL)
+        np.testing.assert_allclose(o.numpy(), lo.numpy(), rtol=RTOL, atol=ATOL)
+
+
+def test_cg_product_gradient_matches_jax():
+    """d/d rep of sum(cg_product * cot), against jax.grad through the Pallas
+    custom VJP in interpret mode (3e-4, the JAX test's)."""
+    import jax
+    rng = np.random.RandomState(6)
+    a, b = _so3vec(rng, (2, 2, 2)), _so3vec(rng, (1, 2))
+    maxl = 2
+    cots = [rng.randn(3, t, 2 * l + 1, 2).astype(np.float32)
+            for l, t in enumerate(tcg.cg_output_taus((2, 2, 2), (1, 2), maxl))]
+
+    def jloss(ja, jb):
+        return sum(jnp.sum(o * c) for o, c in zip(jcg.cg_product(ja, jb, maxl),
+                                                  cots))
+    jcg.set_cg_backend('pallas_interpret')
+    try:
+        ga, gb = jax.grad(jloss, argnums=(0, 1))(
+            [jnp.asarray(x) for x in a], [jnp.asarray(x) for x in b])
+    finally:
+        jcg.set_cg_backend('einsum')
+    ta = [torch.from_numpy(x).requires_grad_() for x in a]
+    tb = [torch.from_numpy(x).requires_grad_() for x in b]
+    loss = sum((o * torch.from_numpy(c)).sum()
+               for o, c in zip(tcg.cg_product(ta, tb, maxl), cots))
+    grads = torch.autograd.grad(loss, ta + tb)
+    for t, j in zip(grads, list(ga) + list(gb)):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=3e-4, atol=3e-4)
+
+
+def test_taus_that_do_not_pair_are_refused():
+    rng = np.random.RandomState(7)
+    a = [torch.from_numpy(x) for x in _so3vec(rng, (2, 2))]
+    b = [torch.from_numpy(x) for x in _so3vec(rng, (3, 3))]
+    with pytest.raises(ValueError, match='taus'):
+        tcg.cg_product(a, b, 2)
+    with pytest.raises(ValueError, match='taus'):
+        tcg.cg_output_taus((2, ), (3, ), 1)
+
+
+def test_pack_so3_ri_gives_contiguous_parts():
+    rng = np.random.RandomState(8)
+    rep = [torch.from_numpy(x) for x in _so3vec(rng, (3, 3, 3))]
+    r, i = tcg.pack_so3_ri(rep)
+    packed = tcg.pack_so3(rep)
+    assert r.is_contiguous() and i.is_contiguous()
+    assert not packed[..., 0].is_contiguous()
+    torch.testing.assert_close(r, packed[..., 0], rtol=0, atol=0)
+    torch.testing.assert_close(i, packed[..., 1], rtol=0, atol=0)
+    # one l block of a stacked rep is a strided view too
+    r1, i1 = tcg.pack_so3_ri(rep[:1])
+    assert r1.is_contiguous() and r1.shape == (3, 3, 1)

@@ -12,8 +12,11 @@ import pytest
 import torch
 from flax.traverse_util import flatten_dict
 
+from molgym_tpu.agents.cormorant import CormorantMixer as JaxCormorantMixer
 from molgym_tpu.agents.covariant import CovariantAC as JaxCovariantAC
+from molgym_tpu.ops import cg as jcg
 from molgym_tpu.spaces import Observation as JaxObservation
+from molgym_tpu_torch.agents.cormorant import CormorantMixer
 from molgym_tpu_torch.agents.covariant import CovariantAC
 from molgym_tpu_torch.convert import covariant_params_from_jax
 from molgym_tpu_torch.spaces import Observation
@@ -28,6 +31,12 @@ SMALL = dict(zs=(0, 1, 6, 8), canvas_size=5, network_width=32, maxl=2,
              num_cg_levels=2, num_channels_hidden=6, num_channels_per_element=3,
              num_gaussians=3, bag_scale=1, min_max_distance=(0.9, 1.8),
              beta=None)
+# the stochastic-bag configuration (4 elements, canvas 10, maxl 3, 2 CG
+# levels, 4 channels per element, beta -10), narrow: width 32, hidden 6
+STOCH = dict(zs=(0, 1, 6, 8), canvas_size=10, network_width=32, maxl=3,
+             num_cg_levels=2, num_channels_hidden=6, num_channels_per_element=4,
+             num_gaussians=3, bag_scale=6, min_max_distance=(0.9, 1.8),
+             beta=-10.0)
 
 
 def make_batch(cfg, batch, seed):
@@ -143,3 +152,59 @@ def test_sf6_encoder_and_evaluate_match(sf6, deterministic):
     np.testing.assert_allclose(out.logp.numpy(), np.asarray(jlogp), rtol=TOL,
                                atol=TOL)
     np.testing.assert_allclose(out.v.numpy(), np.asarray(jv), rtol=TOL, atol=TOL)
+
+
+@pytest.fixture(scope='module')
+def stoch():
+    return Pair(STOCH, make_batch(STOCH, 5, seed=6))
+
+
+def test_stochastic_config_converts_and_evaluates(stoch):
+    """The stochastic configuration's parameter tree (4 elements, maxl 3,
+    2 levels) carries over name for name, and both packages compute the same
+    on canvases whose bags, atom counts and element masks differ."""
+    flat = flatten_dict(stoch.params, sep='/')
+    state = stoch.agent.state_dict()
+    assert len(flat) == len(state)
+    assert sum(int(np.prod(v.shape)) for v in flat.values()) == sum(
+        v.numel() for v in state.values())
+    assert 'encoder.cg_level_1.cat_mix.w_r_l3_s1' in state
+    assert 'encoder.cg_level_2.ag_mix.w_r_l0_s0' not in state
+    arrays = make_batch(STOCH, 5, seed=6)
+    assert len({tuple(b > 0) for b in arrays[2]}) > 1    # element masks differ
+    with torch.no_grad():
+        out = stoch.agent.act(torch_obs(arrays),
+                              torch.Generator().manual_seed(1))
+    check_encoder_and_evaluate(stoch, arrays, out.action_flat.numpy())
+
+
+@pytest.mark.parametrize('maxl,tau,n_other', [(3, 4, 1), (4, 4, 1), (2, 3, 3)])
+def test_mixer_matches(maxl, tau, n_other):
+    """CormorantMixer alone, its JAX products through the Pallas kernel in
+    interpret mode: the distance rep (one l, as in the agent) or a full rep
+    conditions the atom's covariants."""
+    rng = np.random.RandomState(maxl)
+    atom = [rng.randn(5, tau, 2 * l + 1, 2).astype(np.float32)
+            for l in range(maxl + 1)]
+    other = [rng.randn(5, tau, 2 * l + 1, 2).astype(np.float32)
+             for l in range(n_other)]
+    jmixer = JaxCormorantMixer(maxl=maxl, tau_out=tau)
+    jatom, jother = [jnp.asarray(x) for x in atom], [jnp.asarray(x) for x in other]
+    params = jmixer.init(jax.random.PRNGKey(0), jatom, jother)
+    jcg.set_cg_backend('pallas_interpret')
+    try:
+        ref = jmixer.apply(params, jatom, jother)
+    finally:
+        jcg.set_cg_backend('einsum')
+    mixer = CormorantMixer(maxl=maxl, tau=tau, tau_out=tau, n_other=n_other,
+                           n_atom=maxl + 1)
+    mixer.load_state_dict(covariant_params_from_jax(
+        {k: np.asarray(v) for k, v in flatten_dict(params, sep='/').items()}),
+        strict=True)
+    with torch.no_grad():
+        out = mixer([torch.from_numpy(x) for x in atom],
+                    [torch.from_numpy(x) for x in other])
+    for t, j in zip(out, ref):
+        scale = max(float(np.abs(np.asarray(j)).max()), 1.0)
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=TOL,
+                                   atol=TOL * scale)

@@ -10,7 +10,7 @@ import torch
 
 from molgym_tpu.tools.arg_parser import \
     build_default_argparser as jax_argparser
-from molgym_tpu_torch import run
+from molgym_tpu_torch import run, run_stochastic
 from molgym_tpu_torch.tools.arg_parser import (build_default_argparser,
                                                check_supported)
 from molgym_tpu_torch.tools.driver import run_experiment
@@ -108,6 +108,23 @@ def test_run_main_parses_the_cli(tmp_path, monkeypatch):
                         lambda config, env_builder: seen.update(config))
     run.main(TINY + ['--device=cpu'])
     assert seen['model'] == 'covariant' and seen['device'] == 'cpu'
+
+
+def test_run_stochastic_main_parses_the_cli(monkeypatch):
+    """The stochastic entry point adds --size_range, and nothing else, to
+    the flags, and hands stochastic_envs to run_experiment."""
+    seen = {}
+
+    def fake(config, env_builder):
+        seen.update(config, env_builder=env_builder)
+    monkeypatch.setattr(run_stochastic, 'run_experiment', fake)
+    run_stochastic.main(TINY + ['--device=cpu', '--size_range=2,4'])
+    assert seen['size_range'] == '2,4' and seen['device'] == 'cpu'
+    assert seen['env_builder'] is run_stochastic.stochastic_envs
+    ours = vars(run_stochastic.build_parser().parse_args(
+        TINY + ['--size_range=2,4']))
+    assert set(ours) - set(vars(build_default_argparser().parse_args(TINY))) == {
+        'size_range'}
 
 
 @pytest.mark.parametrize('flag,match', [

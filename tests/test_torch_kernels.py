@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
-at the SF6 shapes of the main path, forward and backward, and the agent's
+at the shapes of the main paths (SF6: M = 25, N = 7; the stochastic-bag
+configuration: M = 16, N = 10), forward and backward, and the agent's
 gradients through them. Every test here needs a CUDA card and skips without
 one. The file imports no JAX, so that it also runs on a machine without it:
 
@@ -12,13 +13,17 @@ import numpy as np
 import pytest
 import torch
 
-from molgym_tpu_torch.ops import cg, fused_agg
+from molgym_tpu_torch.ops import cg, fused_agg, fused_cg, fused_softmax
 
 MAXL, N = 4, 7
 SF6_AGENT = dict(zs=(0, 9, 16), canvas_size=7, network_width=128, maxl=4,
                  num_cg_levels=3, num_channels_hidden=10,
                  num_channels_per_element=4, num_gaussians=3, bag_scale=5,
                  min_max_distance=(1.10, 2.10), beta=-10.0)
+STOCH_AGENT = dict(zs=(0, 1, 6, 8), canvas_size=10, network_width=128, maxl=3,
+                   num_cg_levels=2, num_channels_hidden=10,
+                   num_channels_per_element=4, num_gaussians=3, bag_scale=6,
+                   min_max_distance=(0.9, 1.8), beta=-10.0)
 
 
 @pytest.fixture
@@ -163,38 +168,178 @@ def test_backward_takes_a_missing_gradient(cuda_device):
                                atol=1e-4 * float(drad.abs().max()))
 
 
-def _sf6_batch(batch, seed):
-    """Random SF6 canvases (the bench.py recipe) and actions."""
+# (leading dims incl. tau, n_ells1, n_ells2, maxl): the mixer's two products
+# at SF6 (140 envs and 10) and at the stochastic configuration, and a row
+# count that no tile divides
+CONTRACT_CASES = [((140, 4), 1, 5, 4), ((140, 4), 5, 5, 4), ((10, 4), 5, 5, 4),
+                  ((140, 4), 1, 4, 3), ((140, 4), 4, 4, 3), ((37, 3), 5, 5, 4)]
+
+
+def _contract_args(device, lead, n1, n2, maxl, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+    table3, _sl = cg._fused_cg_table(n1, n2, maxl)
+    args = (randn(*lead, n1 * n1), randn(*lead, n1 * n1),
+            randn(*lead, n2 * n2), randn(*lead, n2 * n2))
+    return args, table3, randn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('lead,n1,n2,maxl', CONTRACT_CASES)
+def test_contract_kernels_match_plain(cuda_device, lead, n1, n2, maxl):
+    """Forward and backward through the public wrapper and autograd."""
+    args, table3, randn = _contract_args(cuda_device, lead, n1, n2, maxl, 11)
+    leaves = [x.requires_grad_() for x in args]
+    before = dict(fused_agg.launch_counts)
+    out = fused_cg.cg_contract_ri(*leaves, table3)
+    torch.cuda.synchronize()
+    assert fused_agg.launch_counts['cg_contract_ri'] == before['cg_contract_ri'] + 1
+    assert out[0].shape == lead + (table3.shape[2], )
+    detached = [x.detach() for x in leaves]
+    ref = fused_cg.cg_contract_ri_plain(*detached, table3)
+    for o, r in zip(out, ref):
+        torch.testing.assert_close(o, r, rtol=1e-4, atol=1e-4)
+    grads = (randn(*out[0].shape), randn(*out[1].shape))
+    got = torch.autograd.grad(out, leaves, grads)
+    torch.cuda.synchronize()
+    assert (fused_agg.launch_counts['cg_contract_ri_bwd'] ==
+            before['cg_contract_ri_bwd'] + 1)
+    ref = fused_cg.cg_contract_ri_bwd_plain(*detached, *grads, table3)
+    for o, r in zip(got, ref):
+        torch.testing.assert_close(o, r, rtol=1e-4,
+                                   atol=1e-4 * float(r.abs().max()))
+
+
+@pytest.mark.cuda
+def test_contract_of_a_rep_with_itself_sums_both_gradients(cuda_device):
+    """The mixer's square passes one tensor as both operands."""
+    (a_r, a_i, _b_r, _b_i), table3, randn = _contract_args(
+        cuda_device, (9, 4), 5, 5, 4, 3)
+    a_r.requires_grad_()
+    out = fused_cg.cg_contract_ri(a_r, a_i, a_r, a_i, table3)
+    grads = (randn(*out[0].shape), randn(*out[1].shape))
+    (got, ) = torch.autograd.grad(out, a_r, grads)
+    da_r, _da_i, db_r, _db_i = fused_cg.cg_contract_ri_bwd_plain(
+        a_r.detach(), a_i, a_r.detach(), a_i, *grads, table3)
+    ref = da_r + db_r
+    torch.testing.assert_close(got, ref, rtol=1e-4,
+                               atol=1e-4 * float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+def test_contract_refuses_non_contiguous_and_takes_a_missing_gradient(cuda_device):
+    (a_r, a_i, b_r, b_i), table3, _randn = _contract_args(
+        cuda_device, (9, 4), 5, 5, 4, 5)
+    stacked = torch.stack([a_r, a_i], dim=-1)
+    with pytest.raises(ValueError, match='contiguous'):
+        fused_cg.cg_contract_ri(stacked[..., 0], stacked[..., 1], b_r, b_i,
+                                table3)
+    with pytest.raises(ValueError, match='contiguous'):
+        fused_cg.cg_contract_ri(a_r, a_i, b_r[:, :1].expand(9, 4, 25), b_i,
+                                table3)
+    # only out_r reaches the loss: autograd passes None for out_i
+    b_r.requires_grad_()
+    out_r, _out_i = fused_cg.cg_contract_ri(a_r, a_i, b_r, b_i, table3)
+    (got, ) = torch.autograd.grad(out_r.sum(), b_r)
+    _da_r, _da_i, db_r, _db_i = fused_cg.cg_contract_ri_bwd_plain(
+        a_r, a_i, b_r.detach(), b_i, torch.ones_like(out_r),
+        torch.zeros_like(out_r), table3)
+    torch.testing.assert_close(got, db_r, rtol=1e-4,
+                               atol=1e-4 * float(db_r.abs().max()))
+
+
+def _softmax_args(device, rows, n, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    logits = 3.0 * torch.randn((rows, n), generator=gen, device=device)
+    mask = torch.rand((rows, n), generator=gen, device=device) > 0.4
+    mask[::7] = False                  # some rows fully masked
+    mask[1, :] = True
+    return logits, mask, gen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('rows,n', [(140, 7), (140, 3), (140, 10), (140, 4),
+                                    (8192, 128), (33, 200)])
+def test_softmax_kernels_match_plain(cuda_device, rows, n):
+    logits, mask, gen = _softmax_args(cuda_device, rows, n, rows + n)
+    logits.requires_grad_()
+    before = dict(fused_agg.launch_counts)
+    probs = fused_softmax.masked_softmax(logits, mask)
+    torch.cuda.synchronize()
+    assert fused_agg.launch_counts['masked_softmax'] == before['masked_softmax'] + 1
+    ref = fused_softmax.masked_softmax_plain(logits.detach(), mask)
+    torch.testing.assert_close(probs, ref, rtol=1e-4, atol=1e-6)
+    assert not probs[~mask].any() and not probs[::7].any()
+    grad = torch.randn(probs.shape, generator=gen, device=cuda_device)
+    (got, ) = torch.autograd.grad(probs, logits, grad)
+    torch.cuda.synchronize()
+    assert (fused_agg.launch_counts['masked_softmax_bwd'] ==
+            before['masked_softmax_bwd'] + 1)
+    ref = fused_softmax.masked_softmax_bwd_plain(probs.detach(), grad)
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-6)
+    assert torch.isfinite(got).all() and not got[::7].any()
+    # a uint8 mask is the same bytes
+    torch.testing.assert_close(
+        fused_softmax.masked_softmax(logits.detach(), mask.to(torch.uint8)),
+        probs.detach(), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_softmax_leading_dims_and_refusals(cuda_device):
+    logits, mask, _gen = _softmax_args(cuda_device, 35, 25, 1)
+    out = fused_softmax.masked_softmax(logits.reshape(5, 7, 25),
+                                       mask.reshape(5, 7, 25))
+    torch.testing.assert_close(
+        out.reshape(35, 25), fused_softmax.masked_softmax_plain(logits, mask),
+        rtol=1e-4, atol=1e-6)
+    with pytest.raises(ValueError, match='contiguous'):
+        fused_softmax.masked_softmax(logits.T, mask.T)
+    with pytest.raises(TypeError, match='bool'):
+        fused_softmax.masked_softmax(logits, mask.float())
+    with pytest.raises(ValueError, match='mask'):
+        fused_softmax.masked_softmax(logits, mask[:, :5].contiguous())
+    with pytest.raises(ValueError):
+        fused_softmax.masked_softmax(logits, mask.cpu())
+
+
+def _batch(cfg, batch, seed):
+    """Random canvases (the bench.py recipe) and actions."""
     rng = np.random.RandomState(seed)
-    n_atoms = rng.randint(1, 8, size=batch)
-    elements = np.zeros((batch, 7), np.int64)
-    positions = np.zeros((batch, 7, 3), np.float32)
-    bag = np.zeros((batch, 3), np.int64)
+    n, nz = cfg['canvas_size'], len(cfg['zs'])
+    lo, hi = cfg['min_max_distance']
+    n_atoms = rng.randint(1, n + 1, size=batch)
+    elements = np.zeros((batch, n), np.int64)
+    positions = np.zeros((batch, n, 3), np.float32)
+    bag = np.zeros((batch, nz), np.int64)
     for b in range(batch):
-        elements[b, :n_atoms[b]] = rng.randint(1, 3, size=n_atoms[b])
+        elements[b, :n_atoms[b]] = rng.randint(1, nz, size=n_atoms[b])
         positions[b, :n_atoms[b]] = rng.randn(n_atoms[b], 3) * 1.2
         bag[b, 1] = rng.randint(1, 6)
         bag[b, 2] = 1
     normal = rng.randn(batch, 3)
     actions = np.concatenate([
         rng.randint(0, n_atoms)[:, None], np.ones((batch, 1)),
-        rng.uniform(1.1, 2.1, size=(batch, 1)),
+        rng.uniform(lo, hi, size=(batch, 1)),
         normal / np.linalg.norm(normal, axis=-1, keepdims=True)], axis=-1)
     return elements, positions, bag, actions.astype(np.float32)
 
 
 @pytest.mark.cuda
-def test_agent_backward_reaches_every_parameter(cuda_device):
+@pytest.mark.parametrize('cfg', [SF6_AGENT, STOCH_AGENT], ids=['sf6', 'stoch'])
+def test_agent_backward_reaches_every_parameter(cuda_device, cfg):
     """The agent's loss on the card (through the kernels) gives a gradient
     to every parameter, equal to the same agent's on the CPU."""
     from molgym_tpu_torch.agents.covariant import CovariantAC
     from molgym_tpu_torch.spaces import Observation
     torch.manual_seed(0)
-    agents = {'cuda': CovariantAC(**SF6_AGENT, device=cuda_device)}
-    agents['cpu'] = CovariantAC(**SF6_AGENT, device='cpu')
+    agents = {'cuda': CovariantAC(**cfg, device=cuda_device)}
+    agents['cpu'] = CovariantAC(**cfg, device='cpu')
     agents['cpu'].load_state_dict(agents['cuda'].state_dict())
-    elements, positions, bag, actions = _sf6_batch(16, seed=2)
+    elements, positions, bag, actions = _batch(cfg, 16, seed=2)
     grads = {}
+    before = dict(fused_agg.launch_counts)
     for name, agent in agents.items():
         dev = next(agent.parameters()).device
         obs = Observation(*(torch.from_numpy(x).to(dev)
@@ -204,6 +349,15 @@ def test_agent_backward_reaches_every_parameter(cuda_device):
         agent.zero_grad(set_to_none=True)
         loss.backward()
         grads[name] = {k: p.grad for k, p in agent.named_parameters()}
+    # one forward and one backward: each CG level's two kernels, and the
+    # heads' two products and two softmaxes
+    levels = cfg['num_cg_levels']
+    launched = {k: v - before[k] for k, v in fused_agg.launch_counts.items()}
+    assert launched == {
+        'cg_aggregate_edge_fused_ri': levels, 'cg_square_fused_ri': levels,
+        'cg_aggregate_edge_fused_ri_bwd': levels,
+        'cg_square_fused_ri_bwd': levels, 'cg_contract_ri': 2,
+        'cg_contract_ri_bwd': 2, 'masked_softmax': 2, 'masked_softmax_bwd': 2}
     missing = [k for k, g in grads['cuda'].items() if g is None]
     assert not missing, f'no gradient on the card for {missing}'
     # a leaf whose true gradient is zero (the focus head's last bias: a

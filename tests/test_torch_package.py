@@ -47,7 +47,8 @@ def test_port_imports_no_jax_and_no_reference_package():
 def test_kernel_sources_are_in_the_package():
     from molgym_tpu_torch import cuda_build
     assert set(cuda_build.KERNEL_SOURCES) == {
-        'cg_aggregate', 'cg_square', 'cg_aggregate_bwd', 'cg_square_bwd'}
+        'cg_aggregate', 'cg_square', 'cg_aggregate_bwd', 'cg_square_bwd',
+        'cg_product', 'cg_product_bwd', 'masked_softmax'}
     assert sorted(p.stem for p in cuda_build.CSRC.glob('*.cu')) == sorted(
         cuda_build.KERNEL_SOURCES)
     for name in cuda_build.KERNEL_SOURCES:
@@ -60,7 +61,10 @@ def test_new_entry_points_are_scanned():
     names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
     for module in ('rl/ppo.py', 'rl/buffer.py', 'ops/scan_math.py',
                    'tools/driver.py', 'tools/model_io.py', 'tools/util.py',
-                   'tools/model_util.py', 'tools/arg_parser.py', 'run.py'):
+                   'tools/model_util.py', 'tools/arg_parser.py', 'run.py',
+                   'run_stochastic.py', 'ops/fused_cg.py',
+                   'ops/fused_softmax.py', 'ops/kernel_common.py',
+                   'ops/masked.py'):
         assert f'molgym_tpu_torch/{module}' in names
 
 
@@ -107,3 +111,49 @@ def test_wrappers_raise_off_cpu_without_a_kernel():
     a = torch.zeros(2, 4, device='meta')
     with pytest.raises(ValueError, match='no kernel'):
         fused_agg.cg_square_fused_ri(a, a, table3)
+
+
+def test_heads_take_the_kernel_route_off_the_cpu(monkeypatch):
+    """Off the CPU neither the packed CG product nor the heads' softmax
+    reaches its plain version: both go to the kernel wrapper, which refuses
+    a device it has no kernel for."""
+    from molgym_tpu_torch.distributions.discrete import \
+        masked_categorical_probs
+    from molgym_tpu_torch.ops import cg, fused_cg, fused_softmax
+
+    def fail(*args, **kwargs):
+        raise AssertionError('the plain version was called')
+    monkeypatch.setattr(fused_cg, 'cg_contract_ri_plain', fail)
+    monkeypatch.setattr(fused_softmax, 'masked_softmax_plain', fail)
+    a = torch.zeros(3, 2, 4, device='meta')
+    with pytest.raises(ValueError, match='cg_contract_ri: no kernel'):
+        cg.cg_product_packed_ri(a, a, a, a, 2, 2, 1)
+    with pytest.raises(ValueError, match='cg_contract_ri: no kernel'):
+        cg.cg_product([torch.zeros(3, 2, 1, 2, device='meta')],
+                      [torch.zeros(3, 2, 1, 2, device='meta')], 0)
+    logits = torch.zeros(3, 5, device='meta')
+    with pytest.raises(ValueError, match='masked_softmax: no kernel'):
+        masked_categorical_probs(logits, logits > 0)
+
+
+def test_one_registry_counts_every_kernel():
+    from molgym_tpu_torch.ops import fused_agg, kernel_common
+    assert fused_agg.launch_counts is kernel_common.launch_counts
+    assert set(kernel_common.launch_counts) == {
+        'cg_aggregate_edge_fused_ri', 'cg_aggregate_edge_fused_ri_bwd',
+        'cg_square_fused_ri', 'cg_square_fused_ri_bwd', 'cg_contract_ri',
+        'cg_contract_ri_bwd', 'masked_softmax', 'masked_softmax_bwd'}
+    kernel_common.launch_counts['masked_softmax'] = 3
+    fused_agg.reset_launch_counts()
+    assert not any(kernel_common.launch_counts.values())
+
+
+def test_run_stochastic_refuses_cpu_without_device(monkeypatch, tmp_path):
+    from molgym_tpu_torch import run_stochastic
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        run_stochastic.main([
+            '--name=x', '--formulas=H2O', '--size_range=2,4', '--bag_scale=3',
+            '--symbols=X,H,O', '--canvas_size=3', '--model=covariant',
+            '--reward=device_lj', f'--results_dir={tmp_path / "results"}'])
+    assert not (tmp_path / 'results').exists()
