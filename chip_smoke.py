@@ -13,7 +13,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
        - fused CG aggregate at SF6 levels 0 and 1-2, B = 140 and B = 9, and
          the tri-fold CG square at tau = 10 and 12; both again at the
          stochastic configuration's M = 16, N = 10 (library: torch.einsum on
-         complex tensors, and its torch.autograd.grad);
+         complex tensors, and its torch.autograd.grad). The aggregate's
+         forward is also timed at the rollout's batch (10) and an
+         evaluation's (1), its resources (channels per block, shared bytes,
+         blocks per SM) are logged, and its level-0 backward at N = 10 must
+         not be slower than its library call;
        - the channel-wise CG product of the policy's mixer, (1,25,25) and
          (25,25,375) at 560 rows, 40 rows, the stochastic configuration's
          M = 16, and a row count no tile divides (library: one complex
@@ -153,6 +157,18 @@ def check_aggregate(dev, B, atom_n_ells, maxl=4, N=7, tau=10):
         return res
     res['ms'] = time_ms(lambda: fused_agg.cg_aggregate_edge_fused_ri(
         *args, grouped=grouped))
+    # the same kernel at the rollout's batch (--num_envs=10) and at an
+    # evaluation's (one env): most of a run's launches
+    for small in (10, 1):
+        few = tuple(x[:small].contiguous() for x in args[:4]) + (table3, )
+        got = fused_agg.cg_aggregate_edge_fused_ri(*few, grouped=grouped)
+        _abs, rel = max_err(got, [r[:small] for r in ref])
+        if not rel <= KERNEL_TOL:
+            raise AssertionError(f'aggregate B={small} M2={m2}: rel err {rel}')
+        res[f'ms_b{small}'] = time_ms(
+            lambda: fused_agg.cg_aggregate_edge_fused_ri(*few, grouped=grouped))
+    res['resources'] = fused_agg.aggregate_kernel_resources(
+        B, N, tau, n_ells, m2, table3, grouped, dev)
     res['plain_ms'] = time_ms(lambda: fused_agg.cg_aggregate_edge_fused_ri_plain(
         *args, grouped=grouped))
     # library yardstick: the contraction as ONE complex einsum against the
@@ -165,13 +181,13 @@ def check_aggregate(dev, B, atom_n_ells, maxl=4, N=7, tau=10):
     res['library_ms'] = time_ms(
         lambda: torch.einsum('bijtm,bjtn,mnk->bitk', e_c, q_c, c_c))
     tabs = fused_agg._kernel_tables('aggregate', table3, grouped, None, dev)
-    nnz = tabs['coef'].numel()
+    nnz = tabs['nnz']                                # without the padding
     n_flops = (B * N * N * tau * m1 * 2 +            # e = rad * Y
                B * N * tau * m1 * m2 * N * 8 +       # z, complex MAC
                B * N * tau * nnz * 4)                # sparse contraction
     res['bound_ms'], res['bound_by'] = bound_ms(
-        nbytes(sph, rad, q_r, q_i, *out, tabs['colptr'], tabs['pair'],
-               tabs['coef']), n_flops)
+        nbytes(sph, rad, q_r, q_i, *out, tabs['fwd_ptr'], tabs['fwd_ent']),
+        n_flops)
     return res
 
 
@@ -267,17 +283,33 @@ def check_aggregate_bwd(dev, B, atom_n_ells, maxl=4, N=7, tau=10):
     e_c = torch.complex(e[..., 0], e[..., 1]).contiguous().requires_grad_()
     q_c = torch.complex(q_r, q_i).requires_grad_()
     c_c = torch.from_numpy(table3).to(dev).to(torch.complex64)
-    res['library_ms'] = _library_grad_ms(
-        lambda a, b: torch.einsum('bijtm,bjtn,mnk->bitk', a, b, c_c),
-        (e_c, q_c), torch.complex(g_r, g_i))
-    nnz = tabs['coef_t'].numel()
+    def library():
+        return _library_grad_ms(
+            lambda a, b: torch.einsum('bijtm,bjtn,mnk->bitk', a, b, c_c),
+            (e_c, q_c), torch.complex(g_r, g_i))
+    res['library_ms'] = library()
+    if m2 == 1 and N == 10:
+        # the one shape at which the first version of this kernel lost to
+        # its library call: three readings of each, in turns
+        mine, theirs = [res['ms']], [res['library_ms']]
+        for _ in range(2):
+            mine.append(time_ms(lambda: fused_agg._aggregate_bwd_kernel(*args)))
+            theirs.append(library())
+        spread = max(max(mine) - min(mine), max(theirs) - min(theirs))
+        res['ms_readings'], res['library_ms_readings'] = mine, theirs
+        if min(mine) > min(theirs) + spread:
+            raise AssertionError(
+                f'FINDING: aggregate bwd, dense level-0 table, N=10: the '
+                f'kernel ({mine} ms) is slower than its library call '
+                f'({theirs} ms) by more than the spread of three readings')
+    nnz = tabs['nnz']                                  # without the padding
     n_flops = (B * N * tau * nnz * 4 +                 # dz, sparse rows
                B * N * N * tau * m1 * 2 +              # e = rad * Y
                B * N * N * tau * m1 * m2 * 8 * 2 +     # de and dq, complex MAC
                B * N * N * tau * m1 * 4)               # Re(de conj(Y))
     res['bound_ms'], res['bound_by'] = bound_ms(
-        nbytes(sph, rad, q_r, q_i, g_r, g_i, *out, tabs['rowptr'],
-               tabs['col'], tabs['coef_t']), n_flops)
+        nbytes(sph, rad, q_r, q_i, g_r, g_i, *out, tabs['bwd_ptr'],
+               tabs['bwd_row'], tabs['bwd_ent']), n_flops)
     return res
 
 
@@ -833,6 +865,9 @@ def main() -> int:
     for k, v in (list(agg.items()) + list(sq.items()) +
                  list(agg_bwd.items()) + list(sq_bwd.items())):
         log('parity', k, json.dumps(v))
+    for k, v in agg.items():
+        if 'resources' in v:
+            log('aggregate resources', k, json.dumps(v['resources']))
     for k, (fwd, bwd) in list(contract.items()) + list(softmax.items()):
         log('parity', k, 'fwd', json.dumps(fwd))
         log('parity', k, 'bwd', json.dumps(bwd))
@@ -880,13 +915,15 @@ def main() -> int:
     kernels = [
         entry('cg_aggregate_edge_fused_ri', csrc + 'cg_aggregate.cu',
               pallas + 'pallas_agg.py:334', agg[(140, 5)],
-              [r for (_b, n), r in agg.items() if n != 1]),
+              [r for (_b, n), r in agg.items() if n != 1],
+              ms_b10=agg[(140, 5)]['ms_b10'], ms_b1=agg[(140, 5)]['ms_b1']),
         # the same kernel and launch counter on the dense (ungrouped) table
         # of level 0: what the TPU's row-fallback kernel computes
         entry('cg_aggregate_edge_fused_ri', csrc + 'cg_aggregate.cu',
               pallas + 'pallas_agg.py:91', agg[(140, 1)],
               [r for (_b, n), r in agg.items() if n == 1],
-              counter_shared_with=pallas + 'pallas_agg.py:334'),
+              counter_shared_with=pallas + 'pallas_agg.py:334',
+              ms_b10=agg[(140, 1)]['ms_b10'], ms_b1=agg[(140, 1)]['ms_b1']),
         entry('cg_square_fused_ri', csrc + 'cg_square.cu',
               pallas + 'pallas_agg.py:91', sq[10], list(sq.values())),
         entry('cg_aggregate_edge_fused_ri_bwd', csrc + 'cg_aggregate_bwd.cu',
@@ -912,7 +949,13 @@ def main() -> int:
         return {f['shape']: dict(fwd=f, bwd=b) for f, b in results.values()}
     print(json.dumps({'main_path': main_path, 'aggregate_level0': agg[(140, 1)],
                       'square_tau12': sq[12],
-                      'aggregate_bwd_level0': agg_bwd[(140, 1)],
+                      'aggregate_levels12': agg[(140, 5)],
+                      'aggregate_stochastic_level0': agg[('stoch', 1)],
+                      'aggregate_stochastic_level1': agg[('stoch', 4)],
+                      'aggregate_bwd_level0': agg_bwd[('stoch', 1)],
+                      'aggregate_bwd_level0_sf6': agg_bwd[(140, 1)],
+                      'aggregate_bwd_levels12': agg_bwd[(140, 5)],
+                      'aggregate_bwd_stochastic_level1': agg_bwd[('stoch', 4)],
                       'square_bwd_tau12': sq_bwd[12],
                       'contract': by_shape(contract),
                       'softmax': by_shape(softmax),

@@ -1,6 +1,6 @@
 // Backward (vector-Jacobian product) of the fused edge build + CG aggregate
-// of cg_aggregate.cu, f32, for Hopper (sm_90a). Given the output gradients
-// g[b,i,t,k] (real and imaginary parts separate):
+// of cg_aggregate.cu for Hopper (sm_90a), f32 accumulation. Given the output
+// gradients g[b,i,t,k] (real and imaginary parts separate):
 //
 //   dz[b,i,t,(m,n)] = sum_k C[(m,n),k] g[b,i,t,k]
 //   de[b,i,j,t,m]   = sum_n dz[b,i,t,m,n] conj(q[b,j,t,n])
@@ -14,181 +14,483 @@
 // strategy) and :_bwd_kernel with n_j = N (the row fallback).
 //
 // Bound on the H100 at the SF6 shapes (B = 140, N = 7, tau = 10, M1 = 25,
-// M2 = 25, K = 375): the kernel must read g (29.4 MB) and Y, rad, q
-// (4.7 MB) and write drad (1.4 MB) and dq (2.0 MB), about 11 us at
-// 3.35 TB/s; it does about 0.34 GFLOP for de and as much for dq, plus the
-// sparse transposed contraction, about 11 us at the 67 TFLOP/s f32 rate
-// outside the tensor cores. Bytes and operations are about even.
+// M2 = 25, K = 375): g (29.4 MB) and Y, rad, q (4.7 MB) read, drad (1.4 MB)
+// and dq (2.0 MB) written, about 11 us at 3.35 TB/s; about 0.34 GFLOP for de
+// and as much for dq plus the sparse transposed contraction, about 11 us at
+// the 67 TFLOP/s f32 rate outside the tensor cores. Bytes and operations are
+// about even; f32 operands (the 1e-4 parity with the plain version), so no
+// tensor cores.
 //
-// Design: one block per (b, t). The channel t is a batch axis of this
-// function: dq[b, :, t, :] sums over i and m only, so the block that holds
-// every (i, j) of one (b, t) owns its slice of dq outright. The sum over i
-// that the TPU kernel did with a transposed selection matmul is a loop
-// inside the block: no atomics, no second pass, the same bits every run,
-// and B * tau = 1,400 blocks at SF6. The block stages g[b, :, t, :] and
-// q[b, :, t, :], forms dz in shared memory (7 x 625 complex at SF6) from
-// the CG table given as compressed sparse rows (the transpose of the
-// forward's columns, in the same permuted K order), and builds Y and e for
-// all 49 (i, j). No tensor cores; the work is small.
+// One block per (b, t), as before: the channel t is a batch axis, and
+// dq[b, :, t, :] sums over i and m only, so the block that sees every (i, j)
+// of one (b, t) owns its slice of dq outright: no atomics, no second pass,
+// and the order of every sum is fixed by the code, so two runs give the same
+// bits. What held the first version back (82 KB of shared memory with g and
+// dz of all i resident at once; dq summed by N * M2 threads, 7 or 10 of 256
+// at level 0, through N * M1 dependent steps; the table walked through
+// rowptr -> entry -> g from L2) and what this design does about each:
+//
+//  * Rows i in steps. The block holds g, Y, rad, e and dz of NI rows i at a
+//    time (ops/fused_agg.py:aggregate_bwd_plan): all N at level 0, where
+//    they take 29-37 KB and one round trip to memory serves the whole
+//    (b, t); one row (SF6) or three (M = 16) at the upper levels, in two
+//    buffers, cp.async bringing in the next rows while these are worked on,
+//    so that shared memory is 32-35 KB and six blocks fit an SM. The copies
+//    are 16 bytes wide from the 16-byte line that holds a row's first value.
+//    Blocks are persistent (a grid-stride walk over (b, t)) and stage the
+//    table once. A launch too small to fill the card (B = 10) takes all
+//    rows at once: it is bound by one block's latency.
+//  * dq by every thread. A thread owns dq[j, a strip of NS slots n] for a
+//    CHUNK of m, accumulates it in registers over all i, and at the end the
+//    mc lanes that share an output add their chunks by a __shfl_xor tree.
+//    de likewise: a thread owns de[j, a strip of MS slots m] for a chunk of
+//    n, the nc lanes are added by the same tree, and Re(de conj(Y)) goes to
+//    a small buffer from which one thread per (i, j, l) sums its 2l + 1
+//    terms while the other threads already form the next dz. mc and nc are
+//    powers of two chosen on the host; at level 0 (M2 = 1) dq has N outputs
+//    and 16 lanes work on each.
+//  * Bank conflicts. The strips are strided (n = s + x * M2 / NS), so that
+//    neighbouring lanes read neighbouring words of dz, and the rows of dz
+//    are padded to the length for which the host counts the fewest passes
+//    (fused_agg.dz_conflicts: 28 slots at M2 = 25, 17 at 16). At M = 16
+//    this took the kernel from 0.125 to 0.099 ms (every load was 4-way).
+//  * The table as in the forward: 8-byte (column, coefficient) words, the rows
+//    sorted by length and padded to the longest of each group of 32
+//    (fused_agg.warp_padded, 5% padding at SF6), in shared memory; a lane
+//    scatters its dz into the row `row_of` names.
+//  * drad is written in the L-float pieces its [B, N, N, T, L] layout gives a
+//    (b, t) block (20 bytes at a stride of T * L floats): 1.4 MB in all,
+//    and the stores leave the block without waiting.
+//
+// Operands are f32. They reach shared memory as raw bytes (cp.async) and
+// every sum is f32, so a second operand type changes the width of the
+// copies and the type read from the buffers, and nothing of the arithmetic.
+//
+// Measured on an NVIDIA H100 80GB HBM3 (700 W), CUDA-graph replay, B = 140
+// (molgym_tpu_torch/bench_aggregate.py): SF6 levels 1-2 0.140 ms (first
+// version 0.173), level 0 0.030 (0.034); M = 16, N = 10: 0.093 (0.157) and
+// 0.036 (0.041). Tried and dropped, each by the same measurement: a thread
+// tile over two neighbours j (fewer loads of dz, more shuffles: no faster),
+// more or fewer blocks per SM (3 to 7: within 15%), 4-byte against 16-byte
+// copies (the same). clock64 stamps give, per row i of an SF6 level 1-2
+// block, dz : dq : de : staging as about 2.5 : 1.2 : 2.1 : 1.7 thousand
+// cycles even when the block has its SM alone: chains of dependent
+// shared-memory loads, so the kernel is bound by latency inside a block and
+// by shared-memory traffic across blocks, not by device memory.
+// PERF.md, section 6, has every shape.
 #include <cuda_runtime.h>
 
 namespace {
 
-__device__ __forceinline__ int l_of_m(int m) {
-  int l = 0;
-  while ((l + 1) * (l + 1) <= m) ++l;
-  return l;
+constexpr int kWarp = 32;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kThreads = 192;       // a block's most
+constexpr int kMinBlocks = 6;       // per SM: caps a thread at 56 registers
+
+__host__ __device__ inline size_t align16(size_t n) { return (n + 15) / 16 * 16; }
+
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src),
+                 "n"(BYTES));
 }
 
-__global__ void cg_aggregate_bwd_kernel(
+// floats between the 16-byte line that holds *p and p
+__device__ __forceinline__ int lead_floats(const float* p) {
+  return (int)((reinterpret_cast<size_t>(p) & 15) >> 2);
+}
+
+// floats a shared row of k values takes with the slack of its 16-byte copy
+__host__ __device__ inline int padded_row(int k) { return ((k + 3) / 4 + 1) * 4; }
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+template <int NS, int MS>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) cg_aggregate_bwd_kernel(
     const float* __restrict__ sph,     // [B, N, N, M1, 2]
     const float* __restrict__ rad,     // [B, N, N, T, L]
     const float* __restrict__ q_r,     // [B, N, T, M2]
     const float* __restrict__ q_i,     // [B, N, T, M2]
     const float* __restrict__ g_r,     // [B, N, T, K]
     const float* __restrict__ g_i,     // [B, N, T, K]
-    const int* __restrict__ rowptr,    // [P + 1], P = M1 * M2
-    const int* __restrict__ col,       // [nnz] output column k
-    const float* __restrict__ coef,    // [nnz]
+    const int* __restrict__ grp_ptr,   // [G + 1] entry offset of each group
+    const int* __restrict__ row_of,    // [32 G] (m << 16 | n) of each slot, or -1
+    const int2* __restrict__ ent,      // [n_ent] (column k, coef bits)
     float* __restrict__ drad,          // [B, N, N, T, L]
     float* __restrict__ dq_r,          // [B, N, T, M2]
     float* __restrict__ dq_i,          // [B, N, T, M2]
-    int N, int T, int L, int M1, int M2, int K) {
-  extern __shared__ float smem[];
-  const int P = M1 * M2;
-  const int NN = N * N;
-  float* s_gr = smem;                  // [N][K]
-  float* s_gi = s_gr + N * K;
-  float* dz_r = s_gi + N * K;          // [N][P]
-  float* dz_i = dz_r + N * P;
-  float* y_r = dz_i + N * P;           // [N * N][M1]
-  float* y_i = y_r + NN * M1;
-  float* e_r = y_i + NN * M1;          // [N * N][M1]
-  float* e_i = e_r + NN * M1;
-  float* term = e_i + NN * M1;         // [N * N][M1]
-  float* s_qr = term + NN * M1;        // [N][M2]
-  float* s_qi = s_qr + N * M2;
+    int n_work, int N, int T, int L, int M1, int M2, int K, int G, int n_ent,
+    int NI, int M2P, int MC, int m_chunk, int NC, int n_chunk) {
+  extern __shared__ float4 smem4[];
+  const int P = M1 * M2P;              // dz rows are padded to M2P slots
+  const int NM = N * M1;
+  const int n_steps = (N + NI - 1) / NI;
+  const int n_buf = n_steps > 1 ? 2 : 1;
+  char* base = reinterpret_cast<char*>(smem4);
+  int2* s_ent = reinterpret_cast<int2*>(base);
+  base += align16(sizeof(int2) * n_ent);
+  const int KP = padded_row(K);        // a row of g and the slack of its copy
+  const size_t g_buf = sizeof(float) * NI * 2 * KP;
+  float* s_g = reinterpret_cast<float*>(base);        // [n_buf][NI][g_r KP | g_i KP]
+  base += n_buf * g_buf;
+  const size_t y_buf = align16(sizeof(float2) * (NI * NM + 2));
+  float2* s_y = reinterpret_cast<float2*>(base);      // [n_buf][NI][N][M1] + slack
+  base += n_buf * y_buf;
+  const size_t r_buf = align16(sizeof(float) * NI * N * L);
+  float* s_rad = reinterpret_cast<float*>(base);      // [n_buf][NI][N][L]
+  base += n_buf * r_buf;
+  float2* s_e = reinterpret_cast<float2*>(base);      // [NI][N][M1]
+  base += align16(sizeof(float2) * NI * NM);
+  float2* s_dz = reinterpret_cast<float2*>(base);     // [NI][M1][M2P]
+  base += align16(sizeof(float2) * NI * P);
+  float2* s_q = reinterpret_cast<float2*>(base);      // [N][M2]
+  base += align16(sizeof(float2) * N * M2);
+  float* s_term = reinterpret_cast<float*>(base);     // [NI][N][M1]
+  base += align16(sizeof(float) * NI * NM);
+  int* s_ptr = reinterpret_cast<int*>(base);          // [G + 1]
+  base += align16(sizeof(int) * (G + 1));
+  int* s_row = reinterpret_cast<int*>(base);          // [32 G]
+  base += align16(sizeof(int) * kWarp * G);
+  int* s_l = reinterpret_cast<int*>(base);            // [M1] l of m
 
-  const int bt = blockIdx.x;           // b * T + t
-  const int b = bt / T;
-  const int t = bt - b * T;
+  const int tid = threadIdx.x;
+  const int lane = tid & (kWarp - 1);
+  const int warp = tid >> 5;
+  const int n_warps = blockDim.x >> 5;
 
-  for (int idx = threadIdx.x; idx < N * K; idx += blockDim.x) {
-    const int i = idx / K;
-    const size_t src = ((size_t)(b * N + i) * T + t) * K + (idx - i * K);
-    s_gr[idx] = g_r[src];
-    s_gi[idx] = g_i[src];
+  // once per block: the table (asynchronously), offsets, rows, l of m; the
+  // first barrier of the first (b, t) covers them
+  for (int idx = tid; idx < n_ent / 2; idx += blockDim.x)
+    cp_async<16>(s_ent + 2 * idx, ent + 2 * idx);
+  for (int idx = tid; idx <= G; idx += blockDim.x) s_ptr[idx] = grp_ptr[idx];
+  for (int idx = tid; idx < kWarp * G; idx += blockDim.x) s_row[idx] = row_of[idx];
+  for (int m = tid; m < M1; m += blockDim.x) {
+    int l = 0;
+    while ((l + 1) * (l + 1) <= m) ++l;
+    s_l[m] = l;
   }
-  for (int idx = threadIdx.x; idx < N * M2; idx += blockDim.x) {
-    const int j = idx / M2;
-    const size_t src = ((size_t)(b * N + j) * T + t) * M2 + (idx - j * M2);
-    s_qr[idx] = q_r[src];
-    s_qi[idx] = q_i[src];
-  }
-  for (int idx = threadIdx.x; idx < NN * M1; idx += blockDim.x) {
-    const int ij = idx / M1;
-    const int m = idx - ij * M1;
-    const size_t e = (size_t)b * NN + ij;
-    const float yr = sph[(e * M1 + m) * 2];
-    const float yi = sph[(e * M1 + m) * 2 + 1];
-    const float r = rad[(e * T + t) * L + l_of_m(m)];
-    y_r[idx] = yr;
-    y_i[idx] = yi;
-    e_r[idx] = r * yr;
-    e_i[idx] = r * yi;
-  }
-  __syncthreads();
 
-  // dz[i, p] = sum_k C[p, k] g[i, k]
-  for (int idx = threadIdx.x; idx < N * P; idx += blockDim.x) {
-    const int i = idx / P;
-    const int p = idx - i * P;
-    const float* gr = s_gr + i * K;
-    const float* gi = s_gi + i * K;
-    float acc_r = 0.f, acc_i = 0.f;
-    const int end = __ldg(rowptr + p + 1);
-    for (int e = __ldg(rowptr + p); e < end; ++e) {
-      const int k = __ldg(col + e);
-      const float c = __ldg(coef + e);
-      acc_r += c * gr[k];
-      acc_i += c * gi[k];
+  // this thread's two roles, the same for every (b, t):
+  //   dq[qj, n = qs + x SQ, x < NS] over m in [qm0, qm1)
+  //   de[ej, m = es + x SE, x < MS] over n in [en0, en1)
+  // (strided strips: neighbouring lanes read neighbouring words of dz)
+  // strips per row: a strip wider than 1 is the n of an n * n rep (the host's
+  // strip_of), so the strides of the strided strips are compile-time numbers
+  const int SQ = NS == 1 ? M2 : NS, SE = MS == 1 ? M1 : MS;
+  const int qc = tid % MC, q_row = tid / MC;
+  const int qs = q_row % SQ, qj = q_row / SQ;
+  const bool q_on = qj < N;
+  const int qm0 = min(qc * m_chunk, M1), qm1 = min(qm0 + m_chunk, M1);
+  // threads left over after one row's de outputs take further rows of the
+  // step side by side (level 0: N * SE outputs a row, RP rows at a time)
+  const int RP = max(1, min(NI, (int)blockDim.x / (N * SE * NC)));
+  const int ec = tid % NC, e_row = tid / NC;
+  const int es = e_row % SE, ej = (e_row / SE) % N, ei = e_row / (SE * N);
+  const bool e_on = ei < RP;
+  const int en0 = min(ec * n_chunk, M2), en1 = min(en0 + n_chunk, M2);
+
+  for (int work = blockIdx.x; work < n_work; work += gridDim.x) {
+    const int b = work / T;
+    const int t = work - b * T;
+
+    // asynchronous copies of what rows i0 .. i0 + ni need: g[b, i, t, :],
+    // Y[b, i, :, :] and rad[b, i, :, t, :]
+    auto prefetch = [&](int i0, int ni, int buf) {
+      const size_t bi0 = (size_t)b * N + i0;
+      // 16-byte copies: a row of g starts at any multiple of 4 bytes, so the
+      // copy starts at the 16-byte line that holds its first value (at most
+      // 3 floats early, `lead`) and the row lies at sg + lead. The first and
+      // last lines may reach up to 12 bytes outside the tensor, inside a
+      // line that holds valid values, so inside its allocation.
+      float* sg = s_g + buf * (g_buf / sizeof(float));
+      for (int ii = 0; ii < ni; ++ii) {
+        const float* gr = g_r + ((bi0 + ii) * T + t) * K;
+        const float* gi = g_i + ((bi0 + ii) * T + t) * K;
+        const int lead_r = lead_floats(gr), lead_i = lead_floats(gi);
+        for (int c = tid; 4 * c < lead_r + K; c += blockDim.x)
+          cp_async<16>(sg + ii * 2 * KP + 4 * c, gr - lead_r + 4 * c);
+        for (int c = tid; 4 * c < lead_i + K; c += blockDim.x)
+          cp_async<16>(sg + ii * 2 * KP + KP + 4 * c, gi - lead_i + 4 * c);
+      }
+      // Y of the step's rows is one run of float2, 8-byte aligned
+      const float* y = sph + bi0 * NM * 2;
+      const int lead_y = lead_floats(y);           // 0 or 2 floats
+      float* sy = reinterpret_cast<float*>(s_y + buf * (y_buf / sizeof(float2)));
+      for (int c = tid; 4 * c < lead_y + 2 * ni * NM; c += blockDim.x)
+        cp_async<16>(sy + 4 * c, y - lead_y + 4 * c);
+      float* sr = s_rad + buf * (r_buf / sizeof(float));
+      for (int row = tid; row < ni * N; row += blockDim.x) {  // (i - i0) * N + j
+        const float* src = rad + ((bi0 * N + row) * T + t) * L;
+        for (int l = 0; l < L; ++l) cp_async<4>(sr + row * L + l, src + l);
+      }
+    };
+    // drad[b, i0 + ii, j, t, l] for the ni rows whose radial terms are in
+    // s_term, one thread per (ii, j, l)
+    auto radial_sums = [&](int i0, int ni) {
+      for (int idx = tid; idx < ni * N * L; idx += blockDim.x) {
+        const int row = idx / L;       // ii * N + j
+        const int l = idx - row * L;
+        const float* term = s_term + row * M1;
+        float s = 0.f;
+        for (int m = l * l; m < (l + 1) * (l + 1); ++m) s += term[m];
+        drad[((((size_t)b * N + i0) * N + row) * T + t) * L + l] = s;
+      }
+    };
+
+    prefetch(0, min(NI, N), 0);
+    // q[b, :, t, :]; the previous (b, t) is done with s_q (the barrier
+    // before its last radial sums)
+    for (int idx = tid; idx < N * M2; idx += blockDim.x) {
+      const int j = idx / M2;
+      const size_t src = (((size_t)b * N + j) * T + t) * M2 + (idx - j * M2);
+      s_q[idx] = make_float2(q_r[src], q_i[src]);
     }
-    dz_r[idx] = acc_r;
-    dz_i[idx] = acc_i;
-  }
-  __syncthreads();
 
-  // per (i, j, m): de = sum_n dz[i, (m, n)] conj(q[j, n]), kept as its
-  // radial term Re(de conj(Y)), summed over the m of each l below
-  for (int idx = threadIdx.x; idx < NN * M1; idx += blockDim.x) {
-    const int ij = idx / M1;
-    const int m = idx - ij * M1;
-    const int i = ij / N;
-    const int j = ij - i * N;
-    const float* zr = dz_r + i * P + m * M2;
-    const float* zi = dz_i + i * P + m * M2;
-    const float* qr = s_qr + j * M2;
-    const float* qi = s_qi + j * M2;
-    float de_r = 0.f, de_i = 0.f;
-    for (int n = 0; n < M2; ++n) {
-      de_r += zr[n] * qr[n] + zi[n] * qi[n];
-      de_i += zi[n] * qr[n] - zr[n] * qi[n];
-    }
-    term[idx] = de_r * y_r[idx] + de_i * y_i[idx];
-  }
-  // per (j, n): dq = sum_{i, m} dz[i, (m, n)] conj(e[i, j, m])
-  for (int idx = threadIdx.x; idx < N * M2; idx += blockDim.x) {
-    const int j = idx / M2;
-    const int n = idx - j * M2;
-    float acc_r = 0.f, acc_i = 0.f;
-    for (int i = 0; i < N; ++i) {
-      const float* er = e_r + (i * N + j) * M1;
-      const float* ei = e_i + (i * N + j) * M1;
-      const float* zr = dz_r + i * P + n;
-      const float* zi = dz_i + i * P + n;
-      for (int m = 0; m < M1; ++m) {
-        const float a = zr[m * M2], c = zi[m * M2];
-        acc_r += a * er[m] + c * ei[m];
-        acc_i += c * er[m] - a * ei[m];
+    float acc_r[NS], acc_i[NS];        // this thread's share of dq
+#pragma unroll
+    for (int x = 0; x < NS; ++x) acc_r[x] = acc_i[x] = 0.f;
+
+    for (int step = 0; step < n_steps; ++step) {
+      const int i0 = step * NI;
+      const int ni = min(NI, N - i0);
+      const int buf = step & (n_buf - 1);
+      cp_async_wait_all();
+      __syncthreads();                 // these rows have landed; the last are done
+      if (step + 1 < n_steps) prefetch(i0 + NI, min(NI, N - i0 - NI), buf ^ 1);
+      const float* sg = s_g + buf * (g_buf / sizeof(float));
+      const size_t bi0 = (size_t)b * N + i0;
+      const float2* sy = s_y + buf * (y_buf / sizeof(float2)) +
+                         lead_floats(sph + bi0 * NM * 2) / 2;
+      const float* sr = s_rad + buf * (r_buf / sizeof(float));
+
+      // dz[ii, p] = sum_k C[p, k] g[ii, k]: a warp per (row, group of 32 p)
+      for (int item = warp; item < ni * G; item += n_warps) {
+        const int ii = item / G;
+        const int g = item - ii * G;
+        const int first = s_ptr[g];
+        const int trips = (s_ptr[g + 1] - first) >> 5;
+        const int2* row = s_ent + first + lane;
+        const float* gr = sg + ii * 2 * KP +
+                          lead_floats(g_r + ((bi0 + ii) * T + t) * K);
+        const float* gi = sg + ii * 2 * KP + KP +
+                          lead_floats(g_i + ((bi0 + ii) * T + t) * K);
+        float a_r = 0.f, a_i = 0.f;
+        int e = 0;
+        for (; e + 2 <= trips; e += 2) {   // two entries in flight
+          const int2 v0 = row[e * kWarp];
+          const int2 v1 = row[(e + 1) * kWarp];
+          const float r0 = gr[v0.x], i0g = gi[v0.x];
+          const float r1 = gr[v1.x], i1g = gi[v1.x];
+          a_r += __int_as_float(v0.y) * r0;
+          a_i += __int_as_float(v0.y) * i0g;
+          a_r += __int_as_float(v1.y) * r1;
+          a_i += __int_as_float(v1.y) * i1g;
+        }
+        if (e < trips) {
+          const int2 v = row[e * kWarp];
+          a_r += __int_as_float(v.y) * gr[v.x];
+          a_i += __int_as_float(v.y) * gi[v.x];
+        }
+        const int mn = s_row[g * kWarp + lane];
+        if (mn >= 0)
+          s_dz[ii * P + (mn >> 16) * M2P + (mn & 0xffff)] = make_float2(a_r, a_i);
+      }
+      // e[ii, j, m] = rad[ii, j, l(m)] * Y[ii, j, m]
+      for (int idx = tid; idx < ni * NM; idx += blockDim.x) {
+        const int row = idx / M1;      // ii * N + j
+        const float2 y = sy[idx];
+        const float r = sr[row * L + s_l[idx - row * M1]];
+        s_e[idx] = make_float2(r * y.x, r * y.y);
+      }
+      if (step > 0) radial_sums(i0 - NI, NI);
+      __syncthreads();
+
+      // dq[qj, strip] += sum_{ii, m in chunk} dz[ii, m, strip] conj(e[ii, qj, m])
+      if (q_on) {
+        for (int ii = 0; ii < ni; ++ii) {
+          const float2* ep = s_e + (ii * N + qj) * M1;
+          const float2* zp = s_dz + ii * P + qs;
+          for (int m = qm0; m < qm1; ++m) {
+            const float2 e = ep[m];
+#pragma unroll
+            for (int x = 0; x < NS; ++x) {
+              const float2 zz = zp[m * M2P + x * SQ];
+              acc_r[x] = fmaf(zz.x, e.x, fmaf(zz.y, e.y, acc_r[x]));
+              acc_i[x] = fmaf(zz.y, e.x, fmaf(-zz.x, e.y, acc_i[x]));
+            }
+          }
+        }
+      }
+      // de[ii, ej, strip] = sum_{n in chunk} dz[ii, strip, n] conj(q[ej, n]);
+      // the nc lanes of one output are added, and its radial term stored
+      for (int ii0 = 0; ii0 < ni; ii0 += RP) {
+        const int ii = ii0 + ei;
+        const bool on = e_on && ii < ni;
+        float de_r[MS], de_i[MS];
+#pragma unroll
+        for (int x = 0; x < MS; ++x) de_r[x] = de_i[x] = 0.f;
+        if (on) {
+          const float2* zp = s_dz + ii * P + es * M2P;
+          for (int n = en0; n < en1; ++n) {
+            const float2 q = s_q[ej * M2 + n];
+#pragma unroll
+            for (int x = 0; x < MS; ++x) {
+              const float2 zz = zp[x * SE * M2P + n];
+              de_r[x] = fmaf(zz.x, q.x, fmaf(zz.y, q.y, de_r[x]));
+              de_i[x] = fmaf(zz.y, q.x, fmaf(-zz.x, q.y, de_i[x]));
+            }
+          }
+        }
+        for (int off = 1; off < NC; off <<= 1) {
+#pragma unroll
+          for (int x = 0; x < MS; ++x) {
+            de_r[x] += __shfl_xor_sync(kFull, de_r[x], off);
+            de_i[x] += __shfl_xor_sync(kFull, de_i[x], off);
+          }
+        }
+        if (on && ec == 0) {
+#pragma unroll
+          for (int x = 0; x < MS; ++x) {
+            const int at = (ii * N + ej) * M1 + es + x * SE;
+            const float2 y = sy[at];
+            s_term[at] = de_r[x] * y.x + de_i[x] * y.y;
+          }
+        }
       }
     }
-    const size_t dst = ((size_t)(b * N + j) * T + t) * M2 + n;
-    dq_r[dst] = acc_r;
-    dq_i[dst] = acc_i;
+    __syncthreads();                   // the last rows' radial terms
+    radial_sums((n_steps - 1) * NI, N - (n_steps - 1) * NI);
+    // dq: add the mc lanes of each output in a fixed order, lane 0 writes
+    for (int off = 1; off < MC; off <<= 1) {
+#pragma unroll
+      for (int x = 0; x < NS; ++x) {
+        acc_r[x] += __shfl_xor_sync(kFull, acc_r[x], off);
+        acc_i[x] += __shfl_xor_sync(kFull, acc_i[x], off);
+      }
+    }
+    if (q_on && qc == 0) {
+      const size_t dst = (((size_t)b * N + qj) * T + t) * M2 + qs;
+#pragma unroll
+      for (int x = 0; x < NS; ++x) {
+        dq_r[dst + x * SQ] = acc_r[x];
+        dq_i[dst + x * SQ] = acc_i[x];
+      }
+    }
   }
-  __syncthreads();
+  cp_async_wait_all();                 // a block that got no (b, t)
+}
 
-  for (int idx = threadIdx.x; idx < NN * L; idx += blockDim.x) {
-    const int ij = idx / L;
-    const int l = idx - ij * L;
-    float s = 0.f;
-    for (int m = l * l; m < (l + 1) * (l + 1); ++m) s += term[ij * M1 + m];
-    drad[(((size_t)b * NN + ij) * T + t) * L + l] = s;
+typedef void (*Kernel)(const float*, const float*, const float*, const float*,
+                       const float*, const float*, const int*, const int*,
+                       const int2*, float*, float*, float*, int, int, int, int,
+                       int, int, int, int, int, int, int, int, int, int, int);
+
+template <int NS>
+Kernel kernel_for_ms(int ms) {
+  switch (ms) {
+    case 1: return cg_aggregate_bwd_kernel<NS, 1>;
+    case 3: return cg_aggregate_bwd_kernel<NS, 3>;
+    case 4: return cg_aggregate_bwd_kernel<NS, 4>;
+    case 5: return cg_aggregate_bwd_kernel<NS, 5>;
+    default: return nullptr;
   }
 }
+
+Kernel kernel_for(int ns, int ms) {
+  switch (ns) {
+    case 1: return kernel_for_ms<1>(ms);
+    case 3: return kernel_for_ms<3>(ms);
+    case 4: return kernel_for_ms<4>(ms);
+    case 5: return kernel_for_ms<5>(ms);
+    default: return nullptr;
+  }
+}
+
+int num_sms() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
+}
+
+bool power_of_two(int n) { return n > 0 && (n & (n - 1)) == 0; }
 
 }  // namespace
 
-extern "C" size_t cg_aggregate_bwd_smem_bytes(int N, int M1, int M2, int K) {
-  return sizeof(float) * (2 * (size_t)N * K + 2 * (size_t)N * M1 * M2 +
-                          5 * (size_t)N * N * M1 + 2 * (size_t)N * M2);
+// `NI` rows i are worked on at a time: all N at once in one buffer, or fewer
+// in two buffers that take turns.
+extern "C" size_t cg_aggregate_bwd_smem_bytes(int N, int L, int M1, int M2, int K,
+                                              int G, int n_ent, int NI,
+                                              int M2P) {
+  const size_t n_buf = NI < N ? 2 : 1;
+  return align16(sizeof(int2) * (size_t)n_ent) +
+         n_buf * (sizeof(float) * 2 * (size_t)NI * padded_row(K) +
+                  align16(sizeof(float2) * ((size_t)NI * N * M1 + 2)) +
+                  align16(sizeof(float) * (size_t)NI * N * L)) +
+         align16(sizeof(float2) * (size_t)NI * N * M1) +
+         align16(sizeof(float2) * (size_t)NI * M1 * M2P) +
+         align16(sizeof(float2) * (size_t)N * M2) +
+         align16(sizeof(float) * (size_t)NI * N * M1) +
+         align16(sizeof(int) * (size_t)(G + 1)) +
+         align16(sizeof(int) * (size_t)kWarp * G) +
+         align16(sizeof(int) * (size_t)M1);
 }
 
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
+// Resident blocks per SM of the instantiation for strips of `ns` and `ms`;
+// -1 for strips the kernel is not compiled for or a refused configuration.
+extern "C" int cg_aggregate_bwd_blocks_per_sm(int ns, int ms, int threads,
+                                              int smem) {
+  Kernel kernel = kernel_for(ns, ms);
+  if (kernel == nullptr) return -1;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem) != cudaSuccess)
+    return -1;
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads,
+                                                    smem) != cudaSuccess)
+    return -1;
+  return blocks;
+}
+
+// Launches on `stream` and returns cudaGetLastError() (0 on success). A
+// strip `ns` > 1 has M2 = ns * ns, a strip `ms` > 1 has M1 = ms * ms; `mc`
+// and `nc` are powers of two of at most 32 with N * (M2 / ns) * mc and
+// N * (M1 / ms) * nc at most `threads`; `NI` rows i a step, 1 <= NI <= N; dz
+// rows of `M2P` >= M2 slots.
 extern "C" int cg_aggregate_bwd_f32(
     const float* sph, const float* rad, const float* q_r, const float* q_i,
-    const float* g_r, const float* g_i, const int* rowptr, const int* col,
-    const float* coef, float* drad, float* dq_r, float* dq_i,
-    int B, int N, int T, int L, int M1, int M2, int K, void* stream) {
-  const size_t smem = cg_aggregate_bwd_smem_bytes(N, M1, M2, K);
-  cudaError_t err = cudaFuncSetAttribute(
-      cg_aggregate_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  if (B * T > 0) {
-    cg_aggregate_bwd_kernel<<<B * T, 256, smem, (cudaStream_t)stream>>>(
-        sph, rad, q_r, q_i, g_r, g_i, rowptr, col, coef, drad, dq_r, dq_i,
-        N, T, L, M1, M2, K);
+    const float* g_r, const float* g_i, const int* grp_ptr, const int* row_of,
+    const int* ent, float* drad, float* dq_r, float* dq_i,
+    int B, int N, int T, int L, int M1, int M2, int K, int G, int n_ent,
+    int NI, int M2P, int ns, int ms, int mc, int nc, int threads, void* stream) {
+  Kernel kernel = kernel_for(ns, ms);
+  if (kernel == nullptr || (ns > 1 && M2 != ns * ns) ||
+      (ms > 1 && M1 != ms * ms) || !power_of_two(mc) || !power_of_two(nc) ||
+      mc > kWarp || nc > kWarp || n_ent % kWarp != 0 || threads % kWarp != 0 ||
+      threads > kThreads || N * (M2 / ns) * mc > threads ||
+      N * (M1 / ms) * nc > threads || NI < 1 || NI > N || M2P < M2)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = cg_aggregate_bwd_smem_bytes(N, L, M1, M2, K, G, n_ent, NI, M2P);
+  const int per_sm = cg_aggregate_bwd_blocks_per_sm(ns, ms, threads, (int)smem);
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long n_work = (long long)B * T;
+  if (n_work > 0) {
+    const long long slots = (long long)per_sm * num_sms();
+    const int grid = (int)(n_work < slots ? n_work : slots);
+    kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
+        sph, rad, q_r, q_i, g_r, g_i, grp_ptr, row_of,
+        reinterpret_cast<const int2*>(ent), drad, dq_r, dq_i, (int)n_work, N, T,
+        L, M1, M2, K, G, n_ent, NI, M2P, mc, (M1 + mc - 1) / mc, nc,
+        (M2 + nc - 1) / nc);
   }
   return (int)cudaGetLastError();
 }

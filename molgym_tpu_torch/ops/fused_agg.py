@@ -25,6 +25,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
+from collections import Counter
 from typing import List, Tuple
 
 import numpy as np
@@ -49,7 +51,8 @@ Blocks = List[Tuple[int, int, np.ndarray]]
 # ---------------------------------------------------------------------------
 # contraction tables: the same blocks feed the plain version (as dense
 # sub-tables) and the kernels (as compressed sparse columns for the forward,
-# compressed sparse rows for the backward)
+# compressed sparse rows for the backward; the aggregate's kernels take both
+# re-packed warp by warp, `warp_padded`)
 # ---------------------------------------------------------------------------
 
 def _aggregate_blocks(table3: np.ndarray, grouped) -> Blocks:
@@ -129,6 +132,55 @@ def pair_incidence(pairs: np.ndarray, m: int):
             other[order].astype(np.int32))
 
 
+WARP = 32
+
+
+def warp_padded(ptr: np.ndarray, idx: np.ndarray, coef: np.ndarray,
+                by_length: bool = False):
+    """A compressed sparse table (`ptr` [R+1], `idx`, `coef` [nnz]: columns
+    of the forward, rows of the backward) re-packed for warps of 32 lanes.
+
+    Line r of the table goes to slot s (s = r, or the rank of r by falling
+    length when `by_length`); group g holds slots 32 g .. 32 g + 31, one per
+    lane, and takes trips[g] = the longest of its lines steps. Entry e of
+    slot s lies at `grp_ptr[g] + 32 e + lane`, so a warp reads one step of
+    all its lanes as 256 consecutive bytes and needs no per-line pointer;
+    shorter lines are padded with (index 0, coefficient 0.0). Returns
+
+        grp_ptr int32 [G + 1]   entry offset of each group (multiples of 32)
+        line_of int32 [32 G]    the line of each slot, -1 for a slot past R
+        ent     int32 [E, 2]    (index, bits of the float32 coefficient)
+    """
+    n_lines = len(ptr) - 1
+    counts = np.diff(ptr)
+    order = (np.argsort(-counts, kind='stable') if by_length
+             else np.arange(n_lines))
+    n_groups = -(-n_lines // WARP)
+    line_of = np.full(n_groups * WARP, -1, np.int32)
+    line_of[:n_lines] = order
+    slot_counts = np.zeros(n_groups * WARP, np.int64)
+    slot_counts[:n_lines] = counts[order]
+    trips = slot_counts.reshape(n_groups, WARP).max(axis=1)
+    grp_ptr = np.zeros(n_groups + 1, np.int64)
+    grp_ptr[1:] = np.cumsum(trips * WARP)
+    ent_idx = np.zeros(grp_ptr[-1], np.int32)
+    ent_coef = np.zeros(grp_ptr[-1], np.float32)
+    for s in range(n_lines):
+        g, lane = divmod(s, WARP)
+        a, b = ptr[order[s]], ptr[order[s] + 1]
+        at = grp_ptr[g] + WARP * np.arange(b - a) + lane
+        ent_idx[at] = idx[a:b]
+        ent_coef[at] = coef[a:b]
+    ent = np.stack([ent_idx, ent_coef.view(np.int32)], axis=1)
+    return grp_ptr.astype(np.int32), line_of, np.ascontiguousarray(ent)
+
+
+def pack_pairs(line_of: np.ndarray, m2: int) -> np.ndarray:
+    """Pair indices p = m * m2 + n as (m << 16 | n); -1 stays -1."""
+    packed = (line_of // m2 << 16) | (line_of % m2)
+    return np.where(line_of < 0, -1, packed).astype(np.int32)
+
+
 def _flat_arrays(table3, grouped=None, tri=None):
     out = [table3]
     if grouped is not None:
@@ -164,6 +216,19 @@ def _kernel_tables(kind, table3, grouped, tri, device):
             n_pairs = pairs.shape[0]
         colptr, pair, coef = sparse_columns(blocks)
         rowptr, col, coef_t = sparse_rows(blocks, n_pairs)
+        if kind == 'aggregate':
+            fwd_ptr, _cols, fwd_ent = warp_padded(colptr, pair, coef)
+            bwd_ptr, bwd_row, bwd_ent = warp_padded(rowptr, col, coef_t,
+                                                    by_length=True)
+            return {'k': int(colptr.shape[0] - 1), 'nnz': int(coef.shape[0]),
+                    'fwd_ptr': _to(fwd_ptr, device),
+                    'fwd_ent': _to(fwd_ent, device),
+                    'bwd_ptr': _to(bwd_ptr, device),
+                    # the pair p = m * M2 + n of each slot as (m << 16 | n):
+                    # the kernel pads the rows of dz
+                    'bwd_row': _to(pack_pairs(bwd_row, table3.shape[1]),
+                                   device),
+                    'bwd_ent': _to(bwd_ent, device)}
         out = {'colptr': _to(colptr, device), 'pair': _to(pair, device),
                'coef': _to(coef, device), 'k': int(colptr.shape[0] - 1),
                'rowptr': _to(rowptr, device), 'col': _to(col, device),
@@ -217,20 +282,24 @@ _I = ctypes.c_int
 @functools.lru_cache(maxsize=None)
 def _aggregate_lib() -> ctypes.CDLL:
     lib = cuda_build.load('cg_aggregate')
-    lib.cg_aggregate_edge_fused_f32.argtypes = [_P] * 9 + [_I] * 7 + [_P]
+    lib.cg_aggregate_edge_fused_f32.argtypes = [_P] * 8 + [_I] * 12 + [_P]
     lib.cg_aggregate_edge_fused_f32.restype = _I
-    lib.cg_aggregate_smem_bytes.argtypes = [_I] * 4
+    lib.cg_aggregate_smem_bytes.argtypes = [_I] * 6
     lib.cg_aggregate_smem_bytes.restype = ctypes.c_size_t
+    lib.cg_aggregate_blocks_per_sm.argtypes = [_I] * 3
+    lib.cg_aggregate_blocks_per_sm.restype = _I
     return lib
 
 
 @functools.lru_cache(maxsize=None)
 def _aggregate_bwd_lib() -> ctypes.CDLL:
     lib = cuda_build.load('cg_aggregate_bwd')
-    lib.cg_aggregate_bwd_f32.argtypes = [_P] * 12 + [_I] * 7 + [_P]
+    lib.cg_aggregate_bwd_f32.argtypes = [_P] * 12 + [_I] * 16 + [_P]
     lib.cg_aggregate_bwd_f32.restype = _I
-    lib.cg_aggregate_bwd_smem_bytes.argtypes = [_I] * 4
+    lib.cg_aggregate_bwd_smem_bytes.argtypes = [_I] * 9
     lib.cg_aggregate_bwd_smem_bytes.restype = ctypes.c_size_t
+    lib.cg_aggregate_bwd_blocks_per_sm.argtypes = [_I] * 4
+    lib.cg_aggregate_bwd_blocks_per_sm.restype = _I
     return lib
 
 
@@ -335,31 +404,183 @@ def _aggregate_shapes(name, sph_packed, rad_feats, atom_r, atom_i, table3):
     return B, N, tau, n_l, m1, m2
 
 
+# How the aggregate's kernels cut their work (csrc/cg_aggregate.cu,
+# csrc/cg_aggregate_bwd.cu). The choices are made here, on the host, from
+# the shapes alone, so that the CPU tests can walk the same tiles.
+
+FWD_THREADS = 256
+BWD_THREADS = 192
+# what a forward block may take of an SM's shared memory before the tile of
+# channels is cut: five blocks of this size fit an SM
+FWD_SMEM_TARGET = 40 * 1024
+BWD_SMEM_TARGET = 40 * 1024
+_STRIPS = (1, 3, 4, 5)       # register strips the kernels are compiled for
+
+
+def _align16(n_bytes: int) -> int:
+    return -(-n_bytes // 16) * 16
+
+
+def strip_of(m: int) -> int:
+    """The register strip for a rep of m slots: a rep of n l's has n * n
+    slots and is cut into strips of n; any other width into strips of 1."""
+    n = math.isqrt(m)
+    return n if n * n == m and n in _STRIPS else 1
+
+
+def aggregate_fwd_smem(N, tile_t, m1, m2, n_groups, n_ent) -> int:
+    """Shared bytes of one forward block: the packed table, z of the tile,
+    the edge rep e and q of the neighbourhood, the group offsets."""
+    return (_align16(8 * n_ent) + _align16(8 * tile_t * m1 * m2) +
+            _align16(8 * N * tile_t * m1) + _align16(8 * N * tile_t * m2) +
+            _align16(4 * (n_groups + 1)))
+
+
+def aggregate_fwd_tile(B, N, tau, m1, m2, n_groups, n_ent, num_sms) -> int:
+    """Channels per forward block. The channel is a batch axis of the whole
+    function, so a block takes one (b, i) and a tile of channels: the
+    largest tile that keeps a block under FWD_SMEM_TARGET and still gives
+    the card two blocks per SM, evened out over the tiles of tau."""
+    tile = tau
+    while tile > 1 and (
+            aggregate_fwd_smem(N, tile, m1, m2, n_groups, n_ent)
+            > FWD_SMEM_TARGET or B * N * -(-tau // tile) < 2 * num_sms):
+        tile -= 1
+    return -(-tau // -(-tau // tile))
+
+
+def _pow2_floor(n: int) -> int:
+    return 1 << (max(n, 1).bit_length() - 1)
+
+
+def aggregate_bwd_smem(N, n_l, m1, m2, k, n_groups, n_ent, rows,
+                       m2_stride) -> int:
+    """Shared bytes of one backward block that works on `rows` rows i at a
+    time: the packed table; g, Y and rad of the rows (in two buffers that
+    take turns, unless all N rows fit at once; rows of g and Y with the
+    slack of their 16-byte copies); then e, dz, q, the radial terms, the
+    group offsets, the row of each slot and l of m."""
+    n_buf = 2 if rows < N else 1
+    return (_align16(8 * n_ent) +
+            n_buf * (8 * rows * ((k + 3) // 4 + 1) * 4 +
+                     _align16(8 * (rows * N * m1 + 2)) +
+                     _align16(4 * rows * N * n_l)) +
+            _align16(8 * rows * N * m1) + _align16(8 * rows * m1 * m2_stride) +
+            _align16(8 * N * m2) + _align16(4 * rows * N * m1) +
+            _align16(4 * (n_groups + 1)) + _align16(4 * WARP * n_groups) +
+            _align16(4 * m1))
+
+
+def dz_conflicts(N, m1, m2, stride, threads, ns, ms, mc, m_chunk, nc,
+                 n_chunk) -> int:
+    """Shared-memory passes the backward's two register tilings need for
+    one 8-byte load of dz by every thread, rows of dz `stride` slots long:
+    for each half warp (an 8-byte load is served 16 lanes at a time) the
+    most distinct addresses that fall on one bank, summed over the block
+    and both tilings. The least is one pass for each half warp at work."""
+    def passes(addresses):
+        on_bank = Counter((2 * a) % 32 for a in set(addresses))
+        return max(on_bank.values(), default=0)
+    sq, se = m2 // ns, m1 // ms
+    total = 0
+    for half in range(0, threads, 16):
+        dq, de = [], []
+        for tid in range(half, half + 16):
+            qc, row = tid % mc, tid // mc
+            if row // sq < N:
+                dq.append(qc * m_chunk * stride + row % sq)
+            ec, row = tid % nc, tid // nc
+            if row // se < N:
+                de.append((row % se) * stride + ec * n_chunk)
+        total += passes(dq) + passes(de)
+    return total
+
+
+def aggregate_bwd_plan(N, n_l, m1, m2, k, n_groups, n_ent, n_blocks=None,
+                       num_sms=132, threads=BWD_THREADS) -> dict:
+    """How a backward block (one (b, t)) cuts its work (computed once per
+    set of arguments; the caller gets its own copy).
+
+    rows: the rows i it holds at a time, all N if that keeps the block
+    under BWD_SMEM_TARGET (level 0: one round trip to memory instead of
+    N), else as many as fit, evened out over N. A launch of `n_blocks`
+    blocks that leaves most of the card empty (a small batch) is bound by
+    one block's latency, not by how many fit an SM, and gets half an SM's
+    shared memory as its target.
+    Two register tilings: d q[j, strip of ns] is summed over a chunk of m by
+    each of `mc` lanes, d e[j, strip of ms] over a chunk of n by each of
+    `nc` lanes; mc and nc are powers of two (at most a warp), so the lanes
+    of one output are neighbours and a shuffle tree adds them in a fixed
+    order."""
+    return dict(_bwd_plan(N, n_l, m1, m2, k, n_groups, n_ent, n_blocks, num_sms,
+                          threads))
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_plan(N, n_l, m1, m2, k, n_groups, n_ent, n_blocks, num_sms, threads):
+    ns, ms = strip_of(m2), strip_of(m1)
+    dq_rows, de_rows = N * (m2 // ns), N * (m1 // ms)
+    if max(dq_rows, de_rows) > threads:
+        raise ValueError(f'cg_aggregate_edge_fused_ri_bwd: N={N}, M1={m1}, '
+                         f'M2={m2} give a block more than {threads} outputs')
+    mc = min(_pow2_floor(min(threads // dq_rows, m1)), WARP)
+    nc = min(_pow2_floor(min(threads // de_rows, m2)), WARP)
+    plan = dict(ns=ns, ms=ms, mc=mc, m_chunk=-(-m1 // mc), nc=nc,
+                n_chunk=-(-m2 // nc))
+    plan['m2_stride'] = min(range(m2, m2 + 9), key=lambda stride: dz_conflicts(
+        N, m1, m2, stride, threads, **plan))
+    target = BWD_SMEM_TARGET
+    if n_blocks is not None and n_blocks <= 2 * num_sms:
+        target = MAX_SMEM // 2
+    rows = N
+    while rows > 1 and aggregate_bwd_smem(
+            N, n_l, m1, m2, k, n_groups, n_ent, rows,
+            plan['m2_stride']) > target:
+        rows -= 1
+    plan['rows'] = -(-N // -(-N // rows))
+    return plan
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _aggregate_fwd_kernel(sph_packed, rad_feats, atom_r, atom_i, table3,
-                          grouped):
+                          grouped, tile_t=None):
+    """`tile_t` overrides the channels per block (for measurements)."""
     name = 'cg_aggregate_edge_fused_ri'
     operands = (sph_packed, rad_feats, atom_r, atom_i)
     device = check_cuda_operands(name, operands)
     B, N, tau, n_l, m1, m2 = _aggregate_shapes(name, *operands, table3)
-    lib = _aggregate_lib()
-    if lib.cg_aggregate_smem_bytes(N, tau, m1, m2) > MAX_SMEM:
-        raise ValueError(f'{name}: N={N}, tau={tau}, M1={m1}, M2={m2} need '
-                         'more shared memory than a block has')
     tabs = _kernel_tables('aggregate', table3, grouped, None, device)
     k = tabs['k']
+    n_groups, n_ent = tabs['fwd_ptr'].shape[0] - 1, tabs['fwd_ent'].shape[0]
+    if tile_t is None:
+        tile_t = aggregate_fwd_tile(B, N, tau, m1, m2, n_groups, n_ent,
+                                    _num_sms(device))
+    lib = _aggregate_lib()
+    smem = lib.cg_aggregate_smem_bytes(N, tile_t, m1, m2, n_groups, n_ent)
+    if smem > MAX_SMEM:
+        raise ValueError(f'{name}: N={N}, M1={m1}, M2={m2}, K={k} with '
+                         f'{tile_t} channels a block need {smem} bytes of '
+                         'shared memory, more than a block has')
     out_r = torch.empty((B, N, tau, k), dtype=torch.float32, device=device)
     out_i = torch.empty_like(out_r)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.cg_aggregate_edge_fused_f32(
-        *ptrs(*operands, tabs['colptr'], tabs['pair'], tabs['coef'], out_r,
-               out_i), B, N, tau, n_l, m1, m2, k, stream)
+        *ptrs(*operands, tabs['fwd_ptr'], tabs['fwd_ent'], out_r, out_i),
+        B, N, tau, n_l, m1, m2, k, n_groups, n_ent, tile_t, strip_of(m2),
+        FWD_THREADS, stream)
     raise_on(err, name)
     launch_counts[name] += 1
     return out_r, out_i
 
 
 def _aggregate_bwd_kernel(sph_packed, rad_feats, atom_r, atom_i, g_r, g_i,
-                          table3, grouped):
+                          table3, grouped, rows=None):
+    """`rows` overrides the rows i a block holds at a time (for
+    measurements)."""
     name = 'cg_aggregate_edge_fused_ri_bwd'
     operands = (sph_packed, rad_feats, atom_r, atom_i, g_r, g_i)
     device = check_cuda_operands(name, operands)
@@ -369,20 +590,55 @@ def _aggregate_bwd_kernel(sph_packed, rad_feats, atom_r, atom_i, g_r, g_i,
     if tuple(g_r.shape) != (B, N, tau, k) or g_i.shape != g_r.shape:
         raise ValueError(f'{name}: gradients {tuple(g_r.shape)} / '
                          f'{tuple(g_i.shape)}, expected {(B, N, tau, k)}')
+    n_groups, n_ent = tabs['bwd_ptr'].shape[0] - 1, tabs['bwd_ent'].shape[0]
+    plan = aggregate_bwd_plan(N, n_l, m1, m2, k, n_groups, n_ent, B * tau,
+                              _num_sms(device))
+    if rows is not None:
+        plan['rows'] = rows
     lib = _aggregate_bwd_lib()
-    if lib.cg_aggregate_bwd_smem_bytes(N, m1, m2, k) > MAX_SMEM:
-        raise ValueError(f'{name}: N={N}, M1={m1}, M2={m2}, K={k} need more '
-                         'shared memory than a block has')
+    smem = lib.cg_aggregate_bwd_smem_bytes(N, n_l, m1, m2, k, n_groups, n_ent,
+                                           plan['rows'], plan['m2_stride'])
+    if smem > MAX_SMEM:
+        raise ValueError(f'{name}: N={N}, M1={m1}, M2={m2}, K={k} need '
+                         f'{smem} bytes of shared memory, more than a block '
+                         'has')
     drad = torch.empty_like(rad_feats)
     dq_r = torch.empty_like(atom_r)
     dq_i = torch.empty_like(atom_i)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.cg_aggregate_bwd_f32(
-        *ptrs(*operands, tabs['rowptr'], tabs['col'], tabs['coef_t'], drad,
-               dq_r, dq_i), B, N, tau, n_l, m1, m2, k, stream)
+        *ptrs(*operands, tabs['bwd_ptr'], tabs['bwd_row'], tabs['bwd_ent'],
+               drad, dq_r, dq_i), B, N, tau, n_l, m1, m2, k, n_groups, n_ent,
+        plan['rows'], plan['m2_stride'], plan['ns'], plan['ms'], plan['mc'],
+        plan['nc'], BWD_THREADS, stream)
     raise_on(err, name)
     launch_counts[name] += 1
     return drad, dq_r, dq_i
+
+
+def aggregate_kernel_resources(B, N, tau, n_l, m2, table3, grouped, device):
+    """What the two kernels take at these shapes: the host's choices, shared
+    bytes and resident blocks per SM of each (asked of the built
+    libraries), for a log line."""
+    m1 = n_l * n_l
+    tabs = _kernel_tables('aggregate', table3, grouped, None, device)
+    fwd, bwd = _aggregate_lib(), _aggregate_bwd_lib()
+    g_f, e_f = tabs['fwd_ptr'].shape[0] - 1, tabs['fwd_ent'].shape[0]
+    g_b, e_b = tabs['bwd_ptr'].shape[0] - 1, tabs['bwd_ent'].shape[0]
+    tile_t = aggregate_fwd_tile(B, N, tau, m1, m2, g_f, e_f, _num_sms(device))
+    smem_f = fwd.cg_aggregate_smem_bytes(N, tile_t, m1, m2, g_f, e_f)
+    plan = aggregate_bwd_plan(N, n_l, m1, m2, tabs['k'], g_b, e_b, B * tau,
+                              _num_sms(device))
+    smem_b = bwd.cg_aggregate_bwd_smem_bytes(N, n_l, m1, m2, tabs['k'], g_b,
+                                             e_b, plan['rows'],
+                                             plan['m2_stride'])
+    return dict(
+        fwd=dict(tile_t=tile_t, threads=FWD_THREADS, smem=smem_f,
+                 blocks_per_sm=fwd.cg_aggregate_blocks_per_sm(
+                     strip_of(m2), FWD_THREADS, smem_f)),
+        bwd=dict(plan, threads=BWD_THREADS, smem=smem_b,
+                 blocks_per_sm=bwd.cg_aggregate_bwd_blocks_per_sm(
+                     plan['ns'], plan['ms'], BWD_THREADS, smem_b)))
 
 
 class _AggregateFn(torch.autograd.Function):

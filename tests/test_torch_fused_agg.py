@@ -145,3 +145,178 @@ def test_square_kernel_tables_match_plain(mode):
     out_r, out_i = _csc_contract(z_r, z_i, blocks)
     np.testing.assert_allclose(out_r.numpy(), ref_r.numpy(), rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(out_i.numpy(), ref_i.numpy(), rtol=RTOL, atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# the aggregate kernel's host tables and tiling, walked here as the kernel
+# (csrc/cg_aggregate.cu) walks them: persistent blocks over (b, i, tile of
+# channels), z from pairs of m and strips of n, the warp-padded packed table
+# with one entry read for two channels. 1e-5 relative, f32.
+# ---------------------------------------------------------------------------
+
+def _padded_dense(grp_ptr, line_of, ent, n_lines, n_idx):
+    """[n_idx, n_lines] table rebuilt from a warp-padded one, read group by
+    group and step by step as a warp reads it."""
+    dense = np.zeros((n_idx, n_lines), np.float32)
+    assert len(ent) == grp_ptr[-1] and len(ent) % 32 == 0
+    for g in range(len(grp_ptr) - 1):
+        trips = (grp_ptr[g + 1] - grp_ptr[g]) // 32
+        for e in range(trips):
+            for lane in range(32):
+                idx, bits = ent[grp_ptr[g] + 32 * e + lane]
+                coef = np.int32(bits).view(np.float32)
+                line = line_of[32 * g + lane]
+                if line < 0:
+                    assert coef == 0.0
+                else:
+                    dense[idx, line] += coef
+    return dense
+
+
+@pytest.mark.parametrize('by_length', [False, True], ids=['in_order', 'sorted'])
+@pytest.mark.parametrize('maxl,atom_n_ells,use_grouped',
+                         [(4, 5, True), (4, 5, False), (4, 1, False),
+                          (3, 4, False), (3, 1, False), (2, 3, False)])
+def test_warp_padded_table_is_the_sparse_table(maxl, atom_n_ells, use_grouped,
+                                               by_length):
+    table3, grouped = _agg_tables(maxl, atom_n_ells, tcg)
+    blocks = fused_agg._aggregate_blocks(table3, grouped if use_grouped else None)
+    colptr, pair, coef = fused_agg.sparse_columns(blocks)
+    k, p = len(colptr) - 1, table3.shape[0] * table3.shape[1]
+    ref = np.zeros((p, k), np.float32)
+    for col in range(k):
+        ref[pair[colptr[col]:colptr[col + 1]], col] = coef[colptr[col]:colptr[col + 1]]
+    grp_ptr, line_of, ent = fused_agg.warp_padded(colptr, pair, coef, by_length)
+    assert sorted(line_of[line_of >= 0]) == list(range(k))
+    if not by_length:
+        np.testing.assert_array_equal(line_of[:k], np.arange(k))
+    np.testing.assert_array_equal(_padded_dense(grp_ptr, line_of, ent, k, p), ref)
+    # sorted by length, no group is longer than the one before it
+    if by_length:
+        assert (np.diff(np.diff(grp_ptr)) <= 0).all()
+
+
+def test_warp_padded_takes_empty_lines_and_a_ragged_last_group():
+    # 35 lines: line 3 and the last two are empty, line 0 is the longest
+    counts = np.array([4, 1, 2, 0] + [1] * 29 + [0, 0])
+    ptr = np.concatenate([[0], np.cumsum(counts)])
+    idx = np.arange(ptr[-1]) % 7
+    coef = (1.0 + np.arange(ptr[-1])).astype(np.float32)
+    ref = np.zeros((7, 35), np.float32)
+    for line in range(35):
+        ref[idx[ptr[line]:ptr[line + 1]], line] += coef[ptr[line]:ptr[line + 1]]
+    for by_length in (False, True):
+        grp_ptr, line_of, ent = fused_agg.warp_padded(ptr, idx, coef, by_length)
+        assert len(grp_ptr) == 3 and len(line_of) == 64
+        assert (line_of[35:] == -1).all()
+        np.testing.assert_array_equal(
+            _padded_dense(grp_ptr, line_of, ent, 35, 7), ref)
+    assert list(np.diff(fused_agg.warp_padded(ptr, idx, coef)[0])) == [128, 32]
+    assert list(np.diff(fused_agg.warp_padded(ptr, idx, coef, True)[0])) == [128, 0]
+    packed = fused_agg.pack_pairs(np.array([-1, 0, 26, 51]), 25)
+    assert packed.tolist() == [-1, 0, (1 << 16) | 1, (2 << 16) | 1]
+
+
+@pytest.mark.parametrize('B', [1, 10, 140])
+@pytest.mark.parametrize('N,m1,m2,groups,n_ent', [
+    (7, 25, 25, 12, 2496), (7, 25, 1, 1, 32), (10, 16, 16, 5, 960),
+    (10, 16, 1, 1, 32)])
+def test_forward_tile_fills_the_card_and_fits(B, N, m1, m2, groups, n_ent):
+    tau, sms = 10, 132
+    tile = fused_agg.aggregate_fwd_tile(B, N, tau, m1, m2, groups, n_ent, sms)
+    assert 1 <= tile <= tau
+    smem = fused_agg.aggregate_fwd_smem(N, tile, m1, m2, groups, n_ent)
+    assert tile == 1 or smem <= fused_agg.FWD_SMEM_TARGET
+    blocks = B * N * -(-tau // tile)
+    assert tile == 1 or blocks >= 2 * sms
+    # the rollout's batch still gives every SM a block
+    if B == 10:
+        assert blocks >= sms
+    # no larger tile would have done as well
+    if tile < tau:
+        bigger = tile + 1
+        while -(-tau // bigger) == -(-tau // tile) and bigger < tau:
+            bigger += 1
+        assert (fused_agg.aggregate_fwd_smem(N, bigger, m1, m2, groups, n_ent)
+                > fused_agg.FWD_SMEM_TARGET
+                or B * N * -(-tau // bigger) < 2 * sms)
+    assert fused_agg.strip_of(m2) in (1, 3, 4, 5)
+    assert m2 % fused_agg.strip_of(m2) == 0
+    assert [fused_agg.strip_of(m) for m in (1, 4, 9, 16, 25, 36, 7)] == [
+        1, 1, 3, 4, 5, 1, 1]
+
+
+def _walk_forward(sph, rad, q_r, q_i, table3, grouped, tile, n_blocks):
+    """The forward kernel's loops in numpy (f32)."""
+    B, N, _, tau, n_l = rad.shape
+    m1, m2 = sph.shape[-2], q_r.shape[-1]
+    blocks = fused_agg._aggregate_blocks(table3, grouped)
+    grp_ptr, _line, ent = fused_agg.warp_padded(*fused_agg.sparse_columns(blocks))
+    k, n_groups = len(fused_agg.sparse_columns(blocks)[0]) - 1, len(grp_ptr) - 1
+    coef = ent[:, 1].copy().view(np.float32)
+    ns = fused_agg.strip_of(m2)
+    l_of_m = np.array([l for l in range(n_l) for _ in range(2 * l + 1)])
+    out = np.full((2, B, N, tau, k), np.nan, np.float32)
+    n_tiles = -(-tau // tile)
+    n_work = B * N * n_tiles
+    visited = 0
+    for block in range(min(n_blocks, n_work)):          # persistent blocks
+        for work in range(block, n_work, n_blocks):
+            visited += 1
+            bi, t0 = work // n_tiles, (work % n_tiles) * tile
+            b, i = bi // N, bi % N
+            tn = min(tile, tau - t0)
+            y = sph[b, i, :, :, 0] + 1j * sph[b, i, :, :, 1]           # [N, M1]
+            e = (rad[b, i, :, t0:t0 + tn][:, :, l_of_m] * y[:, None, :]
+                 ).astype(np.complex64)                                # [N, tn, M1]
+            q = (q_r[b, :, t0:t0 + tn] + 1j * q_i[b, :, t0:t0 + tn]
+                 ).astype(np.complex64)                                # [N, tn, M2]
+            z = np.zeros((tn, m1 * m2), np.complex64)
+            for tt in range(tn):
+                for s in range(m2 // ns):                # strip of n
+                    for mp in range((m1 + 1) // 2):      # pair of m
+                        for m in range(2 * mp, min(2 * mp + 2, m1)):
+                            acc = np.zeros(ns, np.complex64)
+                            for j in range(N):
+                                acc += e[j, tt, m] * q[j, tt, s * ns:(s + 1) * ns]
+                            z[tt, m * m2 + s * ns:m * m2 + (s + 1) * ns] = acc
+            for pair in range((tn + 1) // 2):            # two channels an entry
+                tts = [tt for tt in (2 * pair, 2 * pair + 1) if tt < tn]
+                for g in range(n_groups):
+                    trips = (grp_ptr[g + 1] - grp_ptr[g]) // 32
+                    acc = np.zeros((len(tts), 32), np.complex64)
+                    for step in range(trips):
+                        at = grp_ptr[g] + 32 * step + np.arange(32)
+                        acc += coef[at] * z[tts][:, ent[at, 0]]
+                    lanes = np.arange(32)[32 * g + np.arange(32) < k]
+                    for n, tt in enumerate(tts):
+                        out[0, b, i, t0 + tt, 32 * g + lanes] = acc[n, lanes].real
+                        out[1, b, i, t0 + tt, 32 * g + lanes] = acc[n, lanes].imag
+    assert visited == n_work
+    return out
+
+
+@pytest.mark.parametrize('maxl,atom_n_ells,N,tau,tile,use_grouped', [
+    (4, 5, 7, 10, 2, True),      # SF6 levels 1-2, the update's tile
+    (4, 5, 7, 10, 3, False),     # dense table, tau no multiple of the tile
+    (4, 1, 7, 10, 10, False),    # SF6 level 0 (M2 = 1), every channel a block
+    (4, 1, 7, 10, 1, False),     # an evaluation's forward
+    (3, 4, 10, 10, 5, False),    # stochastic level 1
+    (3, 1, 10, 10, 4, False),    # stochastic level 0, ragged last tile
+    (2, 3, 3, 5, 2, False),      # strips of 3, tau = 5 in tiles of 2
+    (4, 3, 3, 1, 1, True)])      # tau = 1
+def test_aggregate_kernel_walk_matches_plain(maxl, atom_n_ells, N, tau, tile,
+                                             use_grouped):
+    B = 2
+    arrays = _agg_inputs(B, N, tau, maxl, atom_n_ells, seed=tile + N)
+    table3, grouped = _agg_tables(maxl, atom_n_ells, tcg)
+    grouped = grouped if use_grouped else None
+    ref = fused_agg.cg_aggregate_edge_fused_ri_plain(
+        *map(torch.from_numpy, arrays), table3, grouped=grouped)
+    # fewer blocks than tiles, so that blocks walk several tiles
+    got = _walk_forward(*arrays, table3, grouped, tile, n_blocks=5)
+    assert np.isfinite(got).all()
+    for mine, plain in zip(got, ref):
+        scale = float(plain.abs().max())
+        np.testing.assert_allclose(mine, plain.numpy(), rtol=1e-5,
+                                   atol=1e-5 * scale)

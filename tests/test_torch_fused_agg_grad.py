@@ -254,3 +254,169 @@ def test_aggregate_bwd_kernel_tables_match_plain(maxl, atom_n_ells):
             dz_r[:, :, None] * e_i[..., None]).sum((1, 4))
     for mine, plain in zip((drad, dq_r, dq_i), ref):
         torch.testing.assert_close(mine, plain, rtol=RTOL, atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# the aggregate's backward kernel (csrc/cg_aggregate_bwd.cu) walked in numpy
+# as it runs: one block per (b, t), rows i in steps, dz from the packed rows
+# sorted by length into rows padded to the plan's stride, dq and de from
+# strided strips and chunks added by a fixed xor tree. 1e-5 relative, f32.
+# ---------------------------------------------------------------------------
+
+PLAN_CASES = [  # N, n_l, m1, m2, k, groups, n_ent
+    (7, 5, 25, 25, 375, 20, 1472), (7, 5, 25, 1, 25, 1, 32),
+    (10, 4, 16, 16, 156, 8, 544), (10, 4, 16, 1, 16, 1, 32),
+    (3, 3, 9, 9, 51, 3, 192), (3, 5, 25, 9, 165, 8, 480), (1, 3, 9, 1, 9, 1, 32)]
+
+
+@pytest.mark.parametrize('n_blocks', [None, 100, 1400])
+@pytest.mark.parametrize('case', PLAN_CASES)
+def test_backward_plan_covers_every_output_once(case, n_blocks):
+    N, n_l, m1, m2 = case[:4]
+    plan = fused_agg.aggregate_bwd_plan(*case, n_blocks=n_blocks)
+    threads = fused_agg.BWD_THREADS
+    ns, ms, mc, nc = plan['ns'], plan['ms'], plan['mc'], plan['nc']
+    assert m2 % ns == 0 and m1 % ms == 0
+    for lanes, length, chunk in ((mc, m1, plan['m_chunk']),
+                                 (nc, m2, plan['n_chunk'])):
+        assert lanes & (lanes - 1) == 0 and 1 <= lanes <= 32
+        assert lanes * chunk >= length          # the chunks cover the axis
+    assert N * (m2 // ns) * mc <= threads and N * (m1 // ms) * nc <= threads
+    assert 1 <= plan['rows'] <= N and m2 <= plan['m2_stride'] <= m2 + 8
+    smem = fused_agg.aggregate_bwd_smem(*case, plan['rows'], plan['m2_stride'])
+    small = n_blocks is not None and n_blocks <= 264
+    target = (fused_agg.MAX_SMEM // 2 if small else fused_agg.BWD_SMEM_TARGET)
+    assert plan['rows'] == 1 or smem <= target
+    # a launch that cannot fill the card never holds fewer rows
+    assert plan['rows'] >= fused_agg.aggregate_bwd_plan(*case)['rows'] or not small
+    # the stride is no worse than unpadded rows
+    roles = {k: plan[k] for k in ('ns', 'ms', 'mc', 'm_chunk', 'nc', 'n_chunk')}
+    assert (fused_agg.dz_conflicts(N, m1, m2, plan['m2_stride'], threads, **roles)
+            <= fused_agg.dz_conflicts(N, m1, m2, m2, threads, **roles))
+
+
+def test_backward_plan_choices_at_the_main_shapes():
+    sf6 = fused_agg.aggregate_bwd_plan(7, 5, 25, 25, 375, 20, 1472, 1400)
+    assert (sf6['rows'], sf6['ns'], sf6['ms'], sf6['mc'], sf6['nc']) == (1, 5, 5, 4, 4)
+    # level 0 (M2 = 1): all rows at once, 16 lanes on each of the N outputs
+    for case in ((7, 5, 25, 1, 25, 1, 32), (10, 4, 16, 1, 16, 1, 32)):
+        plan = fused_agg.aggregate_bwd_plan(*case, 1400)
+        assert plan['rows'] == case[0] and plan['mc'] == 16 and plan['nc'] == 1
+    # every load of dz at M = 16 is free of bank conflicts with 17-slot rows
+    stoch = fused_agg.aggregate_bwd_plan(10, 4, 16, 16, 156, 8, 544, 1400)
+    assert stoch['m2_stride'] == 17
+    roles = {k: stoch[k] for k in ('ns', 'ms', 'mc', 'm_chunk', 'nc', 'n_chunk')}
+    assert fused_agg.dz_conflicts(10, 16, 16, 17, 192, **roles) == 20
+    assert fused_agg.dz_conflicts(10, 16, 16, 16, 192, **roles) == 80
+    with pytest.raises(ValueError, match='more than 192 outputs'):
+        fused_agg.aggregate_bwd_plan(64, 5, 25, 25, 375, 20, 1472)
+
+
+def _xor_tree(partials):
+    """Sum over the last axis (a power of two of lanes) as the kernel's
+    __shfl_xor tree does; every lane ends with the total."""
+    lanes = partials.shape[-1]
+    off = 1
+    while off < lanes:
+        partials = partials + partials[..., np.arange(lanes) ^ off]
+        off <<= 1
+    return partials[..., 0]
+
+
+def _walk_backward(sph, rad, q_r, q_i, g_r, g_i, table3, grouped, rows=None):
+    B, N, _, tau, n_l = rad.shape
+    m1, m2 = sph.shape[-2], q_r.shape[-1]
+    blocks = fused_agg._aggregate_blocks(table3, grouped)
+    rowptr, col, coef_t = fused_agg.sparse_rows(blocks, m1 * m2)
+    grp_ptr, line_of, ent = fused_agg.warp_padded(rowptr, col, coef_t,
+                                                  by_length=True)
+    packed = fused_agg.pack_pairs(line_of, m2)
+    coef = ent[:, 1].copy().view(np.float32)
+    k = g_r.shape[-1]
+    plan = fused_agg.aggregate_bwd_plan(N, n_l, m1, m2, k, len(grp_ptr) - 1,
+                                        len(ent), B * tau)
+    rows = rows or plan['rows']
+    ns, ms, mc, nc = plan['ns'], plan['ms'], plan['mc'], plan['nc']
+    m_chunk, n_chunk, stride = plan['m_chunk'], plan['n_chunk'], plan['m2_stride']
+    sq, se = m2 // ns, m1 // ms
+    l_of_m = np.array([l for l in range(n_l) for _ in range(2 * l + 1)])
+    drad = np.full(rad.shape, np.nan, np.float32)
+    dq = np.full((B, N, tau, m2), np.nan, np.complex64)
+    g = (g_r + 1j * g_i).astype(np.complex64)
+    for b in range(B):
+        for t in range(tau):
+            q = (q_r[b, :, t] + 1j * q_i[b, :, t]).astype(np.complex64)  # [N, M2]
+            acc = np.zeros((N, sq, ns, mc), np.complex64)     # dq in registers
+            for i0 in range(0, N, rows):
+                for i in range(i0, min(i0 + rows, N)):
+                    dz = np.full((m1, stride), np.nan, np.complex64)
+                    for grp in range(len(grp_ptr) - 1):
+                        trips = (grp_ptr[grp + 1] - grp_ptr[grp]) // 32
+                        a = np.zeros(32, np.complex64)
+                        for step in range(trips):
+                            at = grp_ptr[grp] + 32 * step + np.arange(32)
+                            a += coef[at] * g[b, i, t, ent[at, 0]]
+                        mn = packed[32 * grp:32 * grp + 32]
+                        on = mn >= 0
+                        dz[mn[on] >> 16, mn[on] & 0xffff] = a[on]
+                    assert np.isfinite(dz[:, :m2]).all()      # every pair written
+                    y = sph[b, i, :, :, 0] + 1j * sph[b, i, :, :, 1]       # [N, M1]
+                    e = (rad[b, i, :, t][:, l_of_m] * y).astype(np.complex64)
+                    for j in range(N):
+                        for s in range(sq):                   # dq: strided strip
+                            n_of = s + sq * np.arange(ns)
+                            for c in range(mc):
+                                for m in range(min(c * m_chunk, m1),
+                                               min((c + 1) * m_chunk, m1)):
+                                    acc[j, s, :, c] += dz[m, n_of] * np.conj(e[j, m])
+                        term = np.zeros(m1, np.float32)
+                        for s in range(se):                   # de: strided strip
+                            m_of = s + se * np.arange(ms)
+                            part = np.zeros((ms, nc), np.complex64)
+                            for c in range(nc):
+                                for n in range(min(c * n_chunk, m2),
+                                               min((c + 1) * n_chunk, m2)):
+                                    part[:, c] += dz[m_of, n] * np.conj(q[j, n])
+                            de = _xor_tree(part)
+                            term[m_of] = (de * np.conj(y[j, m_of])).real
+                        for l in range(n_l):
+                            total = np.float32(0)
+                            for m in range(l * l, (l + 1) * (l + 1)):
+                                total += term[m]
+                            drad[b, i, j, t, l] = total
+            summed = _xor_tree(acc)                           # [N, sq, ns]
+            for s in range(sq):
+                dq[b, :, t, s + sq * np.arange(ns)] = summed[:, s].T
+    return drad, dq.real, dq.imag
+
+
+@pytest.mark.parametrize('maxl,atom_n_ells,N,tau,rows,use_grouped', [
+    (4, 5, 7, 2, None, True),     # SF6 levels 1-2: one row a step
+    (4, 5, 7, 1, 3, False),       # dense table, steps of 3, 3 and 1 rows
+    (4, 1, 7, 3, None, False),    # SF6 level 0 (M2 = 1): all rows at once
+    (3, 4, 10, 2, None, False),   # stochastic level 1: padded dz rows
+    (3, 1, 10, 2, None, False),   # stochastic level 0
+    (2, 3, 3, 5, 2, False),       # strips of 3, chunks of 2
+    (4, 3, 3, 2, None, True)])    # atom rep narrower than the harmonics
+def test_aggregate_bwd_kernel_walk_matches_plain(maxl, atom_n_ells, N, tau,
+                                                 rows, use_grouped):
+    arrays, grads, table3, grouped = _agg_case(1, N, tau, maxl, atom_n_ells,
+                                               N + tau, tcg)
+    grouped = grouped if use_grouped else None
+    a = [arrays[k] for k in ('sph', 'rad', 'ar', 'ai')]
+    if grouped is None:
+        k = table3.shape[-1]
+    else:
+        k = sum(t.shape[1] for t in grouped[0])
+    assert grads.shape[-1] == k
+    ref = fused_agg.cg_aggregate_edge_fused_ri_bwd_plain(
+        *map(torch.from_numpy, a), *map(torch.from_numpy, grads), table3,
+        grouped=grouped)
+    got = _walk_backward(*a, grads[0], grads[1], table3, grouped, rows)
+    again = _walk_backward(*a, grads[0], grads[1], table3, grouped, rows)
+    for mine, twice, plain in zip(got, again, ref):
+        assert np.isfinite(mine).all()
+        np.testing.assert_array_equal(mine, twice)    # a fixed order of sums
+        scale = float(plain.abs().max())
+        np.testing.assert_allclose(mine, plain.numpy(), rtol=1e-5,
+                                   atol=1e-5 * scale)

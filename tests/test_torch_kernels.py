@@ -168,6 +168,112 @@ def test_backward_takes_a_missing_gradient(cuda_device):
                                atol=1e-4 * float(drad.abs().max()))
 
 
+def _aggregate_case(device, B, N, tau, maxl, atom_n_ells, seed):
+    n_ells = maxl + 1
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+    args = (randn(B, N, N, n_ells ** 2, 2), randn(B, N, N, tau, n_ells),
+            randn(B, N, tau, atom_n_ells ** 2), randn(B, N, tau, atom_n_ells ** 2))
+    table3, _sl = cg._fused_cg_table(n_ells, atom_n_ells, maxl)
+    g = cg.fused_cg_table_grouped(n_ells, atom_n_ells, maxl)
+    return args, table3, None if g is None else (g[0], g[1]), randn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('full_atom', [False, True], ids=['level0', 'upper'])
+@pytest.mark.parametrize('maxl', [2, 3, 4])
+@pytest.mark.parametrize('tau', [1, 10, 12])
+@pytest.mark.parametrize('N', [3, 7, 10])
+@pytest.mark.parametrize('B', [1, 9, 10, 140])
+def test_aggregate_kernels_over_shapes(cuda_device, B, N, tau, maxl, full_atom):
+    """Forward and backward kernels against their plain versions over batch
+    sizes, canvas sizes, channel counts that the tile does and does not
+    divide, and atom reps of one l and of maxl + 1; the backward twice on
+    the same inputs gives the same bits."""
+    atom_n_ells = maxl + 1 if full_atom else 1
+    args, table3, grouped, randn = _aggregate_case(
+        cuda_device, B, N, tau, maxl, atom_n_ells, B + N + tau + maxl)
+    out = fused_agg._aggregate_fwd_kernel(*args, table3, grouped)
+    torch.cuda.synchronize()
+    ref = fused_agg.cg_aggregate_edge_fused_ri_plain(*args, table3,
+                                                     grouped=grouped)
+    for o, r in zip(out, ref):
+        torch.testing.assert_close(o, r, rtol=1e-4,
+                                   atol=1e-4 * float(r.abs().max()))
+    grads = (randn(*out[0].shape), randn(*out[1].shape))
+    got = fused_agg._aggregate_bwd_kernel(*args, *grads, table3, grouped)
+    again = fused_agg._aggregate_bwd_kernel(*args, *grads, table3, grouped)
+    torch.cuda.synchronize()
+    ref = fused_agg.cg_aggregate_edge_fused_ri_bwd_plain(*args, *grads, table3,
+                                                         grouped=grouped)
+    for o, o2, r in zip(got, again, ref):
+        assert torch.equal(o, o2)
+        torch.testing.assert_close(o, r, rtol=1e-4,
+                                   atol=1e-4 * float(r.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('tile', [1, 2, 3, 4, 7, 10])
+@pytest.mark.parametrize('rows', [1, 2, 3, 7])
+def test_aggregate_kernels_over_tiles_and_rows(cuda_device, tile, rows):
+    """Any channel tile of the forward and any number of rows per step of
+    the backward give the plain result, and the backward the same bits."""
+    args, table3, grouped, randn = _aggregate_case(cuda_device, 9, 7, 10, 4, 5,
+                                                   tile + rows)
+    out = fused_agg._aggregate_fwd_kernel(*args, table3, grouped, tile_t=tile)
+    ref = fused_agg.cg_aggregate_edge_fused_ri_plain(*args, table3,
+                                                     grouped=grouped)
+    for o, r in zip(out, ref):
+        torch.testing.assert_close(o, r, rtol=1e-4, atol=1e-4)
+    grads = (randn(*out[0].shape), randn(*out[1].shape))
+    got = fused_agg._aggregate_bwd_kernel(*args, *grads, table3, grouped,
+                                          rows=rows)
+    default = fused_agg._aggregate_bwd_kernel(*args, *grads, table3, grouped)
+    ref = fused_agg.cg_aggregate_edge_fused_ri_bwd_plain(*args, *grads, table3,
+                                                         grouped=grouped)
+    for o, d, r in zip(got, default, ref):
+        torch.testing.assert_close(o, r, rtol=1e-4,
+                                   atol=1e-4 * float(r.abs().max()))
+        # dq and drad are summed in the same order whatever the step
+        assert torch.equal(o, d)
+
+
+@pytest.mark.cuda
+def test_aggregate_kernels_refuse_what_they_cannot_tile(cuda_device):
+    """A neighbourhood too large for a block's shared memory (forward) or
+    for one block's threads (backward) raises, with the shape named; the
+    host's shared-memory sums are the libraries'."""
+    args, table3, grouped, randn = _aggregate_case(cuda_device, 1, 600, 1, 4,
+                                                   5, 0)
+    with pytest.raises(ValueError, match='N=600.*shared memory'):
+        fused_agg._aggregate_fwd_kernel(*args, table3, grouped)
+    args, table3, grouped, randn = _aggregate_case(cuda_device, 1, 64, 1, 4, 5, 0)
+    k = fused_agg._kernel_tables('aggregate', table3, grouped, None,
+                                 cuda_device)['k']
+    with pytest.raises(ValueError, match='N=64.*more than 192 outputs'):
+        fused_agg._aggregate_bwd_kernel(*args, randn(1, 64, 1, k),
+                                        randn(1, 64, 1, k), table3, grouped)
+    for maxl, n, N in ((4, 5, 7), (4, 1, 7), (3, 4, 10), (3, 1, 10)):
+        table3, _sl = cg._fused_cg_table(maxl + 1, n, maxl)
+        g = cg.fused_cg_table_grouped(maxl + 1, n, maxl)
+        grouped = None if g is None else (g[0], g[1])
+        tabs = fused_agg._kernel_tables('aggregate', table3, grouped, None,
+                                        cuda_device)
+        m1, m2 = (maxl + 1) ** 2, n * n
+        res = fused_agg.aggregate_kernel_resources(140, N, 10, maxl + 1, m2,
+                                                   table3, grouped, cuda_device)
+        g_f, e_f = tabs['fwd_ptr'].shape[0] - 1, tabs['fwd_ent'].shape[0]
+        g_b, e_b = tabs['bwd_ptr'].shape[0] - 1, tabs['bwd_ent'].shape[0]
+        assert res['fwd']['smem'] == fused_agg.aggregate_fwd_smem(
+            N, res['fwd']['tile_t'], m1, m2, g_f, e_f)
+        assert res['bwd']['smem'] == fused_agg.aggregate_bwd_smem(
+            N, maxl + 1, m1, m2, tabs['k'], g_b, e_b, res['bwd']['rows'],
+            res['bwd']['m2_stride'])
+        assert res['fwd']['blocks_per_sm'] >= 4 and res['bwd']['blocks_per_sm'] >= 4
+
+
 # (leading dims incl. tau, n_ells1, n_ells2, maxl): the mixer's two products
 # at SF6 (140 envs and 10) and at the stochastic configuration, and a row
 # count that no tile divides
