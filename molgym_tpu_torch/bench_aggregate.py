@@ -4,29 +4,34 @@ bags: maxl 3, N = 10), level 0 (M2 = 1, dense table) and the upper levels,
 at the update's batch (140), the rollout's (10) and an evaluation's (1).
 
     PYTHONPATH=<tree> python3 molgym_tpu_torch/bench_aggregate.py [--label x]
-        [--readings 3] [--tile_sweep]
+        [--readings 3]
 
 It imports `molgym_tpu_torch` from PYTHONPATH, so two trees (two commits
 unpacked side by side) can be timed in turns, one after the other, on one card:
 the script uses only what both have, the public forward wrapper and
-`fused_agg._aggregate_bwd_kernel`. Each kernel is first held against its
-plain version (1e-4 relative). Times are device ms per call by CUDA-graph
-replay (chip_smoke.time_ms), `--readings` of them. `--tile_sweep` also times
-the forward over channel tiles and the backward over rows
-per step (trees whose wrappers take these overrides). One JSON object per
-line on stdout.
+`fused_agg._aggregate_bwd_kernel`, and takes the timer from the file beside
+itself, so both trees are timed by the same code. Each kernel is first held
+against its plain version (1e-4 relative). `fwd_ms` / `bwd_ms` are device ms
+per call by CUDA-graph replay (timing.time_ms); `fwd_host_us` / `bwd_host_us`
+are the host's microseconds to issue one call of the wrapper (table lookup,
+the choice of tiles, allocation of the outputs and the launch), which replay
+leaves out: HOST_CALLS calls in a row with an empty queue, the clock read
+before the card is waited for. `--readings` of each. One JSON object per line
+on stdout.
 """
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
 
-sys.path.append(str(Path(__file__).resolve().parents[1]))
+HOST_CALLS = 200
 
 SHAPES = [  # name, maxl, atom_n_ells, N
     ('sf6_level0', 4, 1, 7), ('sf6_levels12', 4, 5, 7),
@@ -61,14 +66,32 @@ def _rel_err(outs, refs):
     return err / max(float(r.abs().max()) for r in refs)
 
 
+def _own_timer():
+    spec = importlib.util.spec_from_file_location(
+        'bench_aggregate_timing', Path(__file__).with_name('timing.py'))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.time_ms
+
+
+def _host_us(fn):
+    fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(HOST_CALLS):
+        fn()
+    elapsed = time.perf_counter() - start
+    torch.cuda.synchronize()
+    return elapsed / HOST_CALLS * 1e6
+
+
 def main(argv=None) -> int:
-    from chip_smoke import time_ms
     from molgym_tpu_torch.ops import fused_agg
+    time_ms = _own_timer()
 
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--label', default='tree')
     parser.add_argument('--readings', type=int, default=3)
-    parser.add_argument('--tile_sweep', action='store_true')
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print('bench_aggregate: no CUDA device is visible', file=sys.stderr)
@@ -93,18 +116,10 @@ def main(argv=None) -> int:
                 lambda: fused_agg.cg_aggregate_edge_fused_ri(
                     *ops, table3, grouped=grouped))
                 for _ in range(args.readings)]
-            if args.tile_sweep:
-                row['fwd_ms_by_tile'] = {}
-                for tile in (1, 2, 3, 5, 10):
-                    try:
-                        got = fused_agg._aggregate_fwd_kernel(
-                            *ops, table3, grouped, tile_t=tile)
-                    except ValueError:      # more shared memory than a block has
-                        continue
-                    assert _rel_err(got, ref) <= KERNEL_TOL, (name, B, tile)
-                    row['fwd_ms_by_tile'][tile] = time_ms(
-                        lambda: fused_agg._aggregate_fwd_kernel(
-                            *ops, table3, grouped, tile_t=tile))
+            row['fwd_host_us'] = [_host_us(
+                lambda: fused_agg.cg_aggregate_edge_fused_ri(
+                    *ops, table3, grouped=grouped))
+                for _ in range(args.readings)]
             bwd_args = (*ops, *grads, table3, grouped)
             got = fused_agg._aggregate_bwd_kernel(*bwd_args)
             again = fused_agg._aggregate_bwd_kernel(*bwd_args)
@@ -116,18 +131,9 @@ def main(argv=None) -> int:
             row['bwd_ms'] = [time_ms(
                 lambda: fused_agg._aggregate_bwd_kernel(*bwd_args))
                 for _ in range(args.readings)]
-            if args.tile_sweep:
-                row['bwd_ms_by_rows'] = {}
-                for rows in sorted({1, 2, 3, 4, N}):
-                    try:
-                        got = fused_agg._aggregate_bwd_kernel(*bwd_args,
-                                                              rows=rows)
-                    except ValueError:
-                        continue
-                    assert _rel_err(got, ref) <= KERNEL_TOL, (name, B, rows)
-                    row['bwd_ms_by_rows'][rows] = time_ms(
-                        lambda: fused_agg._aggregate_bwd_kernel(*bwd_args,
-                                                                rows=rows))
+            row['bwd_host_us'] = [_host_us(
+                lambda: fused_agg._aggregate_bwd_kernel(*bwd_args))
+                for _ in range(args.readings)]
             print(json.dumps(row), flush=True)
             if not (row['fwd_rel_err'] <= KERNEL_TOL
                     and row['bwd_rel_err'] <= KERNEL_TOL

@@ -62,6 +62,10 @@
 // PERF.md, section 6, has every shape.
 #include <cuda_runtime.h>
 
+#include <array>
+#include <map>
+#include <mutex>
+
 namespace {
 
 constexpr int kWarp = 32;
@@ -262,6 +266,38 @@ Kernel kernel_for(int ns) {
   }
 }
 
+// Resident blocks per SM of the instantiation for strips of `ns` on the
+// current device; -1 for a strip the kernel is not compiled for or a refused
+// configuration. The runtime is asked once per (device, ns, threads, smem),
+// and the kernel's limit of dynamic shared memory is only ever raised: a
+// launch costs the host one look into the map.
+int blocks_per_sm(int ns, int threads, int smem) {
+  static std::mutex mutex;
+  static std::map<std::array<int, 4>, int> known;
+  static std::map<std::array<int, 2>, int> limit;
+  Kernel kernel = kernel_for(ns);
+  if (kernel == nullptr) return -1;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  std::lock_guard<std::mutex> lock(mutex);
+  const std::array<int, 4> key = {dev, ns, threads, smem};
+  const auto found = known.find(key);
+  if (found != known.end()) return found->second;
+  int& allowed = limit[{dev, ns}];
+  if (smem > allowed) {
+    if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem) != cudaSuccess)
+      return -1;
+    allowed = smem;
+  }
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads,
+                                                    smem) != cudaSuccess)
+    return -1;
+  known[key] = blocks;
+  return blocks;
+}
+
 int num_sms() {
   static int n = 0;
   if (n == 0) {
@@ -274,43 +310,24 @@ int num_sms() {
 
 }  // namespace
 
-extern "C" size_t cg_aggregate_smem_bytes(int N, int TT, int M1, int M2, int G,
-                                          int n_ent) {
-  return align16(sizeof(int2) * (size_t)n_ent) +
-         align16(sizeof(float2) * (size_t)TT * M1 * M2) +
-         align16(sizeof(float2) * (size_t)N * TT * M1) +
-         align16(sizeof(float2) * (size_t)N * TT * M2) +
-         align16(sizeof(int) * (size_t)(G + 1));
-}
-
-// Resident blocks per SM of the instantiation for strips of `ns`; -1 for a
-// strip the kernel is not compiled for or a refused configuration.
 extern "C" int cg_aggregate_blocks_per_sm(int ns, int threads, int smem) {
-  Kernel kernel = kernel_for(ns);
-  if (kernel == nullptr) return -1;
-  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem) != cudaSuccess)
-    return -1;
-  int blocks = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads,
-                                                    smem) != cudaSuccess)
-    return -1;
-  return blocks;
+  return blocks_per_sm(ns, threads, smem);
 }
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
-// `ns` must divide M2; the table has `n_ent` entries, a multiple of 32.
+// `ns` must divide M2; the table has `n_ent` entries, a multiple of 32; `smem`
+// is the block's shared memory, summed on the host over the arrays the kernel
+// lays out (ops/fused_agg.py:aggregate_fwd_smem).
 extern "C" int cg_aggregate_edge_fused_f32(
     const float* sph, const float* rad, const float* q_r, const float* q_i,
     const int* grp_ptr, const int* ent, float* out_r, float* out_i,
     int B, int N, int T, int L, int M1, int M2, int K, int G, int n_ent,
-    int TT, int ns, int threads, void* stream) {
+    int TT, int ns, int threads, int smem, void* stream) {
   Kernel kernel = kernel_for(ns);
   if (kernel == nullptr || M2 % ns != 0 || TT < 1 || n_ent % kWarp != 0 ||
-      threads % kWarp != 0 || threads > 256)
+      threads % kWarp != 0 || threads > 256 || smem < 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = cg_aggregate_smem_bytes(N, TT, M1, M2, G, n_ent);
-  const int per_sm = cg_aggregate_blocks_per_sm(ns, threads, (int)smem);
+  const int per_sm = blocks_per_sm(ns, threads, smem);
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   const int n_tiles = (T + TT - 1) / TT;
   const long long n_work = (long long)B * N * n_tiles;

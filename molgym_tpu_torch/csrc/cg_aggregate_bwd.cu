@@ -38,8 +38,7 @@
 //    so that shared memory is 32-35 KB and six blocks fit an SM. The copies
 //    are 16 bytes wide from the 16-byte line that holds a row's first value.
 //    Blocks are persistent (a grid-stride walk over (b, t)) and stage the
-//    table once. A launch too small to fill the card (B = 10) takes all
-//    rows at once: it is bound by one block's latency.
+//    table once.
 //  * dq by every thread. A thread owns dq[j, a strip of NS slots n] for a
 //    CHUNK of m, accumulates it in registers over all i, and at the end the
 //    mc lanes that share an output add their chunks by a __shfl_xor tree.
@@ -68,8 +67,8 @@
 //
 // Measured on an NVIDIA H100 80GB HBM3 (700 W), CUDA-graph replay, B = 140
 // (molgym_tpu_torch/bench_aggregate.py): SF6 levels 1-2 0.140 ms (first
-// version 0.173), level 0 0.030 (0.034); M = 16, N = 10: 0.093 (0.157) and
-// 0.036 (0.041). Tried and dropped, each by the same measurement: a thread
+// version 0.173), level 0 0.028 (0.034); M = 16, N = 10: 0.092 (0.157) and
+// 0.034 (0.041). Tried and dropped, each by the same measurement: a thread
 // tile over two neighbours j (fewer loads of dz, more shuffles: no faster),
 // more or fewer blocks per SM (3 to 7: within 15%), 4-byte against 16-byte
 // copies (the same). clock64 stamps give, per row i of an SF6 level 1-2
@@ -79,6 +78,10 @@
 // by shared-memory traffic across blocks, not by device memory.
 // PERF.md, section 6, has every shape.
 #include <cuda_runtime.h>
+
+#include <array>
+#include <map>
+#include <mutex>
 
 namespace {
 
@@ -424,63 +427,68 @@ int num_sms() {
 
 bool power_of_two(int n) { return n > 0 && (n & (n - 1)) == 0; }
 
-}  // namespace
-
-// `NI` rows i are worked on at a time: all N at once in one buffer, or fewer
-// in two buffers that take turns.
-extern "C" size_t cg_aggregate_bwd_smem_bytes(int N, int L, int M1, int M2, int K,
-                                              int G, int n_ent, int NI,
-                                              int M2P) {
-  const size_t n_buf = NI < N ? 2 : 1;
-  return align16(sizeof(int2) * (size_t)n_ent) +
-         n_buf * (sizeof(float) * 2 * (size_t)NI * padded_row(K) +
-                  align16(sizeof(float2) * ((size_t)NI * N * M1 + 2)) +
-                  align16(sizeof(float) * (size_t)NI * N * L)) +
-         align16(sizeof(float2) * (size_t)NI * N * M1) +
-         align16(sizeof(float2) * (size_t)NI * M1 * M2P) +
-         align16(sizeof(float2) * (size_t)N * M2) +
-         align16(sizeof(float) * (size_t)NI * N * M1) +
-         align16(sizeof(int) * (size_t)(G + 1)) +
-         align16(sizeof(int) * (size_t)kWarp * G) +
-         align16(sizeof(int) * (size_t)M1);
-}
-
-// Resident blocks per SM of the instantiation for strips of `ns` and `ms`;
-// -1 for strips the kernel is not compiled for or a refused configuration.
-extern "C" int cg_aggregate_bwd_blocks_per_sm(int ns, int ms, int threads,
-                                              int smem) {
+// Resident blocks per SM of the instantiation for strips of `ns` and `ms` on
+// the current device; -1 for strips the kernel is not compiled for or a
+// refused configuration. The runtime is asked once per (device, ns, ms,
+// threads, smem), and the kernel's limit of dynamic shared memory is only ever
+// raised: a launch costs the host one look into the map.
+int blocks_per_sm(int ns, int ms, int threads, int smem) {
+  static std::mutex mutex;
+  static std::map<std::array<int, 5>, int> known;
+  static std::map<std::array<int, 3>, int> limit;
   Kernel kernel = kernel_for(ns, ms);
   if (kernel == nullptr) return -1;
-  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem) != cudaSuccess)
-    return -1;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  std::lock_guard<std::mutex> lock(mutex);
+  const std::array<int, 5> key = {dev, ns, ms, threads, smem};
+  const auto found = known.find(key);
+  if (found != known.end()) return found->second;
+  int& allowed = limit[{dev, ns, ms}];
+  if (smem > allowed) {
+    if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem) != cudaSuccess)
+      return -1;
+    allowed = smem;
+  }
   int blocks = 0;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads,
                                                     smem) != cudaSuccess)
     return -1;
+  known[key] = blocks;
   return blocks;
+}
+
+}  // namespace
+
+extern "C" int cg_aggregate_bwd_blocks_per_sm(int ns, int ms, int threads,
+                                              int smem) {
+  return blocks_per_sm(ns, ms, threads, smem);
 }
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success). A
 // strip `ns` > 1 has M2 = ns * ns, a strip `ms` > 1 has M1 = ms * ms; `mc`
 // and `nc` are powers of two of at most 32 with N * (M2 / ns) * mc and
-// N * (M1 / ms) * nc at most `threads`; `NI` rows i a step, 1 <= NI <= N; dz
-// rows of `M2P` >= M2 slots.
+// N * (M1 / ms) * nc at most `threads`; `NI` rows i a step, 1 <= NI <= N (all N
+// at once in one buffer, or fewer in two buffers that take turns); dz rows of
+// `M2P` >= M2 slots; `smem` is the block's shared memory, summed on the host
+// over the arrays the kernel lays out (ops/fused_agg.py:aggregate_bwd_smem).
 extern "C" int cg_aggregate_bwd_f32(
     const float* sph, const float* rad, const float* q_r, const float* q_i,
     const float* g_r, const float* g_i, const int* grp_ptr, const int* row_of,
     const int* ent, float* drad, float* dq_r, float* dq_i,
     int B, int N, int T, int L, int M1, int M2, int K, int G, int n_ent,
-    int NI, int M2P, int ns, int ms, int mc, int nc, int threads, void* stream) {
+    int NI, int M2P, int ns, int ms, int mc, int nc, int threads, int smem,
+    void* stream) {
   Kernel kernel = kernel_for(ns, ms);
   if (kernel == nullptr || (ns > 1 && M2 != ns * ns) ||
       (ms > 1 && M1 != ms * ms) || !power_of_two(mc) || !power_of_two(nc) ||
       mc > kWarp || nc > kWarp || n_ent % kWarp != 0 || threads % kWarp != 0 ||
       threads > kThreads || N * (M2 / ns) * mc > threads ||
-      N * (M1 / ms) * nc > threads || NI < 1 || NI > N || M2P < M2)
+      N * (M1 / ms) * nc > threads || NI < 1 || NI > N || M2P < M2 ||
+      smem < 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = cg_aggregate_bwd_smem_bytes(N, L, M1, M2, K, G, n_ent, NI, M2P);
-  const int per_sm = cg_aggregate_bwd_blocks_per_sm(ns, ms, threads, (int)smem);
+  const int per_sm = blocks_per_sm(ns, ms, threads, smem);
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   const long long n_work = (long long)B * T;
   if (n_work > 0) {

@@ -282,10 +282,8 @@ _I = ctypes.c_int
 @functools.lru_cache(maxsize=None)
 def _aggregate_lib() -> ctypes.CDLL:
     lib = cuda_build.load('cg_aggregate')
-    lib.cg_aggregate_edge_fused_f32.argtypes = [_P] * 8 + [_I] * 12 + [_P]
+    lib.cg_aggregate_edge_fused_f32.argtypes = [_P] * 8 + [_I] * 13 + [_P]
     lib.cg_aggregate_edge_fused_f32.restype = _I
-    lib.cg_aggregate_smem_bytes.argtypes = [_I] * 6
-    lib.cg_aggregate_smem_bytes.restype = ctypes.c_size_t
     lib.cg_aggregate_blocks_per_sm.argtypes = [_I] * 3
     lib.cg_aggregate_blocks_per_sm.restype = _I
     return lib
@@ -294,10 +292,8 @@ def _aggregate_lib() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def _aggregate_bwd_lib() -> ctypes.CDLL:
     lib = cuda_build.load('cg_aggregate_bwd')
-    lib.cg_aggregate_bwd_f32.argtypes = [_P] * 12 + [_I] * 16 + [_P]
+    lib.cg_aggregate_bwd_f32.argtypes = [_P] * 12 + [_I] * 17 + [_P]
     lib.cg_aggregate_bwd_f32.restype = _I
-    lib.cg_aggregate_bwd_smem_bytes.argtypes = [_I] * 9
-    lib.cg_aggregate_bwd_smem_bytes.restype = ctypes.c_size_t
     lib.cg_aggregate_bwd_blocks_per_sm.argtypes = [_I] * 4
     lib.cg_aggregate_bwd_blocks_per_sm.restype = _I
     return lib
@@ -429,13 +425,15 @@ def strip_of(m: int) -> int:
 
 
 def aggregate_fwd_smem(N, tile_t, m1, m2, n_groups, n_ent) -> int:
-    """Shared bytes of one forward block: the packed table, z of the tile,
-    the edge rep e and q of the neighbourhood, the group offsets."""
+    """Shared bytes of one forward block, the sum of what the kernel lays
+    out: the packed table, z of the tile, the edge rep e and q of the
+    neighbourhood, the group offsets."""
     return (_align16(8 * n_ent) + _align16(8 * tile_t * m1 * m2) +
             _align16(8 * N * tile_t * m1) + _align16(8 * N * tile_t * m2) +
             _align16(4 * (n_groups + 1)))
 
 
+@functools.lru_cache(maxsize=None)
 def aggregate_fwd_tile(B, N, tau, m1, m2, n_groups, n_ent, num_sms) -> int:
     """Channels per forward block. The channel is a batch axis of the whole
     function, so a block takes one (b, i) and a tile of channels: the
@@ -456,7 +454,7 @@ def _pow2_floor(n: int) -> int:
 def aggregate_bwd_smem(N, n_l, m1, m2, k, n_groups, n_ent, rows,
                        m2_stride) -> int:
     """Shared bytes of one backward block that works on `rows` rows i at a
-    time: the packed table; g, Y and rad of the rows (in two buffers that
+    time, the sum of what the kernel lays out: the packed table; g, Y and rad of the rows (in two buffers that
     take turns, unless all N rows fit at once; rows of g and Y with the
     slack of their 16-byte copies); then e, dz, q, the radial terms, the
     group offsets, the row of each slot and l of m."""
@@ -496,28 +494,24 @@ def dz_conflicts(N, m1, m2, stride, threads, ns, ms, mc, m_chunk, nc,
     return total
 
 
-def aggregate_bwd_plan(N, n_l, m1, m2, k, n_groups, n_ent, n_blocks=None,
-                       num_sms=132, threads=BWD_THREADS) -> dict:
+def aggregate_bwd_plan(N, n_l, m1, m2, k, n_groups, n_ent) -> dict:
     """How a backward block (one (b, t)) cuts its work (computed once per
     set of arguments; the caller gets its own copy).
 
     rows: the rows i it holds at a time, all N if that keeps the block
     under BWD_SMEM_TARGET (level 0: one round trip to memory instead of
-    N), else as many as fit, evened out over N. A launch of `n_blocks`
-    blocks that leaves most of the card empty (a small batch) is bound by
-    one block's latency, not by how many fit an SM, and gets half an SM's
-    shared memory as its target.
+    N), else as many as fit, evened out over N.
     Two register tilings: d q[j, strip of ns] is summed over a chunk of m by
     each of `mc` lanes, d e[j, strip of ms] over a chunk of n by each of
     `nc` lanes; mc and nc are powers of two (at most a warp), so the lanes
     of one output are neighbours and a shuffle tree adds them in a fixed
     order."""
-    return dict(_bwd_plan(N, n_l, m1, m2, k, n_groups, n_ent, n_blocks, num_sms,
-                          threads))
+    return dict(_bwd_plan(N, n_l, m1, m2, k, n_groups, n_ent))
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_plan(N, n_l, m1, m2, k, n_groups, n_ent, n_blocks, num_sms, threads):
+def _bwd_plan(N, n_l, m1, m2, k, n_groups, n_ent):
+    threads = BWD_THREADS
     ns, ms = strip_of(m2), strip_of(m1)
     dq_rows, de_rows = N * (m2 // ns), N * (m1 // ms)
     if max(dq_rows, de_rows) > threads:
@@ -529,13 +523,10 @@ def _bwd_plan(N, n_l, m1, m2, k, n_groups, n_ent, n_blocks, num_sms, threads):
                 n_chunk=-(-m2 // nc))
     plan['m2_stride'] = min(range(m2, m2 + 9), key=lambda stride: dz_conflicts(
         N, m1, m2, stride, threads, **plan))
-    target = BWD_SMEM_TARGET
-    if n_blocks is not None and n_blocks <= 2 * num_sms:
-        target = MAX_SMEM // 2
     rows = N
     while rows > 1 and aggregate_bwd_smem(
             N, n_l, m1, m2, k, n_groups, n_ent, rows,
-            plan['m2_stride']) > target:
+            plan['m2_stride']) > BWD_SMEM_TARGET:
         rows -= 1
     plan['rows'] = -(-N // -(-N // rows))
     return plan
@@ -547,8 +538,7 @@ def _num_sms(device: torch.device) -> int:
 
 
 def _aggregate_fwd_kernel(sph_packed, rad_feats, atom_r, atom_i, table3,
-                          grouped, tile_t=None):
-    """`tile_t` overrides the channels per block (for measurements)."""
+                          grouped):
     name = 'cg_aggregate_edge_fused_ri'
     operands = (sph_packed, rad_feats, atom_r, atom_i)
     device = check_cuda_operands(name, operands)
@@ -556,11 +546,9 @@ def _aggregate_fwd_kernel(sph_packed, rad_feats, atom_r, atom_i, table3,
     tabs = _kernel_tables('aggregate', table3, grouped, None, device)
     k = tabs['k']
     n_groups, n_ent = tabs['fwd_ptr'].shape[0] - 1, tabs['fwd_ent'].shape[0]
-    if tile_t is None:
-        tile_t = aggregate_fwd_tile(B, N, tau, m1, m2, n_groups, n_ent,
-                                    _num_sms(device))
-    lib = _aggregate_lib()
-    smem = lib.cg_aggregate_smem_bytes(N, tile_t, m1, m2, n_groups, n_ent)
+    tile_t = aggregate_fwd_tile(B, N, tau, m1, m2, n_groups, n_ent,
+                                _num_sms(device))
+    smem = aggregate_fwd_smem(N, tile_t, m1, m2, n_groups, n_ent)
     if smem > MAX_SMEM:
         raise ValueError(f'{name}: N={N}, M1={m1}, M2={m2}, K={k} with '
                          f'{tile_t} channels a block need {smem} bytes of '
@@ -568,19 +556,17 @@ def _aggregate_fwd_kernel(sph_packed, rad_feats, atom_r, atom_i, table3,
     out_r = torch.empty((B, N, tau, k), dtype=torch.float32, device=device)
     out_i = torch.empty_like(out_r)
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = lib.cg_aggregate_edge_fused_f32(
+    err = _aggregate_lib().cg_aggregate_edge_fused_f32(
         *ptrs(*operands, tabs['fwd_ptr'], tabs['fwd_ent'], out_r, out_i),
         B, N, tau, n_l, m1, m2, k, n_groups, n_ent, tile_t, strip_of(m2),
-        FWD_THREADS, stream)
+        FWD_THREADS, smem, stream)
     raise_on(err, name)
     launch_counts[name] += 1
     return out_r, out_i
 
 
 def _aggregate_bwd_kernel(sph_packed, rad_feats, atom_r, atom_i, g_r, g_i,
-                          table3, grouped, rows=None):
-    """`rows` overrides the rows i a block holds at a time (for
-    measurements)."""
+                          table3, grouped):
     name = 'cg_aggregate_edge_fused_ri_bwd'
     operands = (sph_packed, rad_feats, atom_r, atom_i, g_r, g_i)
     device = check_cuda_operands(name, operands)
@@ -591,13 +577,9 @@ def _aggregate_bwd_kernel(sph_packed, rad_feats, atom_r, atom_i, g_r, g_i,
         raise ValueError(f'{name}: gradients {tuple(g_r.shape)} / '
                          f'{tuple(g_i.shape)}, expected {(B, N, tau, k)}')
     n_groups, n_ent = tabs['bwd_ptr'].shape[0] - 1, tabs['bwd_ent'].shape[0]
-    plan = aggregate_bwd_plan(N, n_l, m1, m2, k, n_groups, n_ent, B * tau,
-                              _num_sms(device))
-    if rows is not None:
-        plan['rows'] = rows
-    lib = _aggregate_bwd_lib()
-    smem = lib.cg_aggregate_bwd_smem_bytes(N, n_l, m1, m2, k, n_groups, n_ent,
-                                           plan['rows'], plan['m2_stride'])
+    plan = _bwd_plan(N, n_l, m1, m2, k, n_groups, n_ent)
+    smem = aggregate_bwd_smem(N, n_l, m1, m2, k, n_groups, n_ent,
+                              plan['rows'], plan['m2_stride'])
     if smem > MAX_SMEM:
         raise ValueError(f'{name}: N={N}, M1={m1}, M2={m2}, K={k} need '
                          f'{smem} bytes of shared memory, more than a block '
@@ -606,11 +588,11 @@ def _aggregate_bwd_kernel(sph_packed, rad_feats, atom_r, atom_i, g_r, g_i,
     dq_r = torch.empty_like(atom_r)
     dq_i = torch.empty_like(atom_i)
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = lib.cg_aggregate_bwd_f32(
+    err = _aggregate_bwd_lib().cg_aggregate_bwd_f32(
         *ptrs(*operands, tabs['bwd_ptr'], tabs['bwd_row'], tabs['bwd_ent'],
                drad, dq_r, dq_i), B, N, tau, n_l, m1, m2, k, n_groups, n_ent,
         plan['rows'], plan['m2_stride'], plan['ns'], plan['ms'], plan['mc'],
-        plan['nc'], BWD_THREADS, stream)
+        plan['nc'], BWD_THREADS, smem, stream)
     raise_on(err, name)
     launch_counts[name] += 1
     return drad, dq_r, dq_i
@@ -626,12 +608,10 @@ def aggregate_kernel_resources(B, N, tau, n_l, m2, table3, grouped, device):
     g_f, e_f = tabs['fwd_ptr'].shape[0] - 1, tabs['fwd_ent'].shape[0]
     g_b, e_b = tabs['bwd_ptr'].shape[0] - 1, tabs['bwd_ent'].shape[0]
     tile_t = aggregate_fwd_tile(B, N, tau, m1, m2, g_f, e_f, _num_sms(device))
-    smem_f = fwd.cg_aggregate_smem_bytes(N, tile_t, m1, m2, g_f, e_f)
-    plan = aggregate_bwd_plan(N, n_l, m1, m2, tabs['k'], g_b, e_b, B * tau,
-                              _num_sms(device))
-    smem_b = bwd.cg_aggregate_bwd_smem_bytes(N, n_l, m1, m2, tabs['k'], g_b,
-                                             e_b, plan['rows'],
-                                             plan['m2_stride'])
+    smem_f = aggregate_fwd_smem(N, tile_t, m1, m2, g_f, e_f)
+    plan = aggregate_bwd_plan(N, n_l, m1, m2, tabs['k'], g_b, e_b)
+    smem_b = aggregate_bwd_smem(N, n_l, m1, m2, tabs['k'], g_b, e_b,
+                                plan['rows'], plan['m2_stride'])
     return dict(
         fwd=dict(tile_t=tile_t, threads=FWD_THREADS, smem=smem_f,
                  blocks_per_sm=fwd.cg_aggregate_blocks_per_sm(

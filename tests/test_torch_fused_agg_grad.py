@@ -269,11 +269,10 @@ PLAN_CASES = [  # N, n_l, m1, m2, k, groups, n_ent
     (3, 3, 9, 9, 51, 3, 192), (3, 5, 25, 9, 165, 8, 480), (1, 3, 9, 1, 9, 1, 32)]
 
 
-@pytest.mark.parametrize('n_blocks', [None, 100, 1400])
 @pytest.mark.parametrize('case', PLAN_CASES)
-def test_backward_plan_covers_every_output_once(case, n_blocks):
+def test_backward_plan_covers_every_output_once(case):
     N, n_l, m1, m2 = case[:4]
-    plan = fused_agg.aggregate_bwd_plan(*case, n_blocks=n_blocks)
+    plan = fused_agg.aggregate_bwd_plan(*case)
     threads = fused_agg.BWD_THREADS
     ns, ms, mc, nc = plan['ns'], plan['ms'], plan['mc'], plan['nc']
     assert m2 % ns == 0 and m1 % ms == 0
@@ -284,11 +283,7 @@ def test_backward_plan_covers_every_output_once(case, n_blocks):
     assert N * (m2 // ns) * mc <= threads and N * (m1 // ms) * nc <= threads
     assert 1 <= plan['rows'] <= N and m2 <= plan['m2_stride'] <= m2 + 8
     smem = fused_agg.aggregate_bwd_smem(*case, plan['rows'], plan['m2_stride'])
-    small = n_blocks is not None and n_blocks <= 264
-    target = (fused_agg.MAX_SMEM // 2 if small else fused_agg.BWD_SMEM_TARGET)
-    assert plan['rows'] == 1 or smem <= target
-    # a launch that cannot fill the card never holds fewer rows
-    assert plan['rows'] >= fused_agg.aggregate_bwd_plan(*case)['rows'] or not small
+    assert plan['rows'] == 1 or smem <= fused_agg.BWD_SMEM_TARGET
     # the stride is no worse than unpadded rows
     roles = {k: plan[k] for k in ('ns', 'ms', 'mc', 'm_chunk', 'nc', 'n_chunk')}
     assert (fused_agg.dz_conflicts(N, m1, m2, plan['m2_stride'], threads, **roles)
@@ -296,14 +291,14 @@ def test_backward_plan_covers_every_output_once(case, n_blocks):
 
 
 def test_backward_plan_choices_at_the_main_shapes():
-    sf6 = fused_agg.aggregate_bwd_plan(7, 5, 25, 25, 375, 20, 1472, 1400)
+    sf6 = fused_agg.aggregate_bwd_plan(7, 5, 25, 25, 375, 20, 1472)
     assert (sf6['rows'], sf6['ns'], sf6['ms'], sf6['mc'], sf6['nc']) == (1, 5, 5, 4, 4)
     # level 0 (M2 = 1): all rows at once, 16 lanes on each of the N outputs
     for case in ((7, 5, 25, 1, 25, 1, 32), (10, 4, 16, 1, 16, 1, 32)):
-        plan = fused_agg.aggregate_bwd_plan(*case, 1400)
+        plan = fused_agg.aggregate_bwd_plan(*case)
         assert plan['rows'] == case[0] and plan['mc'] == 16 and plan['nc'] == 1
     # every load of dz at M = 16 is free of bank conflicts with 17-slot rows
-    stoch = fused_agg.aggregate_bwd_plan(10, 4, 16, 16, 156, 8, 544, 1400)
+    stoch = fused_agg.aggregate_bwd_plan(10, 4, 16, 16, 156, 8, 544)
     assert stoch['m2_stride'] == 17
     roles = {k: stoch[k] for k in ('ns', 'ms', 'mc', 'm_chunk', 'nc', 'n_chunk')}
     assert fused_agg.dz_conflicts(10, 16, 16, 17, 192, **roles) == 20
@@ -334,7 +329,7 @@ def _walk_backward(sph, rad, q_r, q_i, g_r, g_i, table3, grouped, rows=None):
     coef = ent[:, 1].copy().view(np.float32)
     k = g_r.shape[-1]
     plan = fused_agg.aggregate_bwd_plan(N, n_l, m1, m2, k, len(grp_ptr) - 1,
-                                        len(ent), B * tau)
+                                        len(ent))
     rows = rows or plan['rows']
     ns, ms, mc, nc = plan['ns'], plan['ms'], plan['mc'], plan['nc']
     m_chunk, n_chunk, stride = plan['m_chunk'], plan['n_chunk'], plan['m2_stride']
