@@ -13,11 +13,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
        - fused CG aggregate at SF6 levels 0 and 1-2, B = 140 and B = 9, and
          the tri-fold CG square at tau = 10 and 12; both again at the
          stochastic configuration's M = 16, N = 10 (library: torch.einsum on
-         complex tensors, and its torch.autograd.grad). The aggregate's
-         forward is also timed at the rollout's batch (10) and an
-         evaluation's (1), its resources (channels per block, shared bytes,
-         blocks per SM) are logged, and its level-0 backward at N = 10 must
-         not be slower than its library call;
+         complex tensors, and its torch.autograd.grad). Both forwards are
+         also timed at the rollout's batch (10) and an evaluation's (1),
+         their resources (channels or rows per block, shared bytes, blocks
+         per SM) are logged, and the aggregate's level-0 backward at N = 10
+         must not be slower than its library call;
        - the channel-wise CG product of the policy's mixer, (1,25,25) and
          (25,25,375) at 560 rows, 40 rows, the stochastic configuration's
          M = 16, and a row count no tile divides (library: one complex
@@ -186,6 +186,20 @@ def check_square(dev, tau, maxl=4, N=7):
                max_rel_err=rel_err)
     res['ms'] = time_ms(lambda: fused_agg.cg_square_fused_ri(a_r, a_i, table3,
                                                               tri=tri))
+    # the same kernel at the rollout's batch (--num_envs=10) and at an
+    # evaluation's (one env): most of a run's launches
+    for small in (10, 1):
+        few = (a_r[:small].contiguous(), a_i[:small].contiguous())
+        got = fused_agg.cg_square_fused_ri(*few, table3, tri=tri)
+        _abs, rel = max_err(got, [r[:small] for r in ref])
+        if not rel <= KERNEL_TOL:
+            raise AssertionError(f'square B={small} tau={tau}: rel err {rel}')
+        res[f'ms_b{small}'] = time_ms(
+            lambda: fused_agg.cg_square_fused_ri(*few, table3, tri=tri))
+    res['resources'] = {
+        f'B={b}': fused_agg.square_kernel_resources(b * N * tau, table3, None,
+                                                    tri, dev)
+        for b in (140, 10, 1)}
     res['plain_ms'] = time_ms(lambda: fused_agg.cg_square_fused_ri_plain(
         a_r, a_i, table3, tri=tri))
     a_c = torch.complex(a_r, a_i)
@@ -194,10 +208,11 @@ def check_square(dev, tau, maxl=4, N=7):
         lambda: torch.einsum('...m,...n,mnk->...k', a_c, a_c, c_c))
     tabs = fused_agg._kernel_tables('square', table3, None, tri, dev)
     rows = B * N * tau
-    n_flops = rows * (len(pairs) * 6 + tabs['coef'].numel() * 4)
+    # the pairs some column reads, 6 operations each, and 4 for each nonzero
+    n_flops = rows * (tabs['slot_mn'].numel() * 6 + tabs['nnz'] * 4)
     res['bound_ms'], res['bound_by'] = bound_ms(
-        nbytes(a_r, a_i, *out, tabs['colptr'], tabs['pair'], tabs['coef'],
-               tabs['pair_m'], tabs['pair_n']), n_flops)
+        nbytes(a_r, a_i, *out, tabs['slot_mn'], tabs['fwd_ptr'],
+               tabs['fwd_seq'], tabs['fwd_ent']), n_flops)
     return res
 
 
@@ -321,11 +336,12 @@ def check_square_bwd(dev, tau, maxl=4, N=7):
         lambda a: torch.einsum('...m,...n,mnk->...k', a, a, c_c), (a_c, ),
         torch.complex(g_r, g_i))
     rows = B * N * tau
-    n_flops = rows * (tabs['coef_t'].numel() * 4 + 2 * len(pairs) * 8)
+    # 4 operations for each nonzero, 8 for each of the two terms of every
+    # pair with entries
+    n_flops = rows * (tabs['nnz'] * 4 + 2 * tabs['n_live'] * 8)
     res['bound_ms'], res['bound_by'] = bound_ms(
-        nbytes(a_r, a_i, g_r, g_i, *out, tabs['rowptr'], tabs['col'],
-               tabs['coef_t'], tabs['mptr'], tabs['inc_pair'],
-               tabs['inc_other']), n_flops)
+        nbytes(a_r, a_i, g_r, g_i, *out, tabs['bwd_ptr'], tabs['bwd_ent'],
+               tabs['inc']), n_flops)
     return res
 
 
@@ -841,6 +857,8 @@ def main() -> int:
     for k, v in agg.items():
         if 'resources' in v:
             log('aggregate resources', k, json.dumps(v['resources']))
+    for k, v in sq.items():
+        log('square resources', k, json.dumps(v['resources']))
     for k, (fwd, bwd) in list(contract.items()) + list(softmax.items()):
         log('parity', k, 'fwd', json.dumps(fwd))
         log('parity', k, 'bwd', json.dumps(bwd))
@@ -898,7 +916,8 @@ def main() -> int:
               counter_shared_with=pallas + 'pallas_agg.py:334',
               ms_b10=agg[(140, 1)]['ms_b10'], ms_b1=agg[(140, 1)]['ms_b1']),
         entry('cg_square_fused_ri', csrc + 'cg_square.cu',
-              pallas + 'pallas_agg.py:91', sq[10], list(sq.values())),
+              pallas + 'pallas_agg.py:91', sq[10], list(sq.values()),
+              ms_b10=sq[10]['ms_b10'], ms_b1=sq[10]['ms_b1']),
         entry('cg_aggregate_edge_fused_ri_bwd', csrc + 'cg_aggregate_bwd.cu',
               pallas + 'pallas_agg.py:392', agg_bwd[(140, 5)],
               list(agg_bwd.values())),

@@ -53,7 +53,7 @@
 // it is, so a second operand type is a second instantiation.
 //
 // Measured on an NVIDIA H100 80GB HBM3 (700 W), CUDA-graph replay
-// (molgym_tpu_torch/bench_aggregate.py): SF6 levels 1-2 0.054 ms at B = 140
+// (molgym_tpu_torch/bench_encoder.py): SF6 levels 1-2 0.054 ms at B = 140
 // (first version 0.127), 0.0065 at B = 10 (0.025); level 0 0.0099 (0.0149).
 // clock64 stamps around the phases of a block give staging : z : table as
 // 29 : 37 : 26 at SF6 levels 1-2, so no one phase is left to remove; the

@@ -66,7 +66,7 @@
 // copies and the type read from the buffers, and nothing of the arithmetic.
 //
 // Measured on an NVIDIA H100 80GB HBM3 (700 W), CUDA-graph replay, B = 140
-// (molgym_tpu_torch/bench_aggregate.py): SF6 levels 1-2 0.140 ms (first
+// (molgym_tpu_torch/bench_encoder.py): SF6 levels 1-2 0.140 ms (first
 // version 0.173), level 0 0.028 (0.034); M = 16, N = 10: 0.092 (0.157) and
 // 0.034 (0.041). Tried and dropped, each by the same measurement: a thread
 // tile over two neighbours j (fewer loads of dz, more shuffles: no faster),

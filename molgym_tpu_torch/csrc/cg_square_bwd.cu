@@ -22,113 +22,297 @@
 // pair, is about 0.1 GFLOP, under 2 us at 67 TFLOP/s. It is bound by bytes:
 // the read of g.
 //
-// Design: a block takes ROWS rows, stages a and g in shared memory (g read
-// once, coalesced along k), forms dz for its rows from the CG table as
-// compressed sparse rows (the transpose of the forward's columns), and then
-// gives each (row, m) to one thread, which walks the pairs that hold m
-// (an incidence table built on the host, each pair listed once per operand
-// slot). Each da[r, m] is thus one thread's sum: no atomics, and the same
-// bits every run.
+// What held the first version back (46 KB of shared memory a block of 8
+// rows, so 2.3 waves of 4 blocks an SM; g copied in before any arithmetic;
+// dz by a thread per (row, pair) with a division, the CSR rows re-read per
+// row and the 38 empty pairs given threads; da by 200 of 256 threads through
+// 26 steps of 6 dependent loads) and what this design does about each:
+//
+//  * Persistent blocks of 128 threads over tiles of R = 2 rows (30 KB at
+//    SF6, seven blocks an SM; of tiles of 1, 2, 4 and 8 rows and blocks of
+//    64, 128 and 256 threads this read fastest at both configurations), g
+//    and a of the next tile streaming in by cp.async into a second buffer
+//    while this tile is worked on: 16-byte copies of g from the 16-byte
+//    line that holds a row's first value, 4-byte copies of a into its
+//    slot-major layout.
+//  * dz by a lane per pair over the R rows in registers: the table's rows,
+//    packed as 8-byte (k, coefficient) words, sorted by length and padded
+//    to the longest of each group of 32 (fused_agg.warp_padded: 1,248
+//    entries at SF6), are read once per tile for all R rows; warps take the
+//    groups in a snake over their lengths. Only the pairs with entries have
+//    lanes; dz of a pair is stored at its rank, and the empty pairs share
+//    one slot of zeros past the last group. The lanes read g at scattered
+//    k, so the host orders each row's entries over its group's steps so
+//    that the 32 lanes of a step read distinct banks where they can
+//    (fused_agg.spread_steps): 1.10 phases a load instead of 1.67 at SF6.
+//  * da by a thread per (row, m) over a dense [M][L] table of (dz slot,
+//    other slot) words (L = M + 1 for the tri pairs, 2 M for the dense
+//    ones): every line is L long, so no pointer array, and the host orders
+//    each line by the other slot, so that the threads of one step read the
+//    same a. Rows are the fastest index of a thread, so a warp reads 8
+//    rows of 4 slots of dz. Each da is one thread's sum in a fixed order:
+//    no atomics, and the same bits every run.
+//  * The complex products are fmaf; no division in any loop.
+//
+// Measured on an NVIDIA H100 80GB HBM3 (700 W), CUDA-graph replay, this
+// kernel and the first version in turns in one call
+// (molgym_tpu_torch/bench_encoder.py): SF6 tau 10, B = 140 0.0236-0.0239 ms
+// (first version 0.0556-0.0558); M = 16, tau 16 0.0252-0.0255 (0.0326-
+// 0.0329). In a variant with tiles of 4 rows, compiling out dz, da or the
+// copies took it from 0.024 to 0.017, 0.017 and 0.019 ms: the three
+// overlap, and none alone sets the pace.
+// PERF.md, section 6, has every shape.
 #include <cuda_runtime.h>
+
+#include <array>
+#include <map>
+#include <mutex>
 
 namespace {
 
-constexpr int ROWS = 8;
+constexpr int kWarp = 32;
+constexpr int kThreads = 128;
+constexpr int R = 2;                   // rows a tile
 
-__global__ void cg_square_bwd_kernel(
+__host__ __device__ inline size_t align16(size_t n) { return (n + 15) / 16 * 16; }
+
+// float2 per slot of dz (and of a) for a tile of R rows: 16 bytes, slot s
+// on bank group s mod 8
+constexpr int ZS = R;
+
+// floats a shared row of k values takes with the slack of its 16-byte copy
+__host__ __device__ inline int padded_row(int k) { return ((k + 3) / 4 + 1) * 4; }
+
+// floats between the 16-byte line that holds *p and p
+__device__ __forceinline__ int lead_floats(const float* p) {
+  return (int)((reinterpret_cast<size_t>(p) & 15) >> 2);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// position of the i-th of `ways` takers' items in a snake over a sequence:
+// taker c takes c, 2 ways - 1 - c, 2 ways + c, ... (increasing in i)
+__device__ __forceinline__ int snake(int i, int c, int ways) {
+  return i * ways + ((i & 1) ? ways - 1 - c : c);
+}
+
+__global__ void __launch_bounds__(kThreads) cg_square_bwd_kernel(
     const float* __restrict__ a_r,       // [rows, M]
     const float* __restrict__ a_i,       // [rows, M]
     const float* __restrict__ g_r,       // [rows, K]
     const float* __restrict__ g_i,       // [rows, K]
-    const int* __restrict__ rowptr,      // [P + 1]
-    const int* __restrict__ col,         // [nnz] output column k
-    const float* __restrict__ coef,      // [nnz]
-    const int* __restrict__ mptr,        // [M + 1]
-    const int* __restrict__ inc_pair,    // [2P] pair holding m
-    const int* __restrict__ inc_other,   // [2P] that pair's other slot
+    const int* __restrict__ grp_ptr,     // [G + 1] entry offset of each group of 32 pairs
+    const int2* __restrict__ ent,        // [n_ent] (column k, coef bits)
+    const int* __restrict__ inc,         // [M][L] (dz slot << 8 | other slot)
     float* __restrict__ da_r,            // [rows, M]
     float* __restrict__ da_i,            // [rows, M]
-    int rows, int M, int P, int K) {
-  extern __shared__ float smem[];
-  float* s_ar = smem;                    // [ROWS][M]
-  float* s_ai = s_ar + ROWS * M;
-  float* s_gr = s_ai + ROWS * M;         // [ROWS][K]
-  float* s_gi = s_gr + ROWS * K;
-  float* dz_r = s_gi + ROWS * K;         // [ROWS][P]
-  float* dz_i = dz_r + ROWS * P;
+    int rows, int M, int K, int G, int n_ent, int L) {
+  const int S = kWarp * G + 1;           // dz slots; the last holds zeros
+  const int KP = padded_row(K);
+  extern __shared__ float4 smem4[];
+  char* base = reinterpret_cast<char*>(smem4);
+  int2* s_ent = reinterpret_cast<int2*>(base);
+  base += align16(sizeof(int2) * n_ent);
+  float2* s_dz = reinterpret_cast<float2*>(base);       // [S][ZS]
+  base += align16(sizeof(float2) * S * ZS);
+  const size_t g_buf = sizeof(float) * R * 2 * KP;
+  float* s_g = reinterpret_cast<float*>(base);          // [2][R][g_r KP | g_i KP]
+  base += 2 * g_buf;
+  const size_t a_buf = align16(sizeof(float2) * M * ZS);
+  float2* s_a = reinterpret_cast<float2*>(base);        // [2][M][ZS]
+  base += 2 * a_buf;
+  int* s_ptr = reinterpret_cast<int*>(base);            // [G + 1]
+  base += align16(sizeof(int) * (G + 1));
+  int* s_inc = reinterpret_cast<int*>(base);            // [M][L]
 
-  const int row0 = blockIdx.x * ROWS;
-  const int nrows = min(ROWS, rows - row0);
-  for (int idx = threadIdx.x; idx < nrows * M; idx += blockDim.x) {
-    s_ar[idx] = a_r[(size_t)row0 * M + idx];
-    s_ai[idx] = a_i[(size_t)row0 * M + idx];
-  }
-  for (int idx = threadIdx.x; idx < nrows * K; idx += blockDim.x) {
-    s_gr[idx] = g_r[(size_t)row0 * K + idx];
-    s_gi[idx] = g_i[(size_t)row0 * K + idx];
-  }
-  __syncthreads();
+  const int tid = threadIdx.x;
+  const int lane = tid & (kWarp - 1);
+  const int warp = tid >> 5;
+  const int n_warps = blockDim.x >> 5;
 
-  for (int idx = threadIdx.x; idx < nrows * P; idx += blockDim.x) {
-    const int r = idx / P;
-    const int p = idx - r * P;
-    const float* gr = s_gr + r * K;
-    const float* gi = s_gi + r * K;
-    float acc_r = 0.f, acc_i = 0.f;
-    const int end = __ldg(rowptr + p + 1);
-    for (int e = __ldg(rowptr + p); e < end; ++e) {
-      const int k = __ldg(col + e);
-      const float c = __ldg(coef + e);
-      acc_r += c * gr[k];
-      acc_i += c * gi[k];
+  // once per block: the table (asynchronously), offsets, incidence, the
+  // slot of zeros; the first barrier of the first tile covers them
+  for (int idx = tid; idx < n_ent / 2; idx += blockDim.x)
+    cp_async16(s_ent + 2 * idx, ent + 2 * idx);
+  for (int idx = tid; idx <= G; idx += blockDim.x) s_ptr[idx] = grp_ptr[idx];
+  for (int idx = tid; idx < M * L; idx += blockDim.x) s_inc[idx] = inc[idx];
+  for (int r = tid; r < R; r += blockDim.x) s_dz[(S - 1) * ZS + r] = make_float2(0.f, 0.f);
+
+  const int n_tiles = (rows + R - 1) / R;
+
+  // asynchronous copies of what tile `tile` needs into buffer `buf`: its
+  // rows of g (16 bytes at a time: a row of g starts at any multiple of 4
+  // bytes, so its copy starts at the 16-byte line that holds its first
+  // value, at most 3 floats early, and the row lies at lead_floats of its
+  // address; the first and last lines may reach up to 12 bytes outside the
+  // tensor, inside a line that holds valid values, so inside its
+  // allocation) and a, value by value into its slots. The rows of a last,
+  // short tile keep what they held: their sums are not stored.
+  auto prefetch = [&](int tile, int buf) {
+    const int row0 = tile * R;
+    const int nr = min(R, rows - row0);
+    float* sg = s_g + buf * (g_buf / sizeof(float));
+    for (int r = 0; r < nr; ++r) {
+      const float* gr = g_r + (size_t)(row0 + r) * K;
+      const float* gi = g_i + (size_t)(row0 + r) * K;
+      const int lead_r = lead_floats(gr), lead_i = lead_floats(gi);
+      for (int c = tid; 4 * c < lead_r + K; c += blockDim.x)
+        cp_async16(sg + r * 2 * KP + 4 * c, gr - lead_r + 4 * c);
+      for (int c = tid; 4 * c < lead_i + K; c += blockDim.x)
+        cp_async16(sg + r * 2 * KP + KP + 4 * c, gi - lead_i + 4 * c);
     }
-    dz_r[idx] = acc_r;
-    dz_i[idx] = acc_i;
-  }
-  __syncthreads();
-
-  for (int idx = threadIdx.x; idx < nrows * M; idx += blockDim.x) {
-    const int r = idx / M;
-    const int m = idx - r * M;
-    const float* zr = dz_r + r * P;
-    const float* zi = dz_i + r * P;
-    const float* ar = s_ar + r * M;
-    const float* ai = s_ai + r * M;
-    float acc_r = 0.f, acc_i = 0.f;
-    const int end = __ldg(mptr + m + 1);
-    for (int e = __ldg(mptr + m); e < end; ++e) {
-      const int p = __ldg(inc_pair + e);
-      const int o = __ldg(inc_other + e);
-      acc_r += zr[p] * ar[o] + zi[p] * ai[o];
-      acc_i += zi[p] * ar[o] - zr[p] * ai[o];
+    float2* sa = reinterpret_cast<float2*>(reinterpret_cast<char*>(s_a) + buf * a_buf);
+    for (int idx = tid; idx < nr * M; idx += blockDim.x) {
+      const int r = idx / M;
+      float2* d = sa + (idx - r * M) * ZS + r;
+      cp_async4(&d->x, a_r + (size_t)row0 * M + idx);
+      cp_async4(&d->y, a_i + (size_t)row0 * M + idx);
     }
-    da_r[(size_t)row0 * M + idx] = acc_r;
-    da_i[(size_t)row0 * M + idx] = acc_i;
+  };
+
+  if (blockIdx.x < n_tiles) prefetch(blockIdx.x, 0);
+  int buf = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, buf ^= 1) {
+    const int row0 = tile * R;
+    const int nr = min(R, rows - row0);
+    cp_async_wait_all();
+    __syncthreads();     // this tile has landed; the last tile's da is done with dz and a
+    if (tile + (int)gridDim.x < n_tiles) prefetch(tile + gridDim.x, buf ^ 1);
+
+    // dz[slot, r] = sum_k C[p, k] g[r, k]: a warp per group of 32 pairs, a
+    // lane per pair, the R rows' sums in registers; one entry serves all rows
+    const float* sg = s_g + buf * (g_buf / sizeof(float));
+    int off_r[R], off_i[R];            // where each row's g lies in the buffer
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      off_r[r] = r * 2 * KP + lead_floats(g_r + (size_t)(row0 + r) * K);
+      off_i[r] = r * 2 * KP + KP + lead_floats(g_i + (size_t)(row0 + r) * K);
+    }
+    for (int j = 0;; ++j) {          // the groups are sorted, longest first
+      const int g = snake(j, warp, n_warps);
+      if (g >= G) break;
+      const int first = s_ptr[g];
+      const int trips = (s_ptr[g + 1] - first) >> 5;
+      const int2* row = s_ent + first + lane;
+      float acc_r[R], acc_i[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc_r[r] = acc_i[r] = 0.f;
+#pragma unroll 2
+      for (int e = 0; e < trips; ++e) {
+        const int2 v = row[e * kWarp];
+        const float c = __int_as_float(v.y);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          acc_r[r] = fmaf(c, sg[off_r[r] + v.x], acc_r[r]);
+          acc_i[r] = fmaf(c, sg[off_i[r] + v.x], acc_i[r]);
+        }
+      }
+      *reinterpret_cast<float4*>(s_dz + (g * kWarp + lane) * ZS) =
+          make_float4(acc_r[0], acc_i[0], acc_r[1], acc_i[1]);
+    }
+    __syncthreads();
+
+    // da[r, m] = sum_j dz[slot_j, r] conj(a[r, other_j]) over line m: a
+    // thread per (row, m), rows fastest, the sum in the line's order
+    const float2* sa =
+        reinterpret_cast<const float2*>(reinterpret_cast<const char*>(s_a) + buf * a_buf);
+    for (int item = tid; item < R * M; item += blockDim.x) {
+      const int r = item % R;
+      const int m = item / R;
+      const int* line = s_inc + m * L;
+      float acc_r = 0.f, acc_i = 0.f;
+#pragma unroll 4
+      for (int j = 0; j < L; ++j) {
+        const int v = line[j];
+        const float2 z = s_dz[(v >> 8) * ZS + r];
+        const float2 x = sa[(v & 255) * ZS + r];
+        acc_r = fmaf(z.x, x.x, fmaf(z.y, x.y, acc_r));
+        acc_i = fmaf(z.y, x.x, fmaf(-z.x, x.y, acc_i));
+      }
+      if (r < nr) {
+        da_r[(size_t)(row0 + r) * M + m] = acc_r;
+        da_i[(size_t)(row0 + r) * M + m] = acc_i;
+      }
+    }
   }
+  cp_async_wait_all();   // a block that got no tile
+}
+
+int num_sms() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
+}
+
+// Resident blocks per SM for `smem` bytes, asked of the runtime once per
+// (device, smem), as in cg_square.cu.
+int blocks_per_sm(int smem) {
+  static std::mutex mutex;
+  static std::map<std::array<int, 2>, int> known;
+  static std::map<int, int> limit;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  std::lock_guard<std::mutex> lock(mutex);
+  const std::array<int, 2> key = {dev, smem};
+  const auto found = known.find(key);
+  if (found != known.end()) return found->second;
+  int& allowed = limit[dev];
+  if (smem > allowed) {
+    if (cudaFuncSetAttribute(cg_square_bwd_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem) != cudaSuccess)
+      return -1;
+    allowed = smem;
+  }
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, cg_square_bwd_kernel, kThreads, smem) != cudaSuccess)
+    return -1;
+  known[key] = blocks;
+  return blocks;
 }
 
 }  // namespace
 
-extern "C" size_t cg_square_bwd_smem_bytes(int M, int P, int K) {
-  return sizeof(float) * 2 * (size_t)ROWS * (M + K + P);
-}
+extern "C" int cg_square_bwd_blocks_per_sm(int smem) { return blocks_per_sm(smem); }
 
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
+// Launches on `stream` and returns cudaGetLastError() (0 on success). The
+// table has `n_ent` entries, a multiple of 32, in G groups of 32 dz slots;
+// `inc` is [M][L] with M <= 256 and every dz slot at most 32 G; `smem` is the
+// block's shared memory, summed on the host over the arrays the kernel lays
+// out (ops/fused_agg.py:square_bwd_smem).
 extern "C" int cg_square_bwd_f32(
     const float* a_r, const float* a_i, const float* g_r, const float* g_i,
-    const int* rowptr, const int* col, const float* coef, const int* mptr,
-    const int* inc_pair, const int* inc_other, float* da_r, float* da_i,
-    int rows, int M, int P, int K, void* stream) {
-  const size_t smem = cg_square_bwd_smem_bytes(M, P, K);
-  cudaError_t err = cudaFuncSetAttribute(
-      cg_square_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  if (rows > 0) {
-    const int blocks = (rows + ROWS - 1) / ROWS;
-    cg_square_bwd_kernel<<<blocks, 256, smem, (cudaStream_t)stream>>>(
-        a_r, a_i, g_r, g_i, rowptr, col, coef, mptr, inc_pair, inc_other,
-        da_r, da_i, rows, M, P, K);
+    const int* grp_ptr, const int* ent, const int* inc, float* da_r,
+    float* da_i, int rows, int M, int K, int G, int n_ent, int L, int smem,
+    void* stream) {
+  if (n_ent % kWarp != 0 || M < 1 || M > 256 || G < 1 || L < 1 || smem < 0)
+    return (int)cudaErrorInvalidValue;
+  const int per_sm = blocks_per_sm(smem);
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int n_tiles = (rows + R - 1) / R;
+  if (n_tiles > 0) {
+    const int slots = per_sm * num_sms();
+    const int grid = n_tiles < slots ? n_tiles : slots;
+    cg_square_bwd_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+        a_r, a_i, g_r, g_i, grp_ptr, reinterpret_cast<const int2*>(ent), inc,
+        da_r, da_i, rows, M, K, G, n_ent, L);
   }
   return (int)cudaGetLastError();
 }

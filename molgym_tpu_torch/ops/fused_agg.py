@@ -51,8 +51,9 @@ Blocks = List[Tuple[int, int, np.ndarray]]
 # ---------------------------------------------------------------------------
 # contraction tables: the same blocks feed the plain version (as dense
 # sub-tables) and the kernels (as compressed sparse columns for the forward,
-# compressed sparse rows for the backward; the aggregate's kernels take both
-# re-packed warp by warp, `warp_padded`)
+# compressed sparse rows for the backward; all four kernels take them
+# re-packed warp by warp, `warp_padded`, the square's with their steps spread
+# over the banks, `spread_steps`)
 # ---------------------------------------------------------------------------
 
 def _aggregate_blocks(table3: np.ndarray, grouped) -> Blocks:
@@ -132,6 +133,30 @@ def pair_incidence(pairs: np.ndarray, m: int):
             other[order].astype(np.int32))
 
 
+def incidence_lines(pairs: np.ndarray, m: int):
+    """`pair_incidence` as a dense table, one line of L entries per slot m
+    (L = M + 1 for the tri pairs, 2 M for all M * M; a shorter line would be
+    padded with pair -1). Each line lists one pair for every other slot, in
+    the order of the other slot, before any second one (the diagonal pair's
+    second listing, or (n, m) beside (m, n)), so that at one step of the
+    backward's da the lines mostly name the same other slot. Returns (pair,
+    other), int [M, L]."""
+    mptr, inc_pair, inc_other = pair_incidence(pairs, m)
+    counts = np.diff(mptr)
+    pair = np.full((m, max(counts.max(initial=0), 1)), -1, np.int64)
+    other = np.zeros_like(pair)
+    for s in range(m):
+        p = inc_pair[mptr[s]:mptr[s + 1]]
+        o = inc_other[mptr[s]:mptr[s + 1]]
+        # how many earlier entries of the line name the same other slot
+        rank = np.array([np.count_nonzero(o[:e] == o[e]) for e in range(len(o))],
+                        np.int64)
+        order = np.lexsort((p, o, rank))
+        pair[s, :len(p)] = p[order]
+        other[s, :len(o)] = o[order]
+    return pair, other
+
+
 WARP = 32
 
 
@@ -175,6 +200,53 @@ def warp_padded(ptr: np.ndarray, idx: np.ndarray, coef: np.ndarray,
     return grp_ptr.astype(np.int32), line_of, np.ascontiguousarray(ent)
 
 
+def spread_steps(grp_ptr: np.ndarray, line_of: np.ndarray,
+                 counts: np.ndarray, ent: np.ndarray, banks: np.ndarray,
+                 phase: int) -> np.ndarray:
+    """A warp-padded table (`warp_padded`'s output; `counts` the entries of
+    each line) with each lane's entries re-ordered over its group's steps,
+    so that the lanes one phase of a shared-memory load serves (`phase`
+    neighbouring lanes) read distinct banks where they can (`banks`: the
+    bank of each index). Step by step, the lanes with the fewest steps to
+    spare first, a lane takes the entry whose index its phase already reads
+    or whose bank it reads least; a lane with steps to spare waits rather
+    than add a conflict. A step a lane waits, or has no entry left, reads an
+    index its phase reads anyway, with coefficient 0. Each lane's sum keeps
+    a fixed order, this one; returns the new entries."""
+    slot_counts = np.where(line_of >= 0, counts[np.maximum(line_of, 0)], 0)
+    out = np.zeros_like(ent)
+    for g in range(len(grp_ptr) - 1):
+        first = grp_ptr[g]
+        trips = (grp_ptr[g + 1] - first) // WARP
+        left = [[tuple(ent[first + WARP * e + lane])
+                 for e in range(slot_counts[WARP * g + lane])]
+                for lane in range(WARP)]
+        for e in range(trips):
+            row = first + WARP * e
+            for q in range(0, WARP, phase):
+                load, read, waits = Counter(), set(), []
+                for lane in sorted(range(q, q + phase),
+                                   key=lambda l: trips - e - len(left[l])):
+                    if not left[lane]:
+                        waits.append(lane)
+                        continue
+                    cost = [0 if idx in read else load[banks[idx]]
+                            for idx, _bits in left[lane]]
+                    pick = int(np.argmin(cost))
+                    if cost[pick] and len(left[lane]) < trips - e:
+                        waits.append(lane)
+                        continue
+                    idx, bits = left[lane].pop(pick)
+                    if idx not in read:
+                        read.add(idx)
+                        load[banks[idx]] += 1
+                    out[row + lane] = (idx, bits)
+                for lane in waits:
+                    out[row + lane] = (min(read, default=0), 0)
+        assert not any(left)
+    return out
+
+
 def pack_pairs(line_of: np.ndarray, m2: int) -> np.ndarray:
     """Pair indices p = m * m2 + n as (m << 16 | n); -1 stays -1."""
     packed = (line_of // m2 << 16) | (line_of % m2)
@@ -206,41 +278,75 @@ def _plain_tables(kind, table3, grouped, tri, device):
                       device, build)
 
 
+def square_tables(pairs: np.ndarray, blocks: Blocks, m: int) -> dict:
+    """The square's kernel tables (csrc/cg_square.cu, csrc/cg_square_bwd.cu)
+    as numpy arrays.
+
+    Forward: z gets a slot for each pair that some column reads, in pair
+    order (`slot_mn`: m << 16 | n); the columns, in output order, are packed
+    warp by warp with the slot of each entry (`fwd_ptr`, `fwd_ent`), and
+    `fwd_seq` lists the groups longest first, the order warps take them in.
+    Backward: the pairs with entries are packed warp by warp, sorted by
+    length (`bwd_ptr`, `bwd_ent`: (column k, coefficient)); dz of a pair lies
+    at its rank, and the empty pairs share the slot 32 G past the last
+    group, which holds zeros. Both tables' steps are spread over the banks
+    (`spread_steps`). `inc` [M, L] is `incidence_lines` with each
+    pair replaced by its dz slot, as (dz slot << 8 | other slot)."""
+    n_pairs = pairs.shape[0]
+    colptr, pair, coef = sparse_columns(blocks)
+    used = np.unique(pair)
+    slot_of = np.zeros(n_pairs, np.int64)
+    slot_of[used] = np.arange(len(used))
+    fwd_ptr, cols, fwd_ent = warp_padded(colptr, slot_of[pair], coef)
+    # z loads are 16 bytes a lane: a quarter warp a phase, a slot's bank
+    # group its index mod 8 (see square_slot_stride)
+    fwd_ent = spread_steps(fwd_ptr, cols, np.diff(colptr), fwd_ent,
+                           np.arange(len(used)) % 8, 8)
+    rowptr, col, coef_t = sparse_rows(blocks, n_pairs)
+    counts = np.diff(rowptr)
+    live = np.flatnonzero(counts)
+    bwd_ptr, line_of, bwd_ent = warp_padded(
+        np.concatenate([[0], np.cumsum(counts[live])]), col, coef_t,
+        by_length=True)
+    # g loads are 4 bytes a lane from one row: a warp a phase, bank k mod 32
+    k = colptr.shape[0] - 1
+    bwd_ent = spread_steps(bwd_ptr, line_of, counts[live], bwd_ent,
+                           np.arange(k) % WARP, WARP)
+    dz_slot = np.full(n_pairs + 1, len(line_of), np.int64)   # [-1]: padding
+    on = line_of >= 0
+    dz_slot[live[line_of[on]]] = np.flatnonzero(on)
+    inc_pair, inc_other = incidence_lines(pairs, m)
+    return dict(k=int(k), nnz=int(coef.shape[0]), n_live=len(live),
+                slot_mn=(pairs[used, 0] << 16 | pairs[used, 1]).astype(np.int32),
+                fwd_ptr=fwd_ptr,
+                fwd_seq=np.argsort(-np.diff(fwd_ptr), kind='stable').astype(
+                    np.int32),
+                fwd_ent=fwd_ent, bwd_ptr=bwd_ptr, bwd_ent=bwd_ent,
+                inc=(dz_slot[inc_pair] << 8 | inc_other).astype(np.int32))
+
+
 def _kernel_tables(kind, table3, grouped, tri, device):
     def build():
-        if kind == 'aggregate':
-            pairs, blocks = None, _aggregate_blocks(table3, grouped)
-            n_pairs = table3.shape[0] * table3.shape[1]
-        else:
+        if kind == 'square':
             pairs, blocks = _square_blocks(table3, grouped, tri)
-            n_pairs = pairs.shape[0]
+            tabs = square_tables(pairs, blocks, table3.shape[0])
+            return {k: _to(v, device) if isinstance(v, np.ndarray) else v
+                    for k, v in tabs.items()}
+        blocks = _aggregate_blocks(table3, grouped)
         colptr, pair, coef = sparse_columns(blocks)
-        rowptr, col, coef_t = sparse_rows(blocks, n_pairs)
-        if kind == 'aggregate':
-            fwd_ptr, _cols, fwd_ent = warp_padded(colptr, pair, coef)
-            bwd_ptr, bwd_row, bwd_ent = warp_padded(rowptr, col, coef_t,
-                                                    by_length=True)
-            return {'k': int(colptr.shape[0] - 1), 'nnz': int(coef.shape[0]),
-                    'fwd_ptr': _to(fwd_ptr, device),
-                    'fwd_ent': _to(fwd_ent, device),
-                    'bwd_ptr': _to(bwd_ptr, device),
-                    # the pair p = m * M2 + n of each slot as (m << 16 | n):
-                    # the kernel pads the rows of dz
-                    'bwd_row': _to(pack_pairs(bwd_row, table3.shape[1]),
-                                   device),
-                    'bwd_ent': _to(bwd_ent, device)}
-        out = {'colptr': _to(colptr, device), 'pair': _to(pair, device),
-               'coef': _to(coef, device), 'k': int(colptr.shape[0] - 1),
-               'rowptr': _to(rowptr, device), 'col': _to(col, device),
-               'coef_t': _to(coef_t, device)}
-        if pairs is not None:
-            out['pair_m'] = _to(pairs[:, 0].astype(np.int32), device)
-            out['pair_n'] = _to(pairs[:, 1].astype(np.int32), device)
-            mptr, inc_pair, inc_other = pair_incidence(pairs, table3.shape[0])
-            out['mptr'] = _to(mptr, device)
-            out['inc_pair'] = _to(inc_pair, device)
-            out['inc_other'] = _to(inc_other, device)
-        return out
+        rowptr, col, coef_t = sparse_rows(blocks,
+                                          table3.shape[0] * table3.shape[1])
+        fwd_ptr, _cols, fwd_ent = warp_padded(colptr, pair, coef)
+        bwd_ptr, bwd_row, bwd_ent = warp_padded(rowptr, col, coef_t,
+                                                by_length=True)
+        return {'k': int(colptr.shape[0] - 1), 'nnz': int(coef.shape[0]),
+                'fwd_ptr': _to(fwd_ptr, device),
+                'fwd_ent': _to(fwd_ent, device),
+                'bwd_ptr': _to(bwd_ptr, device),
+                # the pair p = m * M2 + n of each slot as (m << 16 | n): the
+                # kernel pads the rows of dz
+                'bwd_row': _to(pack_pairs(bwd_row, table3.shape[1]), device),
+                'bwd_ent': _to(bwd_ent, device)}
     return table_cache.get(('kernel', kind), _flat_arrays(table3, grouped, tri),
                       device, build)
 
@@ -302,20 +408,20 @@ def _aggregate_bwd_lib() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def _square_lib() -> ctypes.CDLL:
     lib = cuda_build.load('cg_square')
-    lib.cg_square_fused_f32.argtypes = [_P] * 9 + [_I] * 4 + [_P]
+    lib.cg_square_fused_f32.argtypes = [_P] * 8 + [_I] * 9 + [_P]
     lib.cg_square_fused_f32.restype = _I
-    lib.cg_square_smem_bytes.argtypes = [_I] * 2
-    lib.cg_square_smem_bytes.restype = ctypes.c_size_t
+    lib.cg_square_blocks_per_sm.argtypes = [_I] * 3
+    lib.cg_square_blocks_per_sm.restype = _I
     return lib
 
 
 @functools.lru_cache(maxsize=None)
 def _square_bwd_lib() -> ctypes.CDLL:
     lib = cuda_build.load('cg_square_bwd')
-    lib.cg_square_bwd_f32.argtypes = [_P] * 12 + [_I] * 4 + [_P]
+    lib.cg_square_bwd_f32.argtypes = [_P] * 9 + [_I] * 7 + [_P]
     lib.cg_square_bwd_f32.restype = _I
-    lib.cg_square_bwd_smem_bytes.argtypes = [_I] * 3
-    lib.cg_square_bwd_smem_bytes.restype = ctypes.c_size_t
+    lib.cg_square_bwd_blocks_per_sm.argtypes = [_I]
+    lib.cg_square_bwd_blocks_per_sm.restype = _I
     return lib
 
 
@@ -717,24 +823,99 @@ def _square_shapes(name, a_r, a_i, table3):
     return m, tuple(a_r.shape[:-1])
 
 
+# How the square's kernels cut their work (csrc/cg_square.cu,
+# csrc/cg_square_bwd.cu): the forward's tiles of R rows (it is compiled for
+# these), chosen on the host from the shapes alone; the backward's tile of
+# 2 rows and block of 128 threads, fixed in its source.
+
+SQUARE_FWD_ROWS = (4, 2, 1)
+SQUARE_BWD_ROWS = 2
+# what a forward block may take of an SM's shared memory before its tile of
+# rows is cut: four blocks fit an SM
+SQUARE_FWD_SMEM_TARGET = 48 * 1024
+
+
+def square_slot_stride(rows: int) -> int:
+    """float2 per slot of z, dz and a for a tile of `rows` rows: 16-byte
+    multiples (8 bytes for one row), padded by two at 4 rows so that slot s
+    starts on bank group 3 s mod 8, as it starts on s mod 8 at 2 rows."""
+    return rows + 2 if rows >= 4 else rows
+
+
+def _padded_row(k: int) -> int:
+    """floats a shared row of k values takes with the slack of its 16-byte
+    copy (at most 3 floats before it)"""
+    return ((k + 3) // 4 + 1) * 4
+
+
+def square_fwd_smem(rows, m, n_groups, n_ent, n_slots) -> int:
+    """Shared bytes of one forward block, the sum of what the kernel lays
+    out: the packed table, z of the tile, a of two tiles, the group offsets,
+    the group order, the pair of each slot."""
+    zs = square_slot_stride(rows)
+    return (_align16(8 * n_ent) + _align16(8 * n_slots * zs) +
+            2 * _align16(8 * m * zs) + _align16(4 * (n_groups + 1)) +
+            _align16(4 * n_groups) + _align16(4 * n_slots))
+
+
+def square_bwd_smem(m, k, n_groups, n_ent, line_len) -> int:
+    """Shared bytes of one backward block, the sum of what the kernel lays
+    out: the packed table, dz of the tile (32 slots a group and the slot of
+    zeros), g and a of two tiles, the group offsets, the incidence table."""
+    rows = SQUARE_BWD_ROWS
+    zs = square_slot_stride(rows)
+    return (_align16(8 * n_ent) + _align16(8 * (WARP * n_groups + 1) * zs) +
+            2 * 4 * rows * 2 * _padded_row(k) + 2 * _align16(8 * m * zs) +
+            _align16(4 * (n_groups + 1)) + _align16(4 * m * line_len))
+
+
+@functools.lru_cache(maxsize=None)
+def square_fwd_plan(n_rows, m, n_groups, n_ent, n_slots, num_sms) -> dict:
+    """How the forward cuts `n_rows` rows (computed once per set of
+    arguments; the caller gets the same dict): `rows` per tile, the most
+    that still gives every SM two tiles and keeps a block under its target
+    (4 at the update's batch, 2 at SF6's rollout batch, 1 at an
+    evaluation's), a warp per group of 32 columns (at most 8), and the
+    block's shared bytes."""
+    rows = next((r for r in SQUARE_FWD_ROWS[:-1]
+                 if -(-n_rows // r) >= 2 * num_sms
+                 and square_fwd_smem(r, m, n_groups, n_ent, n_slots)
+                 <= SQUARE_FWD_SMEM_TARGET), 1)
+    return dict(rows=rows, threads=WARP * min(FWD_THREADS // WARP, n_groups),
+                smem=square_fwd_smem(rows, m, n_groups, n_ent, n_slots))
+
+
+def _square_fwd_plan(n_rows, m, tabs, device):
+    return square_fwd_plan(n_rows, m, tabs['fwd_ptr'].shape[0] - 1,
+                           tabs['fwd_ent'].shape[0], tabs['slot_mn'].shape[0],
+                           _num_sms(device))
+
+
+def _square_bwd_smem(m, tabs):
+    return square_bwd_smem(m, tabs['k'], tabs['bwd_ptr'].shape[0] - 1,
+                           tabs['bwd_ent'].shape[0], tabs['inc'].shape[1])
+
+
 def _square_fwd_kernel(a_r, a_i, table3, grouped, tri):
     name = 'cg_square_fused_ri'
     device = check_cuda_operands(name, (a_r, a_i))
     m, batch = _square_shapes(name, a_r, a_i, table3)
     tabs = _kernel_tables('square', table3, grouped, tri, device)
-    n_pairs = tabs['pair_m'].shape[0]
-    lib = _square_lib()
-    if lib.cg_square_smem_bytes(m, n_pairs) > MAX_SMEM:
-        raise ValueError(f'{name}: M={m} with {n_pairs} pairs needs more '
-                         'shared memory than a block has')
-    k = tabs['k']
+    n_rows, k = math.prod(batch), tabs['k']
+    plan = _square_fwd_plan(n_rows, m, tabs, device)
+    if plan['smem'] > MAX_SMEM:
+        raise ValueError(f'{name}: M={m}, K={k} with {plan["rows"]} rows a '
+                         f'tile need {plan["smem"]} bytes of shared memory, '
+                         'more than a block has')
     out_r = torch.empty(batch + (k, ), dtype=torch.float32, device=device)
     out_i = torch.empty_like(out_r)
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = lib.cg_square_fused_f32(
-        *ptrs(a_r, a_i, tabs['pair_m'], tabs['pair_n'], tabs['colptr'],
-               tabs['pair'], tabs['coef'], out_r, out_i),
-        int(np.prod(batch)), m, n_pairs, k, stream)
+    err = _square_lib().cg_square_fused_f32(
+        *ptrs(a_r, a_i, tabs['slot_mn'], tabs['fwd_ptr'], tabs['fwd_seq'],
+              tabs['fwd_ent'], out_r, out_i),
+        n_rows, m, k, tabs['fwd_ptr'].shape[0] - 1, tabs['fwd_ent'].shape[0],
+        tabs['slot_mn'].shape[0], plan['rows'], plan['threads'], plan['smem'],
+        stream)
     raise_on(err, name)
     launch_counts[name] += 1
     return out_r, out_i
@@ -749,22 +930,39 @@ def _square_bwd_kernel(a_r, a_i, g_r, g_i, table3, grouped, tri):
     if tuple(g_r.shape) != batch + (k, ) or g_i.shape != g_r.shape:
         raise ValueError(f'{name}: gradients {tuple(g_r.shape)} / '
                          f'{tuple(g_i.shape)}, expected {batch + (k, )}')
-    n_pairs = tabs['pair_m'].shape[0]
-    lib = _square_bwd_lib()
-    if lib.cg_square_bwd_smem_bytes(m, n_pairs, k) > MAX_SMEM:
-        raise ValueError(f'{name}: M={m}, {n_pairs} pairs, K={k} need more '
-                         'shared memory than a block has')
+    if m > 256:
+        raise ValueError(f'{name}: M={m}, more slots than the incidence '
+                         'table can name')
+    smem = _square_bwd_smem(m, tabs)
+    if smem > MAX_SMEM:
+        raise ValueError(f'{name}: M={m}, K={k} need {smem} bytes of shared '
+                         'memory, more than a block has')
     da_r = torch.empty_like(a_r)
     da_i = torch.empty_like(a_i)
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = lib.cg_square_bwd_f32(
-        *ptrs(a_r, a_i, g_r, g_i, tabs['rowptr'], tabs['col'],
-               tabs['coef_t'], tabs['mptr'], tabs['inc_pair'],
-               tabs['inc_other'], da_r, da_i),
-        int(np.prod(batch)), m, n_pairs, k, stream)
+    err = _square_bwd_lib().cg_square_bwd_f32(
+        *ptrs(a_r, a_i, g_r, g_i, tabs['bwd_ptr'], tabs['bwd_ent'],
+              tabs['inc'], da_r, da_i),
+        math.prod(batch), m, k, tabs['bwd_ptr'].shape[0] - 1,
+        tabs['bwd_ent'].shape[0], tabs['inc'].shape[1], smem, stream)
     raise_on(err, name)
     launch_counts[name] += 1
     return da_r, da_i
+
+
+def square_kernel_resources(n_rows, table3, grouped, tri, device):
+    """What the two kernels take for `n_rows` rows: the forward's plan, the
+    backward's shared bytes, and the resident blocks per SM of each (asked
+    of the built libraries), for a log line."""
+    tabs = _kernel_tables('square', table3, grouped, tri, device)
+    fwd = _square_fwd_plan(n_rows, table3.shape[0], tabs, device)
+    smem = _square_bwd_smem(table3.shape[0], tabs)
+    return dict(
+        fwd=dict(fwd, blocks_per_sm=_square_lib().cg_square_blocks_per_sm(
+            fwd['rows'], fwd['threads'], fwd['smem'])),
+        bwd=dict(rows=SQUARE_BWD_ROWS, smem=smem,
+                 blocks_per_sm=_square_bwd_lib().cg_square_bwd_blocks_per_sm(
+                     smem)))
 
 
 class _SquareFn(torch.autograd.Function):

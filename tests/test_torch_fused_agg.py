@@ -8,6 +8,8 @@ a different summation order. The sparse-column tables the CUDA kernels read
 are held against the plain version here by contracting them in PyTorch; the
 kernels themselves are compared with the plain version on the card
 (tests/test_torch_kernels.py and chip_smoke.py)."""
+from collections import Counter
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -320,3 +322,236 @@ def test_aggregate_kernel_walk_matches_plain(maxl, atom_n_ells, N, tau, tile,
         scale = float(plain.abs().max())
         np.testing.assert_allclose(mine, plain.numpy(), rtol=1e-5,
                                    atol=1e-5 * scale)
+
+
+# ---------------------------------------------------------------------------
+# the square's forward kernel (csrc/cg_square.cu) walked in numpy as it runs:
+# persistent blocks over tiles of R rows, z pair-major in the slots of the
+# pairs some column reads, the columns packed warp by warp in output order
+# and taken by warps in a snake over their lengths, one entry read for all R
+# rows. 1e-5 relative, f32.
+# ---------------------------------------------------------------------------
+
+SMS = 132
+# rows of the square at both configurations' shapes: B * N * tau at the
+# update's batch (140), the rollout's (10) and an evaluation's (1)
+SQUARE_ROW_CASES = [(maxl, B * N * tau) for maxl, N, taus in
+                    ((4, 7, (10, 12)), (3, 10, (10, 16)))
+                    for tau in taus for B in (140, 10, 1)]
+
+
+def _square_np_tables(mode, maxl):
+    table3, grouped, tri = _square_args(mode, maxl, tcg)
+    pairs, blocks = fused_agg._square_blocks(table3, grouped, tri)
+    return (table3, grouped, tri,
+            fused_agg.square_tables(pairs, blocks, table3.shape[0]))
+
+
+def _snake(i, c, ways):
+    return i * ways + (ways - 1 - c if i & 1 else c)
+
+
+def _walk_square_forward(a_r, a_i, tabs, rows, threads, n_blocks):
+    """The forward kernel's loops in numpy (f32); every output is written
+    exactly once."""
+    n_rows, m = a_r.shape
+    zs = fused_agg.square_slot_stride(rows)
+    k, grp_ptr, seq = tabs['k'], tabs['fwd_ptr'], tabs['fwd_seq']
+    ent, slot_mn = tabs['fwd_ent'], tabs['slot_mn']
+    coef = ent[:, 1].copy().view(np.float32)
+    n_groups, n_warps = len(grp_ptr) - 1, threads // 32
+    a = (a_r + 1j * a_i).astype(np.complex64)
+    out = np.full((2, n_rows, k), np.nan, np.float32)
+    writes = np.zeros((n_rows, k), np.int64)
+    n_tiles = -(-n_rows // rows)
+    for block in range(min(n_blocks, n_tiles)):       # persistent blocks
+        for tile in range(block, n_tiles, n_blocks):
+            row0 = tile * rows
+            nr = min(rows, n_rows - row0)
+            # a slot-major, [M][zs]; the rows past a short tile hold garbage
+            sa = np.full((m, zs), np.nan, np.complex64)
+            sa[:, :nr] = a[row0:row0 + nr].T
+            z = np.full((len(slot_mn), zs), np.nan, np.complex64)
+            for s, mn in enumerate(slot_mn):          # a thread per slot
+                z[s, :rows] = sa[mn >> 16, :rows] * sa[mn & 0xffff, :rows]
+            for warp in range(n_warps):
+                for j in range(n_groups):
+                    pos = _snake(j, warp, n_warps)
+                    if pos >= n_groups:
+                        break
+                    g = seq[pos]
+                    acc = np.zeros((32, rows), np.complex64)
+                    for step in range((grp_ptr[g + 1] - grp_ptr[g]) // 32):
+                        at = grp_ptr[g] + 32 * step + np.arange(32)
+                        acc += coef[at][:, None] * z[ent[at, 0], :rows]
+                    for lane in range(32):
+                        col = 32 * g + lane
+                        if col < k:
+                            out[0, row0:row0 + nr, col] = acc[lane, :nr].real
+                            out[1, row0:row0 + nr, col] = acc[lane, :nr].imag
+                            writes[row0:row0 + nr, col] += 1
+    assert (writes == 1).all()
+    return out
+
+
+@pytest.mark.parametrize('mode', ['dense', 'grouped', 'tri'])
+@pytest.mark.parametrize('maxl', [2, 3, 4])
+def test_square_tables_are_the_sparse_table(mode, maxl):
+    """z slots for exactly the pairs some column reads; the packed columns,
+    read through the slots, rebuild the dense table; the group order is
+    longest first; a column without entries is all padding."""
+    table3, grouped, tri, tabs = _square_np_tables(mode, maxl)
+    pairs, blocks = fused_agg._square_blocks(table3, grouped, tri)
+    colptr, pair, coef = fused_agg.sparse_columns(blocks)
+    k = len(colptr) - 1
+    assert tabs['k'] == k and tabs['nnz'] == len(coef)
+    used = np.unique(pair)
+    mn = tabs['slot_mn']
+    np.testing.assert_array_equal(mn >> 16, pairs[used, 0])
+    np.testing.assert_array_equal(mn & 0xffff, pairs[used, 1])
+    ref = np.zeros((len(pairs), k), np.float32)
+    for col in range(k):
+        ref[pair[colptr[col]:colptr[col + 1]], col] = coef[colptr[col]:colptr[col + 1]]
+    by_slot = _padded_dense(tabs['fwd_ptr'], np.arange(32 * (len(tabs['fwd_ptr']) - 1)),
+                            tabs['fwd_ent'], 32 * (len(tabs['fwd_ptr']) - 1),
+                            len(mn))[:, :k]
+    rebuilt = np.zeros_like(ref)
+    rebuilt[used] = by_slot
+    np.testing.assert_array_equal(rebuilt, ref)
+    trips = np.diff(tabs['fwd_ptr'])[tabs['fwd_seq']]
+    assert sorted(tabs['fwd_seq']) == list(range(len(trips)))
+    assert (np.diff(trips) <= 0).all()
+
+
+def test_square_tables_at_the_main_shapes():
+    """The counts the kernels' notes and PERF.md quote: SF6 and the
+    stochastic configuration's tri tables."""
+    for maxl, counts in ((4, (375, 1130, 287, 1728, 1248, 287)),
+                         (3, (156, 335, 112, 576, 416, 112))):
+        tabs = _square_np_tables('tri', maxl)[3]
+        assert (tabs['k'], tabs['nnz'], len(tabs['slot_mn']),
+                len(tabs['fwd_ent']), len(tabs['bwd_ent']),
+                tabs['n_live']) == counts
+
+
+@pytest.mark.parametrize('maxl,n_rows', SQUARE_ROW_CASES)
+def test_square_plans_fill_the_card_and_fit(maxl, n_rows):
+    """The forward's tile is the largest that gives every SM two tiles and
+    keeps a block under its target (one row if none does); its threads are
+    whole warps, at most one a group. The backward's block of 2 rows fits
+    four times on an SM."""
+    _t, _g, _tri, tabs = _square_np_tables('tri', maxl)
+    m = (maxl + 1) ** 2
+    n_groups, n_ent = len(tabs['fwd_ptr']) - 1, len(tabs['fwd_ent'])
+
+    def smem_of(rows):
+        return fused_agg.square_fwd_smem(rows, m, n_groups, n_ent,
+                                         len(tabs['slot_mn']))
+    plan = fused_agg.square_fwd_plan(n_rows, m, n_groups, n_ent,
+                                     len(tabs['slot_mn']), SMS)
+    rows = plan['rows']
+    assert rows in fused_agg.SQUARE_FWD_ROWS and plan['smem'] == smem_of(rows)
+    assert plan['threads'] == 32 * min(8, n_groups)
+    if rows > 1:
+        assert (-(-n_rows // rows) >= 2 * SMS
+                and plan['smem'] <= fused_agg.SQUARE_FWD_SMEM_TARGET)
+    for bigger in fused_agg.SQUARE_FWD_ROWS:
+        if bigger > rows:
+            assert (-(-n_rows // bigger) < 2 * SMS
+                    or smem_of(bigger) > fused_agg.SQUARE_FWD_SMEM_TARGET)
+    # the update's batch takes the widest tiles, an evaluation's one row
+    if n_rows >= 140 * 70:
+        assert rows == 4
+    if n_rows <= 160:
+        assert rows == 1
+    smem = fused_agg.square_bwd_smem(m, tabs['k'], len(tabs['bwd_ptr']) - 1,
+                                     len(tabs['bwd_ent']), tabs['inc'].shape[1])
+    assert 4 * smem <= fused_agg.MAX_SMEM
+
+
+@pytest.mark.parametrize('mode,maxl,n_rows,rows,n_blocks', [
+    ('tri', 4, 37, 4, 3),        # SF6, the update's tile, a short last tile
+    ('tri', 4, 20, 2, 2),
+    ('tri', 3, 21, 2, 4),        # stochastic, rows no multiple of the tile
+    ('tri', 3, 5, 1, 2),         # an evaluation's rows, one a tile
+    ('tri', 2, 9, 4, 1),         # two groups of columns, one block
+    ('dense', 4, 11, 2, 3),
+    ('grouped', 4, 10, 4, 2),
+    ('dense', 3, 3, 4, 1),       # fewer rows than one tile
+    ('grouped', 2, 13, 4, 5)])   # more blocks than tiles
+def test_square_kernel_walk_matches_plain(mode, maxl, n_rows, rows, n_blocks):
+    table3, grouped, tri, tabs = _square_np_tables(mode, maxl)
+    rng = np.random.RandomState(n_rows + rows)
+    a_r, a_i = rng.randn(2, n_rows, (maxl + 1) ** 2).astype(np.float32)
+    ref = fused_agg.cg_square_fused_ri_plain(torch.from_numpy(a_r),
+                                             torch.from_numpy(a_i), table3,
+                                             grouped=grouped, tri=tri)
+    threads = 32 * min(8, len(tabs['fwd_ptr']) - 1)
+    got = _walk_square_forward(a_r, a_i, tabs, rows, threads, n_blocks)
+    assert np.isfinite(got).all()
+    for mine, plain in zip(got, ref):
+        scale = float(plain.abs().max())
+        np.testing.assert_allclose(mine, plain.numpy(), rtol=1e-5,
+                                   atol=1e-5 * scale)
+
+
+def _phase_passes(grp_ptr, ent, live, banks, phase):
+    """Mean shared-memory passes of one phase of a step: the most distinct
+    live indices of the phase on one bank (1 for a phase with none)."""
+    passes = []
+    for g in range(len(grp_ptr) - 1):
+        for at in range(grp_ptr[g], grp_ptr[g + 1], phase):
+            idx = {int(ent[i, 0]) for i in range(at, at + phase) if live[i]}
+            on_bank = Counter(banks[i] for i in idx)
+            passes.append(max(on_bank.values(), default=1))
+    return float(np.mean(passes))
+
+
+@pytest.mark.parametrize('maxl', [3, 4])
+@pytest.mark.parametrize('table', ['fwd', 'bwd'])
+def test_spread_steps_keeps_the_table_and_cuts_conflicts(maxl, table):
+    """The spread table holds each lane's entries (its sum, in another fixed
+    order) and padding of coefficient 0 that repeats an index its phase
+    reads; a phase of a load takes fewer passes than in the table as
+    warp_padded leaves it (SF6: 1.57 -> 1.10 forward, 1.67 -> 1.10
+    backward)."""
+    _t, _g, _tri, tabs = _square_np_tables('tri', maxl)
+    table3, grouped, tri = _square_args('tri', maxl, tcg)
+    pairs, blocks = fused_agg._square_blocks(table3, grouped, tri)
+    if table == 'fwd':
+        colptr, pair, coef = fused_agg.sparse_columns(blocks)
+        used = np.unique(pair)
+        slot_of = np.zeros(len(pairs), np.int64)
+        slot_of[used] = np.arange(len(used))
+        grp_ptr, line_of, ent = fused_agg.warp_padded(colptr, slot_of[pair],
+                                                      coef)
+        counts, banks, phase = np.diff(colptr), np.arange(len(used)) % 8, 8
+        spread, before, after = tabs['fwd_ent'], 1.57, 1.10
+    else:
+        rowptr, col, coef = fused_agg.sparse_rows(blocks, len(pairs))
+        counts = np.diff(rowptr)[np.diff(rowptr) > 0]
+        grp_ptr, line_of, ent = fused_agg.warp_padded(
+            np.concatenate([[0], np.cumsum(counts)]), col, coef, by_length=True)
+        banks, phase = np.arange(tabs['k']) % 32, 32
+        spread, before, after = tabs['bwd_ent'], 1.67, 1.10
+    np.testing.assert_array_equal(tabs[f'{table}_ptr'], grp_ptr)
+    slot_counts = np.where(line_of >= 0, counts[np.maximum(line_of, 0)], 0)
+    live = np.zeros(len(ent), bool)
+    for slot, n in enumerate(slot_counts):
+        g, lane = divmod(slot, 32)
+        live[grp_ptr[g] + 32 * np.arange(n) + lane] = True
+        lane_at = grp_ptr[g] + 32 * np.arange((grp_ptr[g + 1] - grp_ptr[g]) // 32) + lane
+        mine = spread[lane_at]
+        kept = mine[mine[:, 1] != 0]
+        assert sorted(map(tuple, kept)) == sorted(map(tuple, ent[lane_at][:n]))
+    # padding repeats an index of its phase
+    for at in range(0, len(spread), phase):
+        phase_idx = set(spread[at:at + phase][spread[at:at + phase, 1] != 0, 0])
+        for idx, bits in spread[at:at + phase]:
+            assert bits != 0 or not phase_idx or idx in phase_idx
+    live_spread = spread[:, 1] != 0
+    old = _phase_passes(grp_ptr, ent, live, banks, phase)
+    new = _phase_passes(grp_ptr, spread, live_spread, banks, phase)
+    assert new < old
+    if maxl == 4:
+        assert round(old, 2) == before and round(new, 2) == after

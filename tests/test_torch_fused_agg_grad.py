@@ -5,9 +5,9 @@ fallback, B = 3) and all three square table modes (dense, grouped, tri).
 
 The plain backward versions are also held against torch.autograd through
 the plain forward versions, and the tables the CUDA backward kernels read
-(compressed sparse rows, the square's pair incidence) are held against the
-dense tables by running the kernels' loops in PyTorch. The kernels
-themselves are compared with the plain versions on the card
+(compressed sparse rows, the square's dense incidence table) are held
+against the dense tables by running the kernels' loops in PyTorch and numpy.
+The kernels themselves are compared with the plain versions on the card
 (tests/test_torch_kernels.py and chip_smoke.py).
 
 Tolerance: 1e-5 relative, 2e-5 absolute on O(1) random inputs, float32 with
@@ -199,8 +199,9 @@ def _rows_contract(g, rowptr, col, coef):
 
 @pytest.mark.parametrize('mode', ['dense', 'grouped', 'tri'])
 def test_square_bwd_kernel_tables_match_plain(mode):
-    """The square's backward kernel loop, run in PyTorch: dz from the CSR
-    rows, then for each slot m the pairs of its incidence list."""
+    """The square's backward kernel tables, contracted in PyTorch: dz from
+    the CSR rows, then for each slot m the (pair, other slot) entries of its
+    line of the dense incidence table."""
     a, grads, table3, grouped, tri = _square_case(mode, 4, tcg, seed=2)
     a_r, a_i, g_r, g_i = (torch.from_numpy(x) for x in (*a, *grads))
     ref_r, ref_i = fused_agg.cg_square_fused_ri_bwd_plain(
@@ -208,15 +209,129 @@ def test_square_bwd_kernel_tables_match_plain(mode):
     pairs, blocks = fused_agg._square_blocks(table3, grouped, tri)
     csr = fused_agg.sparse_rows(blocks, pairs.shape[0])
     dz_r, dz_i = _rows_contract(g_r, *csr), _rows_contract(g_i, *csr)
-    mptr, inc_pair, inc_other = fused_agg.pair_incidence(pairs, table3.shape[0])
-    assert len(inc_pair) == 2 * len(pairs)
-    slot = torch.from_numpy(np.repeat(np.arange(len(mptr) - 1), np.diff(mptr)))
-    p, o = torch.from_numpy(inc_pair).long(), torch.from_numpy(inc_other).long()
+    inc_pair, inc_other = fused_agg.incidence_lines(pairs, table3.shape[0])
+    assert inc_pair.size == 2 * len(pairs) and (inc_pair >= 0).all()
+    slot = torch.arange(inc_pair.shape[0]).repeat_interleave(inc_pair.shape[1])
+    p = torch.from_numpy(inc_pair.ravel())
+    o = torch.from_numpy(inc_other.ravel())
     zr, zi, ar, ai = dz_r[..., p], dz_i[..., p], a_r[..., o], a_i[..., o]
     da_r = torch.zeros_like(a_r).index_add_(-1, slot, zr * ar + zi * ai)
     da_i = torch.zeros_like(a_i).index_add_(-1, slot, zi * ar - zr * ai)
     torch.testing.assert_close(da_r, ref_r, rtol=RTOL, atol=ATOL)
     torch.testing.assert_close(da_i, ref_i, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize('mode', ['dense', 'grouped', 'tri'])
+@pytest.mark.parametrize('maxl', [2, 3, 4])
+def test_incidence_lines_are_dense_and_ordered(mode, maxl):
+    """Every slot's line is M + 1 (tri) or 2 M (all pairs) long and lists
+    exactly the pairs that hold the slot, each with its other slot; the
+    first M steps name the same other slot on every line (so that the
+    threads of one step of da read the same a), the rest the second
+    listings."""
+    _a, _g, table3, grouped, tri = _square_case(mode, maxl, tcg, seed=0)
+    pairs, _blocks = fused_agg._square_blocks(table3, grouped, tri)
+    m = table3.shape[0]
+    inc_pair, inc_other = fused_agg.incidence_lines(pairs, m)
+    assert inc_pair.shape == (m, m + 1 if mode == 'tri' else 2 * m)
+    for s in range(m):
+        listed = sorted(zip(inc_pair[s].tolist(), inc_other[s].tolist()))
+        held = sorted([(p, int(n)) for p, (mm, n) in enumerate(pairs) if mm == s] +
+                      [(p, int(mm)) for p, (mm, n) in enumerate(pairs) if n == s])
+        assert listed == held
+    np.testing.assert_array_equal(inc_other[:, :m],
+                                  np.broadcast_to(np.arange(m), (m, m)))
+    if mode == 'tri':      # the diagonal pair's second listing
+        np.testing.assert_array_equal(inc_other[:, m], np.arange(m))
+
+
+def _walk_square_backward(a_r, a_i, g_r, g_i, tabs, rows, n_blocks):
+    """The backward kernel's loops in numpy (f32): persistent blocks over
+    tiles of `rows` rows, dz of the live pairs at their rank from the packed
+    rows sorted by length, the slot of zeros, then da per (row, m) over the
+    line of the dense incidence table in its order."""
+    n_rows, m = a_r.shape
+    grp_ptr, ent, inc = tabs['bwd_ptr'], tabs['bwd_ent'], tabs['inc']
+    coef = ent[:, 1].copy().view(np.float32)
+    n_groups = len(grp_ptr) - 1
+    zero = 32 * n_groups
+    a = (a_r + 1j * a_i).astype(np.complex64)
+    g = (g_r + 1j * g_i).astype(np.complex64)
+    da = np.full((2, n_rows, m), np.nan, np.float32)
+    n_tiles = -(-n_rows // rows)
+    for block in range(min(n_blocks, n_tiles)):
+        dz = np.full((zero + 1, rows), np.nan, np.complex64)
+        dz[zero] = 0
+        for tile in range(block, n_tiles, n_blocks):
+            row0 = tile * rows
+            nr = min(rows, n_rows - row0)
+            sg = np.full((rows, g.shape[1]), np.nan, np.complex64)
+            sg[:nr] = g[row0:row0 + nr]
+            for grp in range(n_groups):       # a lane per live pair
+                acc = np.zeros((32, rows), np.complex64)
+                for step in range((grp_ptr[grp + 1] - grp_ptr[grp]) // 32):
+                    at = grp_ptr[grp] + 32 * step + np.arange(32)
+                    acc += coef[at][:, None] * sg[:, ent[at, 0]].T
+                dz[32 * grp:32 * grp + 32] = acc
+            for slot in range(m):             # a thread per (row, m)
+                for r in range(nr):
+                    acc_r, acc_i = np.float32(0), np.float32(0)
+                    for v in inc[slot]:
+                        z, x = dz[v >> 8, r], a[row0 + r, v & 255]
+                        acc_r = np.float32(z.real * x.real + np.float32(
+                            z.imag * x.imag + acc_r))
+                        acc_i = np.float32(z.imag * x.real + np.float32(
+                            -z.real * x.imag + acc_i))
+                    da[:, row0 + r, slot] = acc_r, acc_i
+    return da
+
+
+@pytest.mark.parametrize('mode,maxl,n_rows,n_blocks', [
+    ('tri', 4, 9, 2),            # SF6, a short last tile
+    ('tri', 4, 5, 3),
+    ('tri', 3, 11, 1),           # stochastic, one block over every tile
+    ('tri', 3, 6, 2),
+    ('tri', 2, 1, 2),            # more blocks than tiles, a short tile
+    ('dense', 4, 5, 2),
+    ('grouped', 3, 6, 1),
+    ('dense', 2, 3, 1)])
+def test_square_bwd_kernel_walk_matches_plain(mode, maxl, n_rows, n_blocks):
+    _a, _g, table3, grouped, tri = _square_case(mode, maxl, tcg, seed=0)
+    pairs, blocks = fused_agg._square_blocks(table3, grouped, tri)
+    tabs = fused_agg.square_tables(pairs, blocks, table3.shape[0])
+    rng = np.random.RandomState(n_rows + n_blocks)
+    a_r, a_i = rng.randn(2, n_rows, table3.shape[0]).astype(np.float32)
+    g_r, g_i = rng.randn(2, n_rows, tabs['k']).astype(np.float32)
+    rows = fused_agg.SQUARE_BWD_ROWS
+    ref = fused_agg.cg_square_fused_ri_bwd_plain(
+        *map(torch.from_numpy, (a_r, a_i, g_r, g_i)), table3, grouped=grouped,
+        tri=tri)
+    got = _walk_square_backward(a_r, a_i, g_r, g_i, tabs, rows, n_blocks)
+    again = _walk_square_backward(a_r, a_i, g_r, g_i, tabs, rows, n_blocks)
+    np.testing.assert_array_equal(got, again)      # a fixed order of sums
+    for mine, plain in zip(got, ref):
+        assert np.isfinite(mine).all()
+        scale = float(plain.abs().max())
+        np.testing.assert_allclose(mine, plain.numpy(), rtol=1e-5,
+                                   atol=1e-5 * scale)
+
+
+def test_square_bwd_tables_skip_the_empty_pairs():
+    """Only pairs with entries get lanes; the incidence table sends the
+    empty ones to the slot of zeros past the last group (38 of 325 at SF6,
+    24 of 136 at the stochastic shapes)."""
+    for maxl, n_empty in ((4, 38), (3, 24)):
+        _a, _g, table3, grouped, tri = _square_case('tri', maxl, tcg, seed=0)
+        pairs, blocks = fused_agg._square_blocks(table3, grouped, tri)
+        tabs = fused_agg.square_tables(pairs, blocks, table3.shape[0])
+        zero = 32 * (len(tabs['bwd_ptr']) - 1)
+        assert tabs['n_live'] == len(pairs) - n_empty
+        dz_slot = tabs['inc'] >> 8
+        assert (dz_slot == zero).sum() == 2 * n_empty
+        live = dz_slot[dz_slot != zero]
+        assert len(np.unique(live)) == tabs['n_live'] and live.max() < zero
+        # no group of the packed rows is empty
+        assert (np.diff(tabs['bwd_ptr']) > 0).all()
 
 
 @pytest.mark.parametrize('maxl,atom_n_ells', [(2, 3), (4, 1), (4, 5)])

@@ -238,6 +238,71 @@ def test_aggregate_kernels_refuse_what_they_cannot_tile(cuda_device):
         assert res['fwd']['blocks_per_sm'] >= 4 and res['bwd']['blocks_per_sm'] >= 4
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize('mode', ['tri', 'dense', 'grouped'])
+@pytest.mark.parametrize('maxl', [2, 3, 4])
+@pytest.mark.parametrize('tau', [1, 10, 12, 16])
+@pytest.mark.parametrize('B', [1, 9, 10, 140])
+def test_square_kernels_over_shapes(cuda_device, B, tau, maxl, mode):
+    """Forward and backward kernels of the square against their plain
+    versions over batch sizes (every tile of rows the host picks, rows no
+    tile divides), channel counts and all three table modes; the backward
+    twice on the same inputs gives the same bits."""
+    n_ells = maxl + 1
+    N = {2: 3, 3: 10, 4: 7}[maxl]
+    gen = torch.Generator(device=cuda_device).manual_seed(B + tau + maxl)
+    table3, _sl = cg._fused_cg_table(n_ells, n_ells, maxl)
+    grouped = tri = None
+    if mode == 'tri':
+        pairs, groups, _perm, _si = cg.fused_cg_table_tri(n_ells, maxl)
+        tri = (pairs, groups)
+    elif mode == 'grouped':     # no grouped table below maxl 4: dense
+        g = cg.fused_cg_table_grouped(n_ells, n_ells, maxl)
+        grouped = None if g is None else (g[0], g[1])
+    a = tuple(torch.randn((B, N, tau, n_ells ** 2), generator=gen,
+                          device=cuda_device) for _ in range(2))
+    out = fused_agg._square_fwd_kernel(*a, table3, grouped, tri)
+    torch.cuda.synchronize()
+    ref = fused_agg.cg_square_fused_ri_plain(*a, table3, grouped=grouped,
+                                             tri=tri)
+    for o, r in zip(out, ref):
+        torch.testing.assert_close(o, r, rtol=1e-4,
+                                   atol=1e-4 * float(r.abs().max()))
+    grads = tuple(torch.randn(o.shape, generator=gen, device=cuda_device)
+                  for o in out)
+    got = fused_agg._square_bwd_kernel(*a, *grads, table3, grouped, tri)
+    again = fused_agg._square_bwd_kernel(*a, *grads, table3, grouped, tri)
+    torch.cuda.synchronize()
+    ref = fused_agg.cg_square_fused_ri_bwd_plain(*a, *grads, table3,
+                                                 grouped=grouped, tri=tri)
+    for o, o2, r in zip(got, again, ref):
+        assert torch.equal(o, o2)
+        torch.testing.assert_close(o, r, rtol=1e-4,
+                                   atol=1e-4 * float(r.abs().max()))
+
+
+@pytest.mark.cuda
+def test_square_kernels_take_no_rows_and_report_resources(cuda_device):
+    """An empty batch launches nothing and returns empty outputs; at the
+    main shapes at least four blocks of each kernel fit an SM."""
+    for maxl in (4, 3):
+        n_ells = maxl + 1
+        table3, _sl = cg._fused_cg_table(n_ells, n_ells, maxl)
+        pairs, groups, _perm, _si = cg.fused_cg_table_tri(n_ells, maxl)
+        tri = (pairs, groups)
+        a = torch.zeros((0, 7, 10, n_ells ** 2), device=cuda_device)
+        out = fused_agg._square_fwd_kernel(a, a, table3, None, tri)
+        k = out[0].shape[-1]
+        assert out[0].shape == (0, 7, 10, k)
+        g = torch.zeros((0, 7, 10, k), device=cuda_device)
+        da = fused_agg._square_bwd_kernel(a, a, g, g, table3, None, tri)
+        assert da[0].shape == a.shape
+        res = fused_agg.square_kernel_resources(140 * 70, table3, None, tri,
+                                                cuda_device)
+        assert res['fwd']['blocks_per_sm'] >= 4
+        assert res['bwd']['blocks_per_sm'] >= 4
+
+
 # (leading dims incl. tau, n_ells1, n_ells2, maxl): the mixer's two products
 # at SF6 (140 envs and 10) and at the stochastic configuration, and a row
 # count that no tile divides
