@@ -19,9 +19,12 @@ Phases, each of which fails the run (non-zero exit) if it fails:
          per SM) are logged, and the aggregate's level-0 backward at N = 10
          must not be slower than its library call;
        - the channel-wise CG product of the policy's mixer, (1,25,25) and
-         (25,25,375) at 560 rows, 40 rows, the stochastic configuration's
-         M = 16, and a row count no tile divides (library: one complex
-         einsum against the dense table);
+         (25,25,375) at 560 rows, 40 rows and 4 rows, the stochastic
+         configuration's M = 16, and a row count no tile divides (library:
+         one complex einsum against the dense table); its backward must give
+         the same bits on a second run, and its resources (rows per tile,
+         chunks, threads, shared bytes, blocks per SM) at 560, 40 and 4
+         rows are logged;
        - the masked softmax of the focus and element heads at [140,7],
          [140,3], [140,10], [140,4], [8192,128] and [33,200], some rows
          fully masked (library: torch.softmax of the masked_fill-ed logits);
@@ -347,7 +350,8 @@ def check_square_bwd(dev, tau, maxl=4, N=7):
 
 def check_contract(dev, lead, n1, n2, maxl):
     """The channel-wise CG product's forward and backward kernels against
-    their plain versions at rows = prod(lead); (forward, backward) results."""
+    their plain versions at rows = prod(lead), the backward also against a
+    second run of itself (the same bits); (forward, backward) results."""
     from molgym_tpu_torch.ops import cg, fused_cg
     m1, m2 = n1 * n1, n2 * n2
     rows = int(np.prod(lead))
@@ -361,7 +365,7 @@ def check_contract(dev, lead, n1, n2, maxl):
            randn(*lead, m2))
     g_r, g_i = randn(*lead, k), randn(*lead, k)
     tabs = fused_cg.kernel_tables(table3, dev)
-    nnz = tabs['coef'].numel()
+    nnz = tabs['nnz']                                # without the padding
     shape = f'rows={rows} M1={m1} M2={m2} K={k} nnz={nnz}'
 
     out = fused_cg.cg_contract_ri(*ops, table3)
@@ -380,17 +384,23 @@ def check_contract(dev, lead, n1, n2, maxl):
     c_c = torch.from_numpy(table3).to(dev).to(torch.complex64)
     fwd['library_ms'] = time_ms(
         lambda: torch.einsum('rm,rn,mnk->rk', a_c, b_c, c_c))
+    # a complex product (6 operations) and a complex MAC by a real (4) for
+    # each nonzero and row
     fwd['bound_ms'], fwd['bound_by'] = bound_ms(
-        nbytes(*ops, *out, tabs['colptr'], tabs['ent_m'], tabs['ent_n'],
-               tabs['coef']), rows * nnz * 10)
+        nbytes(*ops, *out, tabs['fwd_ptr'], tabs['fwd_ent']), rows * nnz * 10)
 
     got = fused_cg._bwd_kernel(*ops, g_r, g_i, table3)
+    again = fused_cg._bwd_kernel(*ops, g_r, g_i, table3)
     torch.cuda.synchronize()
     ref = fused_cg.cg_contract_ri_bwd_plain(*ops, g_r, g_i, table3)
     abs_err, rel_err = max_err(got, ref)
     if not rel_err <= KERNEL_TOL:
         raise AssertionError(f'contract bwd {shape}: rel err {rel_err}')
-    bwd = dict(shape=shape, max_abs_err=abs_err, max_rel_err=rel_err)
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise AssertionError(f'contract bwd {shape}: a second run gave '
+                             'other bits')
+    bwd = dict(shape=shape, max_abs_err=abs_err, max_rel_err=rel_err,
+               same_bits=True)
     bwd['ms'] = time_ms(lambda: fused_cg._bwd_kernel(*ops, g_r, g_i, table3))
     bwd['plain_ms'] = time_ms(
         lambda: fused_cg.cg_contract_ri_bwd_plain(*ops, g_r, g_i, table3))
@@ -398,9 +408,15 @@ def check_contract(dev, lead, n1, n2, maxl):
         lambda a, b: torch.einsum('rm,rn,mnk->rk', a, b, c_c),
         (a_c.requires_grad_(), b_c.requires_grad_()),
         torch.complex(g_r, g_i).reshape(rows, k))
+    # 4 operations for each nonzero and row (dz), 8 for each live pair and
+    # row in da and 8 in db
     bwd['bound_ms'], bwd['bound_by'] = bound_ms(
-        nbytes(*ops, g_r, g_i, *got, tabs['rowptr'], tabs['col'],
-               tabs['coef_t']), rows * (nnz * 4 + m1 * m2 * 16))
+        nbytes(*ops, g_r, g_i, *got, tabs['bwd_ptr'], tabs['bwd_ent'],
+               tabs['lines']), rows * (nnz * 4 + tabs['n_live'] * 16))
+    if rows == 560:
+        fwd['resources'] = {
+            f'rows={n}': fused_cg.product_kernel_resources(n, table3, dev)
+            for n in (560, 40, 4)}
     return fwd, bwd
 
 
@@ -844,11 +860,12 @@ def main() -> int:
     for tau in (10, 16):
         sq[('stoch', tau)] = check_square(dev, tau, **stoch)
         sq_bwd[('stoch', tau)] = check_square_bwd(dev, tau, **stoch)
-    # the mixer's two products at SF6 (140 envs x 4 channels, then 10 envs),
-    # at the stochastic configuration (M = 16), and 111 rows
+    # the mixer's two products at SF6 (140 envs x 4 channels, then 10 envs
+    # and one), at the stochastic configuration (M = 16), and 111 rows
     contract = {case: check_contract(dev, *case) for case in (
         ((140, 4), 5, 5, 4), ((140, 4), 1, 5, 4), ((10, 4), 5, 5, 4),
-        ((140, 4), 4, 4, 3), ((140, 4), 1, 4, 3), ((37, 3), 5, 5, 4))}
+        ((1, 4), 5, 5, 4), ((1, 4), 1, 5, 4), ((140, 4), 4, 4, 3),
+        ((140, 4), 1, 4, 3), ((37, 3), 5, 5, 4))}
     softmax = {case: check_softmax(dev, *case) for case in (
         (140, 7), (140, 3), (140, 10), (140, 4), (8192, 128), (33, 200))}
     for k, v in (list(agg.items()) + list(sq.items()) +
@@ -859,6 +876,9 @@ def main() -> int:
             log('aggregate resources', k, json.dumps(v['resources']))
     for k, v in sq.items():
         log('square resources', k, json.dumps(v['resources']))
+    for k, (fwd, _bwd) in contract.items():
+        if 'resources' in fwd:
+            log('product resources', k, json.dumps(fwd['resources']))
     for k, (fwd, bwd) in list(contract.items()) + list(softmax.items()):
         log('parity', k, 'fwd', json.dumps(fwd))
         log('parity', k, 'bwd', json.dumps(bwd))
@@ -925,7 +945,9 @@ def main() -> int:
               pallas + 'pallas_agg.py:132', sq_bwd[10], list(sq_bwd.values())),
         entry('cg_contract_ri', csrc + 'cg_product.cu',
               pallas + 'pallas_cg.py:40', contract_main[0],
-              [f for f, _b in contract.values()]),
+              [f for f, _b in contract.values()],
+              ms_b10=contract[((10, 4), 5, 5, 4)][0]['ms'],
+              ms_b1=contract[((1, 4), 5, 5, 4)][0]['ms']),
         entry('cg_contract_ri_bwd', csrc + 'cg_product_bwd.cu',
               pallas + 'pallas_cg.py:60', contract_main[1],
               [b for _f, b in contract.values()]),

@@ -304,10 +304,15 @@ def test_square_kernels_take_no_rows_and_report_resources(cuda_device):
 
 
 # (leading dims incl. tau, n_ells1, n_ells2, maxl): the mixer's two products
-# at SF6 (140 envs and 10) and at the stochastic configuration, and a row
-# count that no tile divides
+# at SF6 (140 envs, 10 and 1) and at the stochastic configuration (140 and
+# 1), and row counts that no tile divides at each (111 rows, one tile of
+# 1 row a block; 665, tiles of 4 and a last short one)
 CONTRACT_CASES = [((140, 4), 1, 5, 4), ((140, 4), 5, 5, 4), ((10, 4), 5, 5, 4),
-                  ((140, 4), 1, 4, 3), ((140, 4), 4, 4, 3), ((37, 3), 5, 5, 4)]
+                  ((1, 4), 1, 5, 4), ((1, 4), 5, 5, 4),
+                  ((140, 4), 1, 4, 3), ((140, 4), 4, 4, 3),
+                  ((1, 4), 1, 4, 3), ((1, 4), 4, 4, 3),
+                  ((37, 3), 5, 5, 4), ((37, 3), 1, 5, 4), ((133, 5), 5, 5, 4),
+                  ((37, 3), 4, 4, 3), ((133, 5), 4, 4, 3)]
 
 
 def _contract_args(device, lead, n1, n2, maxl, seed):
@@ -345,6 +350,42 @@ def test_contract_kernels_match_plain(cuda_device, lead, n1, n2, maxl):
     for o, r in zip(got, ref):
         torch.testing.assert_close(o, r, rtol=1e-4,
                                    atol=1e-4 * float(r.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('lead,n1,n2,maxl', CONTRACT_CASES)
+def test_contract_backward_gives_the_same_bits(cuda_device, lead, n1, n2, maxl):
+    """Every output of the backward is one thread's sum in a fixed order."""
+    args, table3, randn = _contract_args(cuda_device, lead, n1, n2, maxl, 13)
+    k = table3.shape[2]
+    grads = (randn(*lead, k), randn(*lead, k))
+    first = fused_cg._bwd_kernel(*args, *grads, table3)
+    second = fused_cg._bwd_kernel(*args, *grads, table3)
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n1,n2,maxl', [(1, 5, 4), (5, 5, 4), (4, 4, 3)])
+def test_contract_takes_an_empty_batch_and_fits_the_card(cuda_device, n1, n2,
+                                                         maxl):
+    """No rows: empty outputs and nothing run. At the path's rows every
+    block of both kernels fits an SM at least twice."""
+    table3, _sl = cg._fused_cg_table(n1, n2, maxl)
+    m1, m2, k = table3.shape
+    a = torch.zeros((0, 4, m1), device=cuda_device)
+    b = torch.zeros((0, 4, m2), device=cuda_device)
+    out = fused_cg._fwd_kernel(a, a, b, b, table3)
+    assert out[0].shape == (0, 4, k)
+    g = torch.zeros((0, 4, k), device=cuda_device)
+    grads = fused_cg._bwd_kernel(a, a, b, b, g, g, table3)
+    torch.cuda.synchronize()
+    assert [x.shape for x in grads] == [a.shape, a.shape, b.shape, b.shape]
+    for n_rows in (560, 40, 4):
+        res = fused_cg.product_kernel_resources(n_rows, table3, cuda_device)
+        assert res['fwd']['blocks_per_sm'] >= 2
+        assert res['bwd']['blocks_per_sm'] >= 2
 
 
 @pytest.mark.cuda
