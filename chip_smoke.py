@@ -366,6 +366,11 @@ def check_contract(dev, lead, n1, n2, maxl):
     g_r, g_i = randn(*lead, k), randn(*lead, k)
     tabs = fused_cg.kernel_tables(table3, dev)
     nnz = tabs['nnz']                                # without the padding
+    # the table as the function needs it: an 8-byte (pair, coefficient)
+    # word for each nonzero and the offsets of its groups; not the padding
+    # of the kernels' warp-padded entries nor the backward's line tables
+    fwd_table = 8 * nnz + nbytes(tabs['fwd_ptr'])
+    bwd_table = 8 * nnz + nbytes(tabs['bwd_ptr'])
     shape = f'rows={rows} M1={m1} M2={m2} K={k} nnz={nnz}'
 
     out = fused_cg.cg_contract_ri(*ops, table3)
@@ -387,7 +392,7 @@ def check_contract(dev, lead, n1, n2, maxl):
     # a complex product (6 operations) and a complex MAC by a real (4) for
     # each nonzero and row
     fwd['bound_ms'], fwd['bound_by'] = bound_ms(
-        nbytes(*ops, *out, tabs['fwd_ptr'], tabs['fwd_ent']), rows * nnz * 10)
+        nbytes(*ops, *out) + fwd_table, rows * nnz * 10)
 
     got = fused_cg._bwd_kernel(*ops, g_r, g_i, table3)
     again = fused_cg._bwd_kernel(*ops, g_r, g_i, table3)
@@ -411,8 +416,8 @@ def check_contract(dev, lead, n1, n2, maxl):
     # 4 operations for each nonzero and row (dz), 8 for each live pair and
     # row in da and 8 in db
     bwd['bound_ms'], bwd['bound_by'] = bound_ms(
-        nbytes(*ops, g_r, g_i, *got, tabs['bwd_ptr'], tabs['bwd_ent'],
-               tabs['lines']), rows * (nnz * 4 + tabs['n_live'] * 16))
+        nbytes(*ops, g_r, g_i, *got) + bwd_table,
+        rows * (nnz * 4 + tabs['n_live'] * 16))
     if rows == 560:
         fwd['resources'] = {
             f'rows={n}': fused_cg.product_kernel_resources(n, table3, dev)

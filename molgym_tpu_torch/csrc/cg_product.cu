@@ -16,11 +16,11 @@
 //
 // Bound on the H100 at the SF6 shapes (rows = 140 * 4 = 560, M1 = M2 = 25,
 // K = 375, 1,396 nonzeros): the kernel must read 0.22 MB (a, b) and the
-// packed table (22 KB) and write 1.68 MB (out), about 0.6 us at 3.35 TB/s;
-// its arithmetic, 10 operations a nonzero and row, is 0.008 GFLOP, 0.1 us
-// at 67 TFLOP/s. It is bound by bytes, the write of out, and the bound lies
-// below the time of one launch: what the kernel takes beyond a launch is
-// latency, the chain from the first load to the last store.
+// table (11 KB at 8 bytes a nonzero) and write 1.68 MB (out), about 0.6 us
+// at 3.35 TB/s; its arithmetic, 10 operations a nonzero and row, is 0.008
+// GFLOP, 0.1 us at 67 TFLOP/s. It is bound by bytes, the write of out, and
+// the bound lies below the time of one launch: what the kernel takes beyond
+// a launch is latency, the chain from the first load to the last store.
 //
 // What held the first version back (blocks of 4 rows and 256 threads, 140
 // blocks on 132 SMs at 560 rows; a thread per output (r, k) that walked
@@ -38,7 +38,7 @@
 //    length (1,568 entries, the lanes of a warp finishing together) read
 //    0.0047 ms against 0.0036 at 560 rows, the scattered stores costing
 //    more than the padding.
-//  * A lane per column over a tile of R rows (R = 4, 2 or 1, a template
+//  * A lane per column over a tile of R rows (R = 4 or 1, a template
 //    parameter): the 2 R sums sit in registers, and each entry is read once
 //    for all R rows. a and b of the tile lie slot-major, [slot][R]
 //    complex, so a lane loads its rows of a[m] and of b[n] as 16-byte
@@ -61,55 +61,12 @@
 //
 // Measured: PERF.md, section 6 (molgym_tpu_torch/bench_encoder.py --kernels
 // product and chip_smoke.py).
-#include <cuda_runtime.h>
-
-#include <array>
-#include <map>
-#include <mutex>
+#include "cg_product_common.cuh"
 
 namespace {
 
-constexpr int kWarp = 32;
 constexpr int kMaxThreads = 512;
 constexpr int kMaxGroups = 64;         // groups of 32 columns (K <= 2,048)
-constexpr int kDefaultSmem = 48 * 1024;
-
-__host__ __device__ inline size_t align16(size_t n) { return (n + 15) / 16 * 16; }
-
-// float2 per slot of a and b for a tile of R rows: 16-byte multiples (8
-// bytes at R = 1) on which slot s starts at bank group s or 3 s mod 8
-template <int R>
-__host__ __device__ constexpr int slot_stride() { return R >= 4 ? R + 2 : R; }
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// R complex values from a 16-byte aligned slot (8 bytes for R = 1)
-template <int R>
-__device__ __forceinline__ void load_slot(const float2* p, float2 (&v)[R]) {
-  if constexpr (R == 1) {
-    v[0] = p[0];
-  } else {
-    const float4* q = reinterpret_cast<const float4*>(p);
-#pragma unroll
-    for (int j = 0; j < R / 2; ++j) {
-      const float4 t = q[j];
-      v[2 * j] = make_float2(t.x, t.y);
-      v[2 * j + 1] = make_float2(t.z, t.w);
-    }
-  }
-}
 
 // x[r, 0..M) of the tile's rows into slot-major [M][ZS] float2, a 4-byte
 // copy per value; the rows past a short tile keep what they held (their
@@ -218,30 +175,9 @@ typedef void (*Kernel)(const float*, const float*, const float*, const float*,
 Kernel kernel_for(int rows_per_tile) {
   switch (rows_per_tile) {
     case 1: return cg_product_kernel<1>;
-    case 2: return cg_product_kernel<2>;
     case 4: return cg_product_kernel<4>;
     default: return nullptr;
   }
-}
-
-// Raises the kernel's limit of dynamic shared memory to `smem` where that is
-// above the default, once per (device, tile) and larger size: a launch at
-// the default costs the host nothing. False if the runtime refuses.
-bool allow_smem(Kernel kernel, int rows_per_tile, int smem) {
-  if (smem <= kDefaultSmem) return true;
-  static std::mutex mutex;
-  static std::map<std::array<int, 2>, int> limit;
-  int dev = 0;
-  cudaGetDevice(&dev);
-  std::lock_guard<std::mutex> lock(mutex);
-  int& allowed = limit[{dev, rows_per_tile}];
-  if (smem > allowed) {
-    if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem) != cudaSuccess)
-      return false;
-    allowed = smem;
-  }
-  return true;
 }
 
 }  // namespace
@@ -261,8 +197,8 @@ extern "C" int cg_product_blocks_per_sm(int rows_per_tile, int threads, int smem
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success). The
 // table has G <= 64 groups of whole warps of entries, their offsets
-// `grp_ptr` [G + 1] in host memory; tiles of `rows_per_tile` rows (1, 2 or
-// 4) and chunks of `per_block` groups, a block each; the block's `threads`,
+// `grp_ptr` [G + 1] in host memory; tiles of `rows_per_tile` rows (1 or 4)
+// and chunks of `per_block` groups, a block each; the block's `threads`,
 // the most entries of a chunk (`ent_cap`) and its shared bytes (`smem`)
 // come from the host's plan (ops/fused_cg.py:product_fwd_plan).
 extern "C" int cg_product_f32(

@@ -12,7 +12,7 @@
 //
 // Bound on the H100 at the SF6 shapes (rows = 560, M1 = M2 = 25, K = 375,
 // 1,396 nonzeros, 555 of the 625 pairs live): the kernel must read g
-// (1.68 MB), a and b (0.22 MB) and the packed tables (17 KB) and write da
+// (1.68 MB), a and b (0.22 MB) and the table (11 KB) and write da
 // and db (0.22 MB), about 0.6 us at 3.35 TB/s; its arithmetic, 4 operations
 // a nonzero and 16 a live pair for each row, is 0.008 GFLOP, 0.1 us at
 // 67 TFLOP/s. It is bound by bytes, the read of g, and the bound lies below
@@ -60,57 +60,14 @@
 //
 // Measured: PERF.md, section 6 (molgym_tpu_torch/bench_encoder.py --kernels
 // product and chip_smoke.py).
-#include <cuda_runtime.h>
-
-#include <array>
-#include <map>
-#include <mutex>
+#include "cg_product_common.cuh"
 
 namespace {
 
-constexpr int kWarp = 32;
 constexpr int kMaxThreads = 256;
-constexpr int kDefaultSmem = 48 * 1024;
-
-__host__ __device__ inline size_t align16(size_t n) { return (n + 15) / 16 * 16; }
-
-// float2 per slot of g, dz, a and b for a tile of R rows: 16-byte multiples
-// (8 bytes at R = 1) on which slot s starts at bank group s or 3 s mod 8
-template <int R>
-__host__ __device__ constexpr int slot_stride() { return R >= 4 ? R + 2 : R; }
 
 // words of a step-major table of L steps of n lines, padded to 16 bytes
 __host__ __device__ inline int line_words(int L, int n) { return (L * n + 3) / 4 * 4; }
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// R complex values from a 16-byte aligned slot (8 bytes for R = 1)
-template <int R>
-__device__ __forceinline__ void load_slot(const float2* p, float2 (&v)[R]) {
-  if constexpr (R == 1) {
-    v[0] = p[0];
-  } else {
-    const float4* q = reinterpret_cast<const float4*>(p);
-#pragma unroll
-    for (int j = 0; j < R / 2; ++j) {
-      const float4 t = q[j];
-      v[2 * j] = make_float2(t.x, t.y);
-      v[2 * j + 1] = make_float2(t.z, t.w);
-    }
-  }
-}
 
 template <int R>
 __device__ __forceinline__ void store_slot(float2* p, const float2 (&v)[R]) {
@@ -294,26 +251,6 @@ Kernel kernel_for(int rows_per_tile) {
     case 4: return cg_product_bwd_kernel<4>;
     default: return nullptr;
   }
-}
-
-// Raises the kernel's limit of dynamic shared memory to `smem` where that is
-// above the default, once per (device, tile) and larger size: a launch at
-// the default costs the host nothing. False if the runtime refuses.
-bool allow_smem(Kernel kernel, int rows_per_tile, int smem) {
-  if (smem <= kDefaultSmem) return true;
-  static std::mutex mutex;
-  static std::map<std::array<int, 2>, int> limit;
-  int dev = 0;
-  cudaGetDevice(&dev);
-  std::lock_guard<std::mutex> lock(mutex);
-  int& allowed = limit[{dev, rows_per_tile}];
-  if (smem > allowed) {
-    if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem) != cudaSuccess)
-      return false;
-    allowed = smem;
-  }
-  return true;
 }
 
 }  // namespace

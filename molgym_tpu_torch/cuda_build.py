@@ -2,8 +2,9 @@
 ctypes.
 
 Each `csrc/<name>.cu` has a plain C interface and compiles on its own into
-`_build/lib<name>-<hash>.so` (the hash covers the source and the flags, so an
-edited source builds anew). Nothing is built at import time: the first call
+`_build/lib<name>-<hash>.so` (the hash covers the source, the headers of
+`csrc/` it may include and the flags, so an edited source or header builds
+anew). Nothing is built at import time: the first call
 to `load` builds, and `build` starts one nvcc per source at once, so a
 caller that needs several kernels pays for the slowest build only.
 """
@@ -39,8 +40,9 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f'{name}.cu'
-    digest = hashlib.sha256(src.read_bytes() +
+    text = b''.join(p.read_bytes() for p in
+                    [CSRC / f'{name}.cu', *sorted(CSRC.glob('*.cuh'))])
+    digest = hashlib.sha256(text +
                             ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f'lib{name}-{digest}.so'
 

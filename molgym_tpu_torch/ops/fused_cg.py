@@ -124,12 +124,13 @@ def kernel_tables(table3: np.ndarray, device):
     return table_cache.get(('kernel', 'product'), (table3, ), device, build)
 
 
-# How the kernels cut their work. Both are compiled for tiles of 4, 2 and 1
-# rows; the forward takes a tile with a chunk of the column groups a block,
-# the backward a tile with all of the table and gives each line of da and
-# db a power of two of lanes.
+# How the kernels cut their work. The forward is compiled for tiles of 4
+# and 1 rows and takes a tile with a chunk of the column groups a block; the
+# backward is compiled for tiles of 4, 2 and 1 rows and takes a tile with
+# all of the table, giving each line of da and db a power of two of lanes.
 
-PRODUCT_ROWS = (4, 2, 1)
+PRODUCT_FWD_ROWS = (4, 1)
+PRODUCT_BWD_ROWS = (4, 2, 1)
 # column groups a forward block takes: of 1 to 12, 3 read fastest or within
 # noise of it at both configurations' tables and 560, 40 and 4 rows
 PRODUCT_FWD_GROUPS = 3
@@ -144,15 +145,17 @@ PRODUCT_BWD_SMEM_TARGET = 48 * 1024
 def slot_stride(rows: int) -> int:
     """float2 per slot of a, b (and of the backward's g and dz) for a tile of
     `rows` rows: 16-byte multiples (8 bytes for one row), padded by two at
-    4 rows so that slot s starts on bank group 3 s mod 8."""
+    4 rows so that slot s starts on bank group 3 s mod 8. The kernels lay
+    out their shared memory by the same rule (`slot_stride` in
+    csrc/cg_product_common.cuh), and the plans size it by this one."""
     return rows + 2 if rows >= 4 else rows
 
 
 @functools.lru_cache(maxsize=None)
 def product_fwd_plan(n_rows, m1, m2, fwd_groups, num_sms) -> dict:
     """How the forward cuts `n_rows` rows (computed once per set of
-    arguments; the caller gets the same dict). `rows` per tile, the most
-    that still gives every SM a tile (4 at the update's batch, 1 at the
+    arguments; the caller gets the same dict). `rows` per tile, 4 where
+    that still gives every SM a tile (the update's batch), else 1 (the
     rollout's and an evaluation's); the column groups (`fwd_groups`: their
     entry offsets) are cut into chunks of `per_block` =
     PRODUCT_FWD_GROUPS groups, a block per (tile, chunk), so that at the
@@ -162,8 +165,8 @@ def product_fwd_plan(n_rows, m1, m2, fwd_groups, num_sms) -> dict:
     PRODUCT_FWD_MAX_WARPS); the block's shared bytes: the chunk's entries
     (at most `ent_cap`), a and b of the tile."""
     n_groups = len(fwd_groups) - 1
-    rows = next((r for r in PRODUCT_ROWS[:-1]
-                 if -(-n_rows // r) >= num_sms), 1)
+    rows = next(r for r in PRODUCT_FWD_ROWS
+                if r == 1 or -(-n_rows // r) >= num_sms)
     per_block = min(n_groups, PRODUCT_FWD_GROUPS)
     chunks = -(-n_groups // per_block)
     ent_cap = max(fwd_groups[min(n_groups, (c + 1) * per_block)] -
@@ -206,7 +209,7 @@ def product_bwd_plan(n_rows, m1, m2, k, n_groups, n_ent, n_line_words,
     def smem_of(rows):
         return product_bwd_smem(rows, m1, m2, k, n_groups, n_ent,
                                 n_line_words)
-    fits = [r for r in PRODUCT_ROWS
+    fits = [r for r in PRODUCT_BWD_ROWS
             if r == 1 or (-(-n_rows // r) >= num_sms
                           and smem_of(r) <= PRODUCT_BWD_SMEM_TARGET)]
     table_bytes = 8 * n_ent + 4 * n_line_words

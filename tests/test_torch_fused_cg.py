@@ -12,6 +12,9 @@ test_so3_ops.py), gradients 3e-4 relative and absolute (the JAX test's);
 PyTorch against PyTorch 1e-5 relative, 2e-5 absolute (float32, another
 summation order); the numpy walks 1e-5 of the largest |value| (float32,
 another summation order)."""
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -254,6 +257,30 @@ def test_plans_fill_the_card_and_fit(n1, n2, maxl):
         assert _plans(table3, tabs, n_rows)[1]['rows'] == 1
 
 
+def test_forward_plan_takes_only_compiled_tiles():
+    """The forward kernel is compiled for tiles of 4 and 1 rows: the plan
+    takes 4 exactly where that still gives every SM a tile, else 1."""
+    table3, _sl = tcg._fused_cg_table(5, 5, 4)
+    groups = tuple(int(x) for x in fused_cg.product_tables(table3)['fwd_ptr'])
+    for n_rows in range(1, 1200):
+        rows = fused_cg.product_fwd_plan(n_rows, 25, 25, groups, SMS)['rows']
+        assert rows == (4 if -(-n_rows // 4) >= SMS else 1), n_rows
+
+
+def test_kernels_lay_out_slots_as_the_plans_size_them():
+    """csrc/cg_product_common.cuh's slot_stride, which both kernels lay out
+    their shared memory by, gives the strides fused_cg.slot_stride sizes
+    that memory by, at every tile the kernels are compiled for."""
+    src = (Path(fused_cg.__file__).resolve().parents[1] / 'csrc' /
+           'cg_product_common.cuh').read_text()
+    body = re.search(r'constexpr int slot_stride\(\) \{\s*return ([^;]+);',
+                     src).group(1)
+    cond, then, other = re.fullmatch(r'(.+) \? (.+) : (.+)', body).groups()
+    for rows in sorted(set(fused_cg.PRODUCT_FWD_ROWS + fused_cg.PRODUCT_BWD_ROWS)):
+        stride = eval(f'({then}) if ({cond}) else ({other})', {'R': rows})
+        assert stride == fused_cg.slot_stride(rows), rows
+
+
 def _walk_forward(a, b, tabs, plan):
     """The forward kernel's loops in numpy (complex64): a block per (tile,
     chunk of groups), a and b of the tile slot-major (rows past a short tile
@@ -372,7 +399,7 @@ def _assert_close(mine, plain):
 
 
 @pytest.mark.parametrize('n_rows', PATH_ROWS)
-@pytest.mark.parametrize('n1,n2,maxl', PATH_CONFIGS)
+@pytest.mark.parametrize('n1,n2,maxl', CONFIGS)
 def test_forward_kernel_walk_matches_plain(n1, n2, maxl, n_rows):
     parts, _grads, table3 = _path_case(n1, n2, maxl, n_rows)
     tabs = fused_cg.product_tables(table3)
@@ -385,7 +412,7 @@ def test_forward_kernel_walk_matches_plain(n1, n2, maxl, n_rows):
 
 
 @pytest.mark.parametrize('n_rows', PATH_ROWS)
-@pytest.mark.parametrize('n1,n2,maxl', PATH_CONFIGS)
+@pytest.mark.parametrize('n1,n2,maxl', CONFIGS)
 def test_backward_kernel_walk_matches_plain(n1, n2, maxl, n_rows):
     parts, grads, table3 = _path_case(n1, n2, maxl, n_rows)
     tabs = fused_cg.product_tables(table3)

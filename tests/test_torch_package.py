@@ -57,6 +57,20 @@ def test_kernel_sources_are_in_the_package():
         assert 'extern "C"' in src.read_text()
 
 
+def test_an_edited_header_builds_anew(tmp_path, monkeypatch):
+    """A library's name covers the headers of csrc/ as well as its source,
+    so that an edit to a shared header is not served a stale build."""
+    from molgym_tpu_torch import cuda_build
+    (tmp_path / 'k.cu').write_text('#include "h.cuh"\n')
+    (tmp_path / 'h.cuh').write_text('// one\n')
+    monkeypatch.setattr(cuda_build, 'CSRC', tmp_path)
+    before = cuda_build.library_path('k')
+    (tmp_path / 'h.cuh').write_text('// two\n')
+    assert cuda_build.library_path('k') != before
+    (tmp_path / 'h.cuh').write_text('// one\n')
+    assert cuda_build.library_path('k') == before
+
+
 def test_new_entry_points_are_scanned():
     names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
     for module in ('rl/ppo.py', 'rl/buffer.py', 'ops/scan_math.py',
