@@ -7,7 +7,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
   2. build the port's CUDA kernels from molgym_tpu_torch/csrc, all nvcc
      processes at once;
   3. hold each kernel against its plain PyTorch version on the card at the
-     shapes of both main paths, forward and backward, and time the kernel,
+     shapes of both main paths, forward and backward (each backward also
+     against a second run of itself: the same bits), and time the kernel,
      the plain version and one library call computing the same function (a
      yardstick the port never calls):
        - fused CG aggregate at SF6 levels 0 and 1-2, B = 140 and B = 9, and
@@ -28,6 +29,15 @@ Phases, each of which fails the run (non-zero exit) if it fails:
        - the masked softmax of the focus and element heads at [140,7],
          [140,3], [140,10], [140,4], [8192,128] and [33,200], some rows
          fully masked (library: torch.softmax of the masked_fill-ed logits);
+       - the bf16 versions of the aggregate, the square and their
+         backwards at the SF6 and stochastic shapes, B = 140 (the forwards
+         also at 10 and 1), each within one bf16 ulp of its plain version
+         on the same bf16 operands (library: the complex64 einsum on the
+         upcast operands, torch having no bf16 complex type);
+     Bounds count operands and outputs at their size (2 bytes in bf16),
+     the operations at the f32 rate the kernels compute at, and a
+     contraction's table as the function needs it (8 bytes a nonzero, the
+     group offsets, the square's pairs), the same for f32 and bf16;
   4. the main path: a 140-env x 14-step rollout of the SF6 covariant agent
      (bench.py's configuration, random weights from a seed) with the
      Lennard-Jones reward, through make_rollout_fn; the kernels' launch
@@ -52,7 +62,16 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      x 14-step rollout with finite outputs, every bag of 4-8 atoms with even
      total valence, more than one distinct bag, exact launch counts and the
      agent on the card against itself on the CPU; then 2 PPO iterations
-     through molgym_tpu_torch.run_stochastic with the checks of phase 7.
+     through molgym_tpu_torch.run_stochastic with the checks of phase 7;
+  9. the third path, SF6 with the bf16 encoder (--encoder_dtype=bfloat16,
+     experiments/sf6_bf16): bench.py's loss with every gradient on the card
+     within 0.03 of that leaf's max |g| on the CPU, none missing, its
+     median ms, device ms and launches per fwd+bwd; the bf16 agent against
+     the f32 agent on the card (values within 0.15, the same greedy focus
+     and element wherever the f32 agent's choice is not a tie); 2 PPO
+     iterations through molgym_tpu_torch.run with the checks of phase 7,
+     the encoder's launches all on the bf16 counters and none on the f32
+     ones.
 
 The line before the last two is {"kernels": [...]}, then the card's name and
 power limit, and the last line is {"ok": true, "device": {...}}.
@@ -74,6 +93,10 @@ NUM_ENVS = 140
 NUM_STEPS = 14
 KERNEL_TOL = 1e-4   # f32, another summation order: relative to max |ref|
 MODEL_TOL = 1e-3    # logp / v of the whole agent, card vs CPU
+# the bf16 encoder: each gradient within 0.03 of its leaf's max |g|, card vs
+# CPU (bf16 rounds at other places in cuBLAS and in the CPU's matmuls)
+BF16_MODEL_TOL = 0.03
+BF16 = torch.bfloat16
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_F32_FLOP_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 SF6_AGENT = dict(zs=(0, 9, 16), canvas_size=7, network_width=128, maxl=4,
@@ -91,9 +114,43 @@ def log(*args):
 
 
 def max_err(outs, refs):
-    abs_err = max(float((o - r).abs().max()) for o, r in zip(outs, refs))
-    scale = max(float(r.abs().max()) for r in refs)
+    abs_err = max(float((o.float() - r.float()).abs().max())
+                  for o, r in zip(outs, refs))
+    scale = max(float(r.float().abs().max()) for r in refs)
     return abs_err, abs_err / max(scale, 1e-30)
+
+
+def check_close(what, outs, refs):
+    """A kernel's outputs against its plain version's on the same operands:
+    f32 within KERNEL_TOL of max |ref|; bf16 (both round their f32 sums
+    once, so another summation order moves a rounding by one ulp at most)
+    within one bf16 ulp everywhere, |k - p| <= 2^-7 |p| + 1e-5 max |p|.
+    Returns the errors; raises if they are too large."""
+    abs_err, rel_err = max_err(outs, refs)
+    res = dict(max_abs_err=abs_err, max_rel_err=rel_err)
+    if outs[0].dtype == torch.float32:
+        if not rel_err <= KERNEL_TOL:
+            raise AssertionError(f'{what}: rel err {rel_err}')
+        return res
+    scale = max(float(r.float().abs().max()) for r in refs)
+    share = max(float(((o.float() - r.float()).abs() /
+                       (2.0 ** -7 * r.float().abs() + 1e-5 * scale)).max())
+                for o, r in zip(outs, refs))
+    if not (outs[0].dtype == BF16 and share <= 1.0):
+        raise AssertionError(f'{what}: {share} of one bf16 ulp')
+    return dict(res, max_ulp_share=share)
+
+
+def table_bytes(nnz, *index_arrays):
+    """A contraction's table as the function needs it: 8 bytes a nonzero
+    (its index and f32 coefficient) and the index arrays named (the group
+    offsets; the square's (m, n) of each pair it reads), not the padding of
+    the kernels' warp-padded entries. The same for f32 and bf16 operands."""
+    return 8 * nnz + nbytes(*index_arrays)
+
+
+def _tag(dtype):
+    return ' bf16' if dtype == BF16 else ''
 
 
 def bound_ms(n_bytes, n_flops):
@@ -106,15 +163,17 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def check_aggregate(dev, B, atom_n_ells, maxl=4, N=7, tau=10):
+def check_aggregate(dev, B, atom_n_ells, maxl=4, N=7, tau=10,
+                    dtype=torch.float32):
     from molgym_tpu_torch.ops import cg, fused_agg
     n_ells = maxl + 1
     m1, m2 = n_ells ** 2, atom_n_ells ** 2
     gen = torch.Generator(device=dev).manual_seed(SEED + B + atom_n_ells + N)
-    sph = torch.randn((B, N, N, m1, 2), generator=gen, device=dev)
-    rad = torch.randn((B, N, N, tau, n_ells), generator=gen, device=dev)
-    q_r = torch.randn((B, N, tau, m2), generator=gen, device=dev)
-    q_i = torch.randn((B, N, tau, m2), generator=gen, device=dev)
+    sph = torch.randn((B, N, N, m1, 2), generator=gen, device=dev).to(dtype)
+    rad = torch.randn((B, N, N, tau, n_ells), generator=gen,
+                      device=dev).to(dtype)
+    q_r = torch.randn((B, N, tau, m2), generator=gen, device=dev).to(dtype)
+    q_i = torch.randn((B, N, tau, m2), generator=gen, device=dev).to(dtype)
     table3, _sl = cg._fused_cg_table(n_ells, atom_n_ells, maxl)
     g = cg.fused_cg_table_grouped(n_ells, atom_n_ells, maxl)
     grouped = None if g is None else (g[0], g[1])
@@ -123,12 +182,10 @@ def check_aggregate(dev, B, atom_n_ells, maxl=4, N=7, tau=10):
     out = fused_agg.cg_aggregate_edge_fused_ri(*args, grouped=grouped)
     torch.cuda.synchronize()
     ref = fused_agg.cg_aggregate_edge_fused_ri_plain(*args, grouped=grouped)
-    abs_err, rel_err = max_err(out, ref)
-    if not rel_err <= KERNEL_TOL:
-        raise AssertionError(f'aggregate B={B} M2={m2}: rel err {rel_err}')
+    what = f'aggregate B={B} M2={m2}{_tag(dtype)}'
     res = dict(shape=f'B={B} N={N} tau={tau} M1={m1} M2={m2} K={out[0].shape[-1]}'
-               f' {"grouped" if grouped else "dense"}',
-               max_abs_err=abs_err, max_rel_err=rel_err)
+               f' {"grouped" if grouped else "dense"}{_tag(dtype)}',
+               **check_close(what, out, ref))
     if B != 140:
         return res
     res['ms'] = time_ms(lambda: fused_agg.cg_aggregate_edge_fused_ri(
@@ -138,55 +195,53 @@ def check_aggregate(dev, B, atom_n_ells, maxl=4, N=7, tau=10):
     for small in (10, 1):
         few = tuple(x[:small].contiguous() for x in args[:4]) + (table3, )
         got = fused_agg.cg_aggregate_edge_fused_ri(*few, grouped=grouped)
-        _abs, rel = max_err(got, [r[:small] for r in ref])
-        if not rel <= KERNEL_TOL:
-            raise AssertionError(f'aggregate B={small} M2={m2}: rel err {rel}')
+        check_close(f'{what} at B={small}', got, [r[:small] for r in ref])
         res[f'ms_b{small}'] = time_ms(
             lambda: fused_agg.cg_aggregate_edge_fused_ri(*few, grouped=grouped))
     res['resources'] = fused_agg.aggregate_kernel_resources(
         B, N, tau, n_ells, m2, table3, grouped, dev)
     res['plain_ms'] = time_ms(lambda: fused_agg.cg_aggregate_edge_fused_ri_plain(
         *args, grouped=grouped))
-    # library yardstick: the contraction as ONE complex einsum against the
-    # dense table (edge rep built outside the timed call, K left unpermuted)
-    e = (rad[..., fused_agg._l_of_m(n_ells, dev)][..., None] *
-         sph[:, :, :, None, :, :])
+    # library yardstick: the contraction as ONE complex64 einsum against the
+    # dense table (edge rep built outside the timed call, K left unpermuted;
+    # torch has no bf16 complex type, so bf16 operands are upcast)
+    e = (rad.float()[..., fused_agg._l_of_m(n_ells, dev)][..., None] *
+         sph.float()[:, :, :, None, :, :])
     e_c = torch.complex(e[..., 0], e[..., 1]).contiguous()
-    q_c = torch.complex(q_r, q_i)
+    q_c = torch.complex(q_r.float(), q_i.float())
     c_c = torch.from_numpy(table3).to(dev).to(torch.complex64)
     res['library_ms'] = time_ms(
         lambda: torch.einsum('bijtm,bjtn,mnk->bitk', e_c, q_c, c_c))
     tabs = fused_agg._kernel_tables('aggregate', table3, grouped, None, dev)
-    nnz = tabs['nnz']                                # without the padding
+    nnz = tabs['nnz']
     n_flops = (B * N * N * tau * m1 * 2 +            # e = rad * Y
                B * N * tau * m1 * m2 * N * 8 +       # z, complex MAC
                B * N * tau * nnz * 4)                # sparse contraction
+    # operands and outputs at their size (2 bytes in bf16), f32 operations
     res['bound_ms'], res['bound_by'] = bound_ms(
-        nbytes(sph, rad, q_r, q_i, *out, tabs['fwd_ptr'], tabs['fwd_ent']),
+        nbytes(sph, rad, q_r, q_i, *out) + table_bytes(nnz, tabs['fwd_ptr']),
         n_flops)
     return res
 
 
-def check_square(dev, tau, maxl=4, N=7):
+def check_square(dev, tau, maxl=4, N=7, dtype=torch.float32):
     from molgym_tpu_torch.ops import cg, fused_agg
     B = 140
     n_ells = maxl + 1
     m = n_ells ** 2
     gen = torch.Generator(device=dev).manual_seed(SEED + tau + N)
-    a_r = torch.randn((B, N, tau, m), generator=gen, device=dev)
-    a_i = torch.randn((B, N, tau, m), generator=gen, device=dev)
+    a_r = torch.randn((B, N, tau, m), generator=gen, device=dev).to(dtype)
+    a_i = torch.randn((B, N, tau, m), generator=gen, device=dev).to(dtype)
     table3, _sl = cg._fused_cg_table(n_ells, n_ells, maxl)
     pairs, groups, perm, _si = cg.fused_cg_table_tri(n_ells, maxl)
     tri = (pairs, groups)
     out = fused_agg.cg_square_fused_ri(a_r, a_i, table3, tri=tri)
     torch.cuda.synchronize()
     ref = fused_agg.cg_square_fused_ri_plain(a_r, a_i, table3, tri=tri)
-    abs_err, rel_err = max_err(out, ref)
-    if not rel_err <= KERNEL_TOL:
-        raise AssertionError(f'square tau={tau}: rel err {rel_err}')
+    what = f'square tau={tau} M={m}{_tag(dtype)}'
     res = dict(shape=f'B={B} N={N} tau={tau} M={m} P={len(pairs)} '
-               f'K={out[0].shape[-1]} tri', max_abs_err=abs_err,
-               max_rel_err=rel_err)
+               f'K={out[0].shape[-1]} tri{_tag(dtype)}',
+               **check_close(what, out, ref))
     res['ms'] = time_ms(lambda: fused_agg.cg_square_fused_ri(a_r, a_i, table3,
                                                               tri=tri))
     # the same kernel at the rollout's batch (--num_envs=10) and at an
@@ -194,9 +249,7 @@ def check_square(dev, tau, maxl=4, N=7):
     for small in (10, 1):
         few = (a_r[:small].contiguous(), a_i[:small].contiguous())
         got = fused_agg.cg_square_fused_ri(*few, table3, tri=tri)
-        _abs, rel = max_err(got, [r[:small] for r in ref])
-        if not rel <= KERNEL_TOL:
-            raise AssertionError(f'square B={small} tau={tau}: rel err {rel}')
+        check_close(f'{what} at B={small}', got, [r[:small] for r in ref])
         res[f'ms_b{small}'] = time_ms(
             lambda: fused_agg.cg_square_fused_ri(*few, table3, tri=tri))
     res['resources'] = {
@@ -205,7 +258,7 @@ def check_square(dev, tau, maxl=4, N=7):
         for b in (140, 10, 1)}
     res['plain_ms'] = time_ms(lambda: fused_agg.cg_square_fused_ri_plain(
         a_r, a_i, table3, tri=tri))
-    a_c = torch.complex(a_r, a_i)
+    a_c = torch.complex(a_r.float(), a_i.float())     # complex64, upcast
     c_c = torch.from_numpy(table3).to(dev).to(torch.complex64)
     res['library_ms'] = time_ms(
         lambda: torch.einsum('...m,...n,mnk->...k', a_c, a_c, c_c))
@@ -214,8 +267,8 @@ def check_square(dev, tau, maxl=4, N=7):
     # the pairs some column reads, 6 operations each, and 4 for each nonzero
     n_flops = rows * (tabs['slot_mn'].numel() * 6 + tabs['nnz'] * 4)
     res['bound_ms'], res['bound_by'] = bound_ms(
-        nbytes(a_r, a_i, *out, tabs['slot_mn'], tabs['fwd_ptr'],
-               tabs['fwd_seq'], tabs['fwd_ent']), n_flops)
+        nbytes(a_r, a_i, *out) + table_bytes(tabs['nnz'], tabs['fwd_ptr'],
+                                             tabs['slot_mn']), n_flops)
     return res
 
 
@@ -234,8 +287,15 @@ def _library_grad_ms(fn, leaves, grads):
                    stream=side)
 
 
-def check_aggregate_bwd(dev, B, atom_n_ells, maxl=4, N=7, tau=10):
-    """The aggregate's backward kernel against its plain backward."""
+def check_same_bits(what, got, again):
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise AssertionError(f'{what}: a second run gave other bits')
+
+
+def check_aggregate_bwd(dev, B, atom_n_ells, maxl=4, N=7, tau=10,
+                        dtype=torch.float32):
+    """The aggregate's backward kernel against its plain backward, and
+    against a second run of itself."""
     from molgym_tpu_torch.ops import cg, fused_agg
     n_ells = maxl + 1
     m1, m2 = n_ells ** 2, atom_n_ells ** 2
@@ -243,7 +303,7 @@ def check_aggregate_bwd(dev, B, atom_n_ells, maxl=4, N=7, tau=10):
                                                   + N)
 
     def randn(*shape):
-        return torch.randn(shape, generator=gen, device=dev)
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
     sph, rad = randn(B, N, N, m1, 2), randn(B, N, N, tau, n_ells)
     q_r, q_i = randn(B, N, tau, m2), randn(B, N, tau, m2)
     table3, _sl = cg._fused_cg_table(n_ells, atom_n_ells, maxl)
@@ -255,31 +315,33 @@ def check_aggregate_bwd(dev, B, atom_n_ells, maxl=4, N=7, tau=10):
     args = (sph, rad, q_r, q_i, g_r, g_i, table3, grouped)
 
     out = fused_agg._aggregate_bwd_kernel(*args)
+    again = fused_agg._aggregate_bwd_kernel(*args)
     torch.cuda.synchronize()
     ref = fused_agg.cg_aggregate_edge_fused_ri_bwd_plain(*args)
-    abs_err, rel_err = max_err(out, ref)
-    if not rel_err <= KERNEL_TOL:
-        raise AssertionError(f'aggregate bwd B={B} M2={m2}: rel err {rel_err}')
+    what = f'aggregate bwd B={B} M2={m2}{_tag(dtype)}'
     res = dict(shape=f'B={B} N={N} tau={tau} M1={m1} M2={m2} K={k}'
-               f' {"grouped" if grouped else "dense"}',
-               max_abs_err=abs_err, max_rel_err=rel_err)
+               f' {"grouped" if grouped else "dense"}{_tag(dtype)}',
+               **check_close(what, out, ref))
+    check_same_bits(what, out, again)
+    res['same_bits'] = True
     if B != 140:
         return res
     res['ms'] = time_ms(lambda: fused_agg._aggregate_bwd_kernel(*args))
     res['plain_ms'] = time_ms(
         lambda: fused_agg.cg_aggregate_edge_fused_ri_bwd_plain(*args))
-    # library yardstick: autograd of the forward's complex einsum
-    e = (rad[..., fused_agg._l_of_m(n_ells, dev)][..., None] *
-         sph[:, :, :, None, :, :])
+    # library yardstick: autograd of the forward's complex64 einsum (bf16
+    # operands upcast)
+    e = (rad.float()[..., fused_agg._l_of_m(n_ells, dev)][..., None] *
+         sph.float()[:, :, :, None, :, :])
     e_c = torch.complex(e[..., 0], e[..., 1]).contiguous().requires_grad_()
-    q_c = torch.complex(q_r, q_i).requires_grad_()
+    q_c = torch.complex(q_r.float(), q_i.float()).requires_grad_()
     c_c = torch.from_numpy(table3).to(dev).to(torch.complex64)
     def library():
         return _library_grad_ms(
             lambda a, b: torch.einsum('bijtm,bjtn,mnk->bitk', a, b, c_c),
-            (e_c, q_c), torch.complex(g_r, g_i))
+            (e_c, q_c), torch.complex(g_r.float(), g_i.float()))
     res['library_ms'] = library()
-    if m2 == 1 and N == 10:
+    if m2 == 1 and N == 10 and dtype == torch.float32:
         # the one shape at which the first version of this kernel lost to
         # its library call: three readings of each, in turns
         mine, theirs = [res['ms']], [res['library_ms']]
@@ -293,20 +355,20 @@ def check_aggregate_bwd(dev, B, atom_n_ells, maxl=4, N=7, tau=10):
                 f'FINDING: aggregate bwd, dense level-0 table, N=10: the '
                 f'kernel ({mine} ms) is slower than its library call '
                 f'({theirs} ms) by more than the spread of three readings')
-    nnz = tabs['nnz']                                  # without the padding
+    nnz = tabs['nnz']
     n_flops = (B * N * tau * nnz * 4 +                 # dz, sparse rows
                B * N * N * tau * m1 * 2 +              # e = rad * Y
                B * N * N * tau * m1 * m2 * 8 * 2 +     # de and dq, complex MAC
                B * N * N * tau * m1 * 4)               # Re(de conj(Y))
     res['bound_ms'], res['bound_by'] = bound_ms(
-        nbytes(sph, rad, q_r, q_i, g_r, g_i, *out, tabs['bwd_ptr'],
-               tabs['bwd_row'], tabs['bwd_ent']), n_flops)
+        nbytes(sph, rad, q_r, q_i, g_r, g_i, *out) +
+        table_bytes(nnz, tabs['bwd_ptr']), n_flops)
     return res
 
 
-def check_square_bwd(dev, tau, maxl=4, N=7):
+def check_square_bwd(dev, tau, maxl=4, N=7, dtype=torch.float32):
     """The square's backward kernel against its plain backward (tri pairs,
-    the main path's table mode)."""
+    the main path's table mode), and against a second run of itself."""
     from molgym_tpu_torch.ops import cg, fused_agg
     B = 140
     n_ells = maxl + 1
@@ -317,34 +379,35 @@ def check_square_bwd(dev, tau, maxl=4, N=7):
     tri = (pairs, groups)
     tabs = fused_agg._kernel_tables('square', table3, None, tri, dev)
     k = tabs['k']
-    a_r, a_i = (torch.randn((B, N, tau, m), generator=gen, device=dev)
+    a_r, a_i = (torch.randn((B, N, tau, m), generator=gen, device=dev).to(dtype)
                 for _ in range(2))
-    g_r, g_i = (torch.randn((B, N, tau, k), generator=gen, device=dev)
+    g_r, g_i = (torch.randn((B, N, tau, k), generator=gen, device=dev).to(dtype)
                 for _ in range(2))
     args = (a_r, a_i, g_r, g_i, table3, None, tri)
     out = fused_agg._square_bwd_kernel(*args)
+    again = fused_agg._square_bwd_kernel(*args)
     torch.cuda.synchronize()
     ref = fused_agg.cg_square_fused_ri_bwd_plain(*args)
-    abs_err, rel_err = max_err(out, ref)
-    if not rel_err <= KERNEL_TOL:
-        raise AssertionError(f'square bwd tau={tau}: rel err {rel_err}')
-    res = dict(shape=f'B={B} N={N} tau={tau} M={m} P={len(pairs)} K={k} tri',
-               max_abs_err=abs_err, max_rel_err=rel_err)
+    what = f'square bwd tau={tau} M={m}{_tag(dtype)}'
+    res = dict(shape=f'B={B} N={N} tau={tau} M={m} P={len(pairs)} K={k} '
+               f'tri{_tag(dtype)}', **check_close(what, out, ref))
+    check_same_bits(what, out, again)
+    res['same_bits'] = True
     res['ms'] = time_ms(lambda: fused_agg._square_bwd_kernel(*args))
     res['plain_ms'] = time_ms(lambda: fused_agg.cg_square_fused_ri_bwd_plain(
         *args))
-    a_c = torch.complex(a_r, a_i).requires_grad_()
+    a_c = torch.complex(a_r.float(), a_i.float()).requires_grad_()
     c_c = torch.from_numpy(table3).to(dev).to(torch.complex64)
     res['library_ms'] = _library_grad_ms(
         lambda a: torch.einsum('...m,...n,mnk->...k', a, a, c_c), (a_c, ),
-        torch.complex(g_r, g_i))
+        torch.complex(g_r.float(), g_i.float()))
     rows = B * N * tau
     # 4 operations for each nonzero, 8 for each of the two terms of every
     # pair with entries
     n_flops = rows * (tabs['nnz'] * 4 + 2 * tabs['n_live'] * 8)
     res['bound_ms'], res['bound_by'] = bound_ms(
-        nbytes(a_r, a_i, g_r, g_i, *out, tabs['bwd_ptr'], tabs['bwd_ent'],
-               tabs['inc']), n_flops)
+        nbytes(a_r, a_i, g_r, g_i, *out) +
+        table_bytes(tabs['nnz'], tabs['bwd_ptr'], tabs['slot_mn']), n_flops)
     return res
 
 
@@ -493,17 +556,21 @@ def _bench_batch(seed, agent_kwargs, batch=140):
     return elements, positions, bag
 
 
-def check_agent_grads(dev, agent_kwargs):
+def check_agent_grads(dev, agent_kwargs, encoder_dtype=None):
     """bench.py's loss on a minibatch of 140 at the width of `agent_kwargs`:
     every gradient on the card (through the kernels) against the same
-    agent's on the CPU (plain versions), then the time of one fwd+bwd and,
-    under torch.profiler, its launches and the device's idle share."""
+    agent's on the CPU (plain versions), within MODEL_TOL of the leaf's max
+    |g| (BF16_MODEL_TOL with the bf16 encoder), then the time of one
+    fwd+bwd and, under torch.profiler, its launches and the device's idle
+    share."""
     from torch.profiler import ProfilerActivity, profile
 
     from molgym_tpu_torch.agents.covariant import CovariantAC
     from molgym_tpu_torch.profile_rollout import device_us
     from molgym_tpu_torch.spaces import Observation
 
+    tol = MODEL_TOL if encoder_dtype is None else BF16_MODEL_TOL
+    agent_kwargs = dict(agent_kwargs, encoder_dtype=encoder_dtype)
     torch.manual_seed(SEED)
     agents = {'cuda': CovariantAC(**agent_kwargs, device=dev)}
     agents['cpu'] = CovariantAC(**agent_kwargs, device='cpu')
@@ -538,7 +605,7 @@ def check_agent_grads(dev, agent_kwargs):
         scale = max(float(g.abs().max()), floor)
         ratio = float((grads['cuda'][k].cpu() - g).abs().max()) / scale
         worst = max(worst, ratio)
-        if not ratio <= MODEL_TOL:
+        if not ratio <= tol:
             raise AssertionError(f'gradient of {k}: card vs CPU differ by '
                                  f'{ratio} of the leaf\'s max |g|')
 
@@ -585,12 +652,58 @@ def check_agent_grads(dev, agent_kwargs):
                 optimizer_step_ms_median=float(np.median(step_times)))
 
 
+def compare_bf16_to_f32(dev, agent_kwargs):
+    """The same parameters in an agent with the bf16 encoder and in one
+    with the f32 encoder, both on the card, on bench.py's minibatch of 140:
+    greedy values within 0.15 (and 0.15 relative), and the same greedy
+    focus and element wherever the f32 agent's choice is decided, its top
+    two probabilities further apart than twice the largest difference of
+    any probability between the two agents (exact ties among the random
+    canvases' equivalent atoms go either way); the JAX package's gates for
+    this comparison (tests/covariant/test_covariant_agent.py)."""
+    from molgym_tpu_torch.agents.covariant import CovariantAC
+    from molgym_tpu_torch.spaces import Observation
+
+    torch.manual_seed(SEED)
+    f32 = CovariantAC(**agent_kwargs, device=dev)
+    bf16 = CovariantAC(**agent_kwargs, encoder_dtype='bfloat16', device=dev)
+    bf16.load_state_dict(f32.state_dict())
+    obs = Observation(*(torch.from_numpy(x).to(dev)
+                        for x in _bench_batch(SEED, agent_kwargs)))
+    with torch.no_grad():
+        out32, d32 = f32.act_with_dists(
+            obs, torch.Generator(device=dev).manual_seed(SEED), True)
+        out16, d16 = bf16.act_with_dists(
+            obs, torch.Generator(device=dev).manual_seed(SEED), True)
+    if out16.v.dtype != torch.float32:
+        raise AssertionError(f'bf16 agent: values of {out16.v.dtype}')
+    dv = (out16.v - out32.v).abs()
+    if not (dv <= 0.15 + 0.15 * out32.v.abs()).all():
+        raise AssertionError(f'bf16 vs f32 agent: |d v| up to {float(dv.max())}')
+    res = dict(max_abs_dv=float(dv.max()))
+    for col, key in ((0, 'focus_probs'), (1, 'element_probs')):
+        p32, p16 = d32[key], d16[key]
+        top2 = p32.topk(2, dim=-1).values
+        decided = top2[:, 0] - top2[:, 1] > 2 * float((p16 - p32).abs().max())
+        differ = out16.action_flat[:, col] != out32.action_flat[:, col]
+        if (differ & decided).any():
+            raise AssertionError(f'bf16 vs f32 agent: {key} differs on '
+                                 f'{int((differ & decided).sum())} decided rows')
+        res[key] = dict(max_abs_dp=float((p16 - p32).abs().max()),
+                        decided=int(decided.sum()), differ_at_ties=int(differ.sum()))
+    return res
+
+
 CANONICAL = ['--name=sf6', '--formulas=SF6', '--canvas_size=7',
              '--symbols=X,S,F', '--bag_scale=5', '--model=covariant',
              '--beta=-10', '--min_mean_distance=1.10',
              '--max_mean_distance=2.10', '--num_envs=10',
              '--num_steps_per_iter=140', '--mini_batch_size=140',
              '--reward=device_lj', '--num_steps=420', '--log_level=WARNING']
+# the canonical run with the bf16 encoder (experiments/sf6_bf16), cut to 2
+# iterations
+CANONICAL_BF16 = [a for a in CANONICAL if not a.startswith('--num_steps=')] + [
+    '--num_steps=280', '--encoder_dtype=bfloat16']
 # experiments/stochastic/logs/stoch_run-1.json, cut to 2 iterations
 STOCHASTIC = ['--name=stoch', '--formulas=C2H6O', '--size_range=4,9',
               '--canvas_size=10', '--symbols=X,H,C,O', '--bag_scale=6',
@@ -602,18 +715,22 @@ STOCHASTIC = ['--name=stoch', '--formulas=C2H6O', '--size_range=4,9',
               '--log_level=WARNING']
 
 
-def expected_launches(levels, forwards, passes):
-    """The launch counts a run implies. A policy forward launches one
-    aggregate and one square per CG level and, on the heads, two CG products
-    (the mixer) and two masked softmaxes (focus, element); a gradient pass
-    is one forward and as many backward launches."""
-    per_forward = {'cg_aggregate_edge_fused_ri': levels,
-                   'cg_square_fused_ri': levels, 'cg_contract_ri': 2,
-                   'masked_softmax': 2}
-    out = {}
-    for name, n in per_forward.items():
-        out[name] = n * (forwards + passes)
-        out[name + '_bwd'] = n * passes
+def expected_launches(levels, forwards, passes, encoder_dtype='float32'):
+    """The launch counts a run implies, of every counter. A policy forward
+    launches one aggregate and one square per CG level (their bf16 versions
+    with the bf16 encoder, and then no f32 one) and, on the heads, two CG
+    products (the mixer) and two masked softmaxes (focus, element), in f32
+    either way; a gradient pass is one forward and as many backward
+    launches."""
+    from molgym_tpu_torch.ops.kernel_common import launch_counts
+    encoder = '_bf16' if encoder_dtype == 'bfloat16' else ''
+    per_forward = {('cg_aggregate_edge_fused_ri', encoder): levels,
+                   ('cg_square_fused_ri', encoder): levels,
+                   ('cg_contract_ri', ''): 2, ('masked_softmax', ''): 2}
+    out = dict.fromkeys(launch_counts, 0)
+    for (name, suffix), n in per_forward.items():
+        out[name + suffix] = n * (forwards + passes)
+        out[name + '_bwd' + suffix] = n * passes
     return out
 
 
@@ -689,7 +806,8 @@ def run_training(dev, entry, build_parser, argv, iterations):
     passes = sum(r['num_grad_passes'] for r in opt)
     forwards = (len(train) * (NUM_STEPS + 1)
                 + len(evals) * (config['canvas_size'] + 2))
-    expected = expected_launches(agent.encoder.num_cg_levels, forwards, passes)
+    expected = expected_launches(agent.encoder.num_cg_levels, forwards, passes,
+                                 config['encoder_dtype'])
     if counts != expected:
         raise AssertionError(f'launches {counts}, expected {expected}')
     return dict(seconds=seconds, counts=counts, grad_passes=passes,
@@ -865,6 +983,21 @@ def main() -> int:
     for tau in (10, 16):
         sq[('stoch', tau)] = check_square(dev, tau, **stoch)
         sq_bwd[('stoch', tau)] = check_square_bwd(dev, tau, **stoch)
+    # the bf16 versions of the same four kernels at the same shapes, B = 140
+    # (the forwards also at 10 and 1), within one bf16 ulp of their plain
+    # versions on the same bf16 operands
+    agg16, agg_bwd16, sq16, sq_bwd16 = {}, {}, {}, {}
+    for cfg, levels, taus in (('sf6', (1, 5), (10, 12)),
+                              ('stoch', (1, 4), (10, 16))):
+        shape = stoch if cfg == 'stoch' else {}
+        for n in levels:
+            agg16[(cfg, n)] = check_aggregate(dev, 140, n, dtype=BF16, **shape)
+            agg_bwd16[(cfg, n)] = check_aggregate_bwd(dev, 140, n, dtype=BF16,
+                                                      **shape)
+        for tau in taus:
+            sq16[(cfg, tau)] = check_square(dev, tau, dtype=BF16, **shape)
+            sq_bwd16[(cfg, tau)] = check_square_bwd(dev, tau, dtype=BF16,
+                                                    **shape)
     # the mixer's two products at SF6 (140 envs x 4 channels, then 10 envs
     # and one), at the stochastic configuration (M = 16), and 111 rows
     contract = {case: check_contract(dev, *case) for case in (
@@ -874,7 +1007,9 @@ def main() -> int:
     softmax = {case: check_softmax(dev, *case) for case in (
         (140, 7), (140, 3), (140, 10), (140, 4), (8192, 128), (33, 200))}
     for k, v in (list(agg.items()) + list(sq.items()) +
-                 list(agg_bwd.items()) + list(sq_bwd.items())):
+                 list(agg_bwd.items()) + list(sq_bwd.items()) +
+                 list(agg16.items()) + list(sq16.items()) +
+                 list(agg_bwd16.items()) + list(sq_bwd16.items())):
         log('parity', k, json.dumps(v))
     for k, v in agg.items():
         if 'resources' in v:
@@ -912,9 +1047,25 @@ def main() -> int:
                                   iterations=2)
     log('stochastic training:', json.dumps(stoch_training))
 
-    def entry(name, source, replaces, main, others, **extra):
+    # the third path: the SF6 run with the bf16 encoder
+    bf16_grads = check_agent_grads(dev, SF6_AGENT, encoder_dtype='bfloat16')
+    log('bf16 agent gradients:', json.dumps(bf16_grads))
+    log(f'fwd+bwd of the SF6 agent, bf16 encoder, minibatch 140: '
+        f'{bf16_grads["fwd_bwd_ms_median"]:.3f} ms (median of 20), '
+        f'{bf16_grads["device_busy_ms"]:.3f} ms of device time, '
+        f'{bf16_grads["launches_per_fwd_bwd"]} launches on {card}')
+    bf16_vs_f32 = compare_bf16_to_f32(dev, SF6_AGENT)
+    log('bf16 vs f32 agent:', json.dumps(bf16_vs_f32))
+    bf16_training = run_training(dev, run, build_default_argparser,
+                                 CANONICAL_BF16, iterations=2)
+    log('bf16 training:', json.dumps(bf16_training))
+
+    def entry(name, source, replaces, main, others, path=training, **extra):
+        """A kernel's line: `launches` from the run of its main path (the
+        SF6 training for the f32 kernels, the bf16 SF6 training for the
+        bf16 ones), the other paths' counts beside it."""
         return dict(name=name, route='cuda', source=source, replaces=replaces,
-                    launches=training['counts'][name],
+                    launches=path['counts'][name],
                     max_abs_err=max(r['max_abs_err'] for r in others),
                     ms=main['ms'], plain_ms=main['plain_ms'],
                     bound_ms=main['bound_ms'], bound_by=main['bound_by'],
@@ -923,7 +1074,15 @@ def main() -> int:
                     rollout_launches=main_path['counts'][name],
                     stochastic_rollout_launches=stoch_rollout['counts'][name],
                     stochastic_training_launches=stoch_training['counts'][name],
+                    bf16_training_launches=bf16_training['counts'][name],
                     **extra)
+
+    def entry16(name, source, replaces, main, others, **extra):
+        return entry(name + '_bf16', source, replaces, main, others,
+                     path=bf16_training, dtype='bfloat16',
+                     library='complex64 einsum on the upcast operands',
+                     max_ulp_share=max(r['max_ulp_share'] for r in others),
+                     **extra)
 
     csrc = 'molgym_tpu_torch/csrc/'
     pallas = 'molgym_tpu/ops/'
@@ -962,6 +1121,27 @@ def main() -> int:
         entry('masked_softmax_bwd', csrc + 'masked_softmax.cu',
               pallas + 'pallas_softmax.py:29', softmax_main[1],
               [b for _f, b in softmax.values()]),
+        entry16('cg_aggregate_edge_fused_ri', csrc + 'cg_aggregate.cu',
+                pallas + 'pallas_agg.py:334', agg16[('sf6', 5)],
+                [r for (_c, n), r in agg16.items() if n != 1],
+                ms_b10=agg16[('sf6', 5)]['ms_b10'],
+                ms_b1=agg16[('sf6', 5)]['ms_b1']),
+        entry16('cg_aggregate_edge_fused_ri', csrc + 'cg_aggregate.cu',
+                pallas + 'pallas_agg.py:91', agg16[('sf6', 1)],
+                [r for (_c, n), r in agg16.items() if n == 1],
+                counter_shared_with=pallas + 'pallas_agg.py:334',
+                ms_b10=agg16[('sf6', 1)]['ms_b10'],
+                ms_b1=agg16[('sf6', 1)]['ms_b1']),
+        entry16('cg_square_fused_ri', csrc + 'cg_square.cu',
+                pallas + 'pallas_agg.py:91', sq16[('sf6', 10)],
+                list(sq16.values()), ms_b10=sq16[('sf6', 10)]['ms_b10'],
+                ms_b1=sq16[('sf6', 10)]['ms_b1']),
+        entry16('cg_aggregate_edge_fused_ri_bwd', csrc + 'cg_aggregate_bwd.cu',
+                pallas + 'pallas_agg.py:392', agg_bwd16[('sf6', 5)],
+                list(agg_bwd16.values())),
+        entry16('cg_square_fused_ri_bwd', csrc + 'cg_square_bwd.cu',
+                pallas + 'pallas_agg.py:132', sq_bwd16[('sf6', 10)],
+                list(sq_bwd16.values())),
     ]
 
     def by_shape(results):
@@ -981,7 +1161,17 @@ def main() -> int:
                       'agent_grads': agent_grads, 'training': training,
                       'stochastic_rollout': stoch_rollout,
                       'stochastic_agent_grads': stoch_grads,
-                      'stochastic_training': stoch_training}))
+                      'stochastic_training': stoch_training,
+                      'bf16_kernels': {
+                          'aggregate': {str(k): v for k, v in agg16.items()},
+                          'aggregate_bwd': {str(k): v
+                                            for k, v in agg_bwd16.items()},
+                          'square': {str(k): v for k, v in sq16.items()},
+                          'square_bwd': {str(k): v
+                                         for k, v in sq_bwd16.items()}},
+                      'bf16_agent_grads': bf16_grads,
+                      'bf16_vs_f32': bf16_vs_f32,
+                      'bf16_training': bf16_training}))
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

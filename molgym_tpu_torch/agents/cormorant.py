@@ -10,14 +10,22 @@ the levels; the encoder returns per-l [B, N, tau, 2l+1, 2] covariants.
 Parameter names mirror the Flax modules (`encoder.cg_level_0.ag_mix.
 w_r_l0_s0`, `encoder.radial_0.rad_l0.weight`, ...) so that convert.py maps a
 Flax tree by renaming.
+
+`compute_dtype='bfloat16'` runs the encoder's CG stack in bf16, as the JAX
+package's `compute_dtype` does: the parameters stay float32 and are cast per
+call, the radial basis, its gate and the spherical harmonics are computed in
+float32 first, the aggregate and square kernels take and return bf16, the
+mixes' matrix products take bf16 and sum in f32, and the encoder's output is
+cast back to float32 for the heads.
 """
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from molgym_tpu_torch.ops.cg import (_fused_cg_table, cg_product_packed_ri,
                                      fused_cg_table_grouped,
@@ -32,6 +40,18 @@ SO3Vec = List[torch.Tensor]
 CHARGE_POWER = 2     # input features: one-hot(z) x (z / charge_scale)^p
 N_BASIS = 16         # Gaussian radial basis functions
 SOFT_WIDTH = 0.2     # width of the soft radial cutoff
+
+
+def _as_dtype(name: Optional[str]) -> torch.dtype:
+    """A compute dtype name ('bfloat16', 'float32', None) as a torch dtype;
+    None means float32."""
+    return torch.float32 if name is None else getattr(torch, name)
+
+
+def _linear(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype):
+    """`layer` applied in `dtype`: input, weight and bias cast per call (the
+    parameters stay float32), as a Flax Dense with `dtype` computes."""
+    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
 
 
 def _embed_index(slices, maxl: int):
@@ -63,7 +83,9 @@ class PackedCatMix(nn.Module):
     The weights are [pairs, tau_s, tau_out] per (l, source), as in the Flax
     module; per source they are scattered into one block-structured
     [K_s, tau_s, tau_out, 2M] weight and the whole packed rep is contracted
-    in one product over (tau, K) (the JAX 'dense' implementation).
+    in one product over (tau, K) (the JAX 'dense' implementation), in the
+    sources' dtype: the weights are cast to it, as the JAX module casts them
+    to the operands'.
     Output: M-form (out_r, out_i) [..., tau_out, M]."""
 
     def __init__(self, maxl: int, tau_out: int,
@@ -110,8 +132,8 @@ class PackedCatMix(nn.Module):
             ks, qs, cs = (getattr(self, f'_k_s{s}'), getattr(self, f'_q_s{s}'),
                           getattr(self, f'_c_s{s}'))
             bw = xr.new_zeros((k_total, 2 * m_total, tau, self.tau_out))
-            bw[ks, qs] = self._weight_cat(s, 'r')[cs]
-            bw[ks, m_total + qs] = self._weight_cat(s, 'i')[cs]
+            bw[ks, qs] = self._weight_cat(s, 'r')[cs].to(xr.dtype)
+            bw[ks, m_total + qs] = self._weight_cat(s, 'i')[cs].to(xr.dtype)
             # [..., tau, K] x [K, 2M, tau, s] over (tau, K) -> [..., 2M, s]
             y_r = torch.einsum('...tk,kqts->...sq', xr, bw)
             y_i = torch.einsum('...tk,kqts->...sq', xi, bw)
@@ -124,14 +146,17 @@ class PackedCatMix(nn.Module):
 
 class RadialFiltersStacked(nn.Module):
     """Gaussian RBF basis -> per-l Linear(tau), gated by a soft cutoff; the
-    per-l outputs stacked on a trailing axis [B, N, N, tau, maxl+1]."""
+    per-l outputs stacked on a trailing axis [B, N, N, tau, maxl+1]. Basis
+    and gate in float32 (distances need the precision), the Linear layers
+    and the output in `compute_dtype`."""
 
     def __init__(self, maxl: int, tau: int, hard_cut: float = 2.1,
-                 soft_cut: float = 2.1):
+                 soft_cut: float = 2.1, compute_dtype: Optional[str] = None):
         super().__init__()
         self.maxl = maxl
         self.hard_cut = hard_cut
         self.soft_cut = soft_cut
+        self.dtype = _as_dtype(compute_dtype)
         for l in range(maxl + 1):
             self.add_module(f'rad_l{l}', nn.Linear(N_BASIS, tau))
 
@@ -144,8 +169,9 @@ class RadialFiltersStacked(nn.Module):
         soft = torch.sigmoid((self.soft_cut - norms) / SOFT_WIDTH)
         gate = (edge_mask.to(norms.dtype) * soft *
                 (norms < self.hard_cut).to(norms.dtype))
-        feats = [getattr(self, f'rad_l{l}')(rbf) for l in range(self.maxl + 1)]
-        return torch.stack(feats, dim=-1) * gate[..., None, None]
+        feats = [_linear(getattr(self, f'rad_l{l}'), rbf, self.dtype)
+                 for l in range(self.maxl + 1)]
+        return torch.stack(feats, dim=-1) * gate[..., None, None].to(self.dtype)
 
 
 class CGLevelPacked(nn.Module):
@@ -188,13 +214,25 @@ class CGLevelPacked(nn.Module):
 
 
 class CormorantEncoder(nn.Module):
-    """Canvas -> per-atom SO3Vec covariants, entry l [B, N, tau_out, 2l+1, 2]."""
+    """Canvas -> per-atom SO3Vec covariants, entry l [B, N, tau_out, 2l+1, 2]
+    (float32), the CG stack computed in `compute_dtype`."""
 
     def __init__(self, num_zs: int, maxl: int = 4, num_cg_levels: int = 3,
                  num_channels_hidden: int = 10, num_channels_out: int = 8,
                  charge_scale: float = 9.0, bag_scale: float = 5.0,
-                 hard_cut: float = 2.1, soft_cut: float = 2.1):
+                 hard_cut: float = 2.1, soft_cut: float = 2.1,
+                 compute_dtype: Optional[str] = None):
         super().__init__()
+        self.dtype = _as_dtype(compute_dtype)
+        if self.dtype == torch.bfloat16:
+            # bf16 matrix products reduce in f32, as the JAX package's bf16
+            # dots accumulate in f32. PyTorch's default lets cuBLAS add
+            # split-K partial sums in bf16, which put a gradient of the SF6
+            # agent on the card 0.035 of its leaf's max |g| from the CPU's,
+            # against 0.0039 without (chip_smoke.py's comparison). The
+            # setting is the process's; it only makes bf16 GEMMs more
+            # precise.
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
         self.num_zs = num_zs
         self.maxl = maxl
         self.charge_scale = charge_scale
@@ -206,7 +244,8 @@ class CormorantEncoder(nn.Module):
         tau_in, atom_n_ells = num_channels_hidden, 1
         for level, tau_out in enumerate(channels):
             self.add_module(f'radial_{level}', RadialFiltersStacked(
-                maxl=maxl, tau=tau_in, hard_cut=hard_cut, soft_cut=soft_cut))
+                maxl=maxl, tau=tau_in, hard_cut=hard_cut, soft_cut=soft_cut,
+                compute_dtype=compute_dtype))
             self.add_module(f'cg_level_{level}', CGLevelPacked(
                 maxl=maxl, tau_in=tau_in, tau_out=tau_out,
                 atom_n_ells=atom_n_ells))
@@ -229,18 +268,20 @@ class CormorantEncoder(nn.Module):
             B, N, bag.shape[-1])
         scalars = torch.cat([charge_feats, bag_tiled], dim=-1)
 
-        x0 = self.input_linear(scalars)
+        x0 = _linear(self.input_linear, scalars, self.dtype)
         atom_r = (x0 * atom_mask[..., None].to(x0.dtype))[..., None].contiguous()
         atom_i = torch.zeros_like(atom_r)
 
+        # in float32, packed once for all levels, then cast
         sph, norms = spherical_harmonics_rel(self.maxl, positions, positions,
                                              conj=True)
-        sph_packed = pack_so3(sph)
+        sph_packed = pack_so3(sph).to(self.dtype)
         for level in range(self.num_cg_levels):
             rad = getattr(self, f'radial_{level}')(norms, edge_mask)
             atom_r, atom_i = getattr(self, f'cg_level_{level}')(
                 atom_r, atom_i, sph_packed, rad, atom_mask)
-        return unpack_so3(torch.stack([atom_r, atom_i], dim=-1), self.maxl + 1)
+        return unpack_so3(torch.stack([atom_r, atom_i], dim=-1).float(),
+                          self.maxl + 1)
 
 
 class CormorantMixer(nn.Module):

@@ -39,7 +39,9 @@ NUM_SUBACTIONS = 6
 
 class CovariantAC(nn.Module):
     """Parameters mirror the Flax CovariantAC; its LayerNorms use Flax's
-    eps = 1e-6. Built on `device` (cuda unless the caller names another)."""
+    eps = 1e-6. Built on `device` (cuda unless the caller names another).
+    `encoder_dtype='bfloat16'` runs the encoder's CG stack in bf16 (the
+    parameters and the heads stay float32), as the Flax agent's does."""
 
     def __init__(self, zs: Tuple[int, ...], canvas_size: int,
                  network_width: int = 128, maxl: int = 4,
@@ -47,7 +49,9 @@ class CovariantAC(nn.Module):
                  num_channels_per_element: int = 4, num_gaussians: int = 3,
                  bag_scale: int = 5,
                  min_max_distance: Tuple[float, float] = (0.9, 1.8),
-                 beta: Optional[float] = None, device: DeviceLike = None):
+                 beta: Optional[float] = None,
+                 encoder_dtype: Optional[str] = None,
+                 device: DeviceLike = None):
         super().__init__()
         device = resolve_device(device)
         self.zs = tuple(zs)
@@ -64,7 +68,8 @@ class CovariantAC(nn.Module):
             num_channels_out=num_channels_out,
             charge_scale=float(max(zs)), bag_scale=float(bag_scale),
             hard_cut=min(min_max_distance[1], 2.1),
-            soft_cut=min(min_max_distance[1], 2.1))
+            soft_cut=min(min_max_distance[1], 2.1),
+            compute_dtype=encoder_dtype)
         self.cg_mix = CormorantMixer(maxl=maxl, tau=num_channels_per_element,
                                      tau_out=num_channels_per_element,
                                      n_other=1, n_atom=maxl + 1)

@@ -1,5 +1,5 @@
-// Fused edge build + neighbourhood CG aggregate for Hopper (sm_90a), f32
-// accumulation.
+// Fused edge build + neighbourhood CG aggregate for Hopper (sm_90a), f32 or
+// bf16 operands, f32 accumulation.
 //
 //   out[b,i,t,k] = sum_{(m,n)} C[(m,n),k] * z[b,i,t,m,n]
 //   z[b,i,t,m,n] = sum_j rad[b,i,j,t,l(m)] * Y[b,i,j,m] * q[b,j,t,n]
@@ -17,7 +17,9 @@
 // contraction, about 6 us at the 67 TFLOP/s f32 rate outside the tensor
 // cores. Bound by bytes, mostly the write of out, with operations close
 // behind; f32 operands, because TF32 or bf16 products would not hold the
-// 1e-4 parity with the plain version, so no tensor cores.
+// 1e-4 parity with the plain version, so no tensor cores. With bf16 operands
+// and outputs the bytes halve (about 5 us) and the same f32 operations, about
+// 6 us, bound it.
 //
 // What held the first version back (one block of 256 threads per (b, i),
 // 78 KB of shared memory, z built with four shared loads per four FMAs, the
@@ -49,8 +51,12 @@
 //    nothing a warp did not already pay: it waited for its longest column
 //    before.
 //
-// `In` is the operand type of Y, rad and q: the arithmetic is f32 whatever
-// it is, so a second operand type is a second instantiation.
+// `In` is the operand type of Y, rad, q and out, f32 or bf16 (operand.cuh):
+// e and q are converted to f32 as they are staged, so the shared-memory
+// layout (ops/fused_agg.py:aggregate_fwd_smem) and every sum are the same
+// for both, and each output is rounded once. The bf16 version stages value
+// by value (2-byte loads, aligned at any offset) and stores one value at a
+// time; its outputs are half the bytes of the f32 version's.
 //
 // Measured on an NVIDIA H100 80GB HBM3 (700 W), CUDA-graph replay
 // (molgym_tpu_torch/bench_encoder.py): SF6 levels 1-2 0.054 ms at B = 140
@@ -66,24 +72,22 @@
 #include <map>
 #include <mutex>
 
+#include "operand.cuh"
+
 namespace {
+
+using operand::cp_async_16;
+using operand::cp_async_wait_all;
+using operand::from_f32;
+using operand::to_f32;
 
 constexpr int kWarp = 32;
 
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) / 16 * 16; }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
 template <typename In>
 __device__ __forceinline__ float2 load_pair(const In* p) {
-  return make_float2((float)p[0], (float)p[1]);
+  return make_float2(to_f32(p[0]), to_f32(p[1]));
 }
 template <>
 __device__ __forceinline__ float2 load_pair<float>(const float* p) {
@@ -98,8 +102,8 @@ __global__ void __launch_bounds__(256) cg_aggregate_edge_kernel(
     const In* __restrict__ q_i,        // [B, N, T, M2]
     const int* __restrict__ grp_ptr,   // [G + 1] entry offset of each group
     const int2* __restrict__ ent,      // [n_ent] (pair m * M2 + n, coef bits)
-    float* __restrict__ out_r,         // [B, N, T, K]
-    float* __restrict__ out_i,         // [B, N, T, K]
+    In* __restrict__ out_r,            // [B, N, T, K]
+    In* __restrict__ out_i,            // [B, N, T, K]
     int n_work, int n_tiles, int N, int T, int TT, int L, int M1, int M2,
     int K, int G, int n_ent) {
   extern __shared__ float4 smem4[];
@@ -123,7 +127,7 @@ __global__ void __launch_bounds__(256) cg_aggregate_edge_kernel(
   // once per block: the table (asynchronously) and the group offsets; the
   // barrier after the first tile's staging covers both
   for (int idx = tid; idx < n_ent / 2; idx += blockDim.x)
-    cp_async16(s_ent + 2 * idx, ent + 2 * idx);
+    cp_async_16(s_ent + 2 * idx, ent + 2 * idx);
   for (int idx = tid; idx <= G; idx += blockDim.x) s_ptr[idx] = grp_ptr[idx];
 
   const int S = M2 / NS;               // strips per m
@@ -152,7 +156,7 @@ __global__ void __launch_bounds__(256) cg_aggregate_edge_kernel(
       float2* dst = s_e + j * TT * M1 + m;
 #pragma unroll 2
       for (int tt = 0; tt < tn; ++tt) {
-        const float rr = (float)r[tt * L];
+        const float rr = to_f32(r[tt * L]);
         dst[tt * M1] = make_float2(rr * yy.x, rr * yy.y);
       }
     }
@@ -164,8 +168,8 @@ __global__ void __launch_bounds__(256) cg_aggregate_edge_kernel(
       float2* dst = s_q + j * TT * M2 + (p - j * M2);
 #pragma unroll 2
       for (int tt = 0; tt < tn; ++tt)
-        dst[tt * M2] = make_float2((float)qr_b[src + tt * M2],
-                                   (float)qi_b[src + tt * M2]);
+        dst[tt * M2] = make_float2(to_f32(qr_b[src + tt * M2]),
+                                   to_f32(qi_b[src + tt * M2]));
     }
     cp_async_wait_all();               // the table, on the first tile
     __syncthreads();
@@ -238,11 +242,11 @@ __global__ void __launch_bounds__(256) cg_aggregate_edge_kernel(
       const int k = g * kWarp + lane;
       if (k < K) {
         const size_t dst = ((size_t)bi * T + t0 + tt) * K + k;
-        out_r[dst] = a0r;
-        out_i[dst] = a0i;
+        out_r[dst] = from_f32<In>(a0r);
+        out_i[dst] = from_f32<In>(a0i);
         if (two) {
-          out_r[dst + K] = a1r;
-          out_i[dst + K] = a1i;
+          out_r[dst + K] = from_f32<In>(a1r);
+          out_i[dst + K] = from_f32<In>(a1i);
         }
       }
     }
@@ -252,30 +256,33 @@ __global__ void __launch_bounds__(256) cg_aggregate_edge_kernel(
   cp_async_wait_all();                 // a block that got no tile
 }
 
-typedef void (*Kernel)(const float*, const float*, const float*, const float*,
-                       const int*, const int2*, float*, float*, int, int, int,
-                       int, int, int, int, int, int, int, int);
+template <typename In>
+using Kernel = void (*)(const In*, const In*, const In*, const In*, const int*,
+                        const int2*, In*, In*, int, int, int, int, int, int,
+                        int, int, int, int, int);
 
-Kernel kernel_for(int ns) {
+template <typename In>
+Kernel<In> kernel_for(int ns) {
   switch (ns) {
-    case 1: return cg_aggregate_edge_kernel<float, 1>;
-    case 3: return cg_aggregate_edge_kernel<float, 3>;
-    case 4: return cg_aggregate_edge_kernel<float, 4>;
-    case 5: return cg_aggregate_edge_kernel<float, 5>;
+    case 1: return cg_aggregate_edge_kernel<In, 1>;
+    case 3: return cg_aggregate_edge_kernel<In, 3>;
+    case 4: return cg_aggregate_edge_kernel<In, 4>;
+    case 5: return cg_aggregate_edge_kernel<In, 5>;
     default: return nullptr;
   }
 }
 
-// Resident blocks per SM of the instantiation for strips of `ns` on the
-// current device; -1 for a strip the kernel is not compiled for or a refused
-// configuration. The runtime is asked once per (device, ns, threads, smem),
-// and the kernel's limit of dynamic shared memory is only ever raised: a
-// launch costs the host one look into the map.
+// Resident blocks per SM of the instantiation for operands `In` and strips
+// of `ns` on the current device; -1 for a strip the kernel is not compiled
+// for or a refused configuration. The runtime is asked once per (device, ns,
+// threads, smem) and operand type, and the kernel's limit of dynamic shared
+// memory is only ever raised: a launch costs the host one look into the map.
+template <typename In>
 int blocks_per_sm(int ns, int threads, int smem) {
   static std::mutex mutex;
   static std::map<std::array<int, 4>, int> known;
   static std::map<std::array<int, 2>, int> limit;
-  Kernel kernel = kernel_for(ns);
+  Kernel<In> kernel = kernel_for<In>(ns);
   if (kernel == nullptr) return -1;
   int dev = 0;
   cudaGetDevice(&dev);
@@ -308,26 +315,16 @@ int num_sms() {
   return n;
 }
 
-}  // namespace
-
-extern "C" int cg_aggregate_blocks_per_sm(int ns, int threads, int smem) {
-  return blocks_per_sm(ns, threads, smem);
-}
-
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
-// `ns` must divide M2; the table has `n_ent` entries, a multiple of 32; `smem`
-// is the block's shared memory, summed on the host over the arrays the kernel
-// lays out (ops/fused_agg.py:aggregate_fwd_smem).
-extern "C" int cg_aggregate_edge_fused_f32(
-    const float* sph, const float* rad, const float* q_r, const float* q_i,
-    const int* grp_ptr, const int* ent, float* out_r, float* out_i,
-    int B, int N, int T, int L, int M1, int M2, int K, int G, int n_ent,
-    int TT, int ns, int threads, int smem, void* stream) {
-  Kernel kernel = kernel_for(ns);
+template <typename In>
+int launch(const In* sph, const In* rad, const In* q_r, const In* q_i,
+           const int* grp_ptr, const int* ent, In* out_r, In* out_i, int B,
+           int N, int T, int L, int M1, int M2, int K, int G, int n_ent, int TT,
+           int ns, int threads, int smem, void* stream) {
+  Kernel<In> kernel = kernel_for<In>(ns);
   if (kernel == nullptr || M2 % ns != 0 || TT < 1 || n_ent % kWarp != 0 ||
       threads % kWarp != 0 || threads > 256 || smem < 0)
     return (int)cudaErrorInvalidValue;
-  const int per_sm = blocks_per_sm(ns, threads, smem);
+  const int per_sm = blocks_per_sm<In>(ns, threads, smem);
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   const int n_tiles = (T + TT - 1) / TT;
   const long long n_work = (long long)B * N * n_tiles;
@@ -339,4 +336,34 @@ extern "C" int cg_aggregate_edge_fused_f32(
         out_i, (int)n_work, n_tiles, N, T, TT, L, M1, M2, K, G, n_ent);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int cg_aggregate_blocks_per_sm(int ns, int threads, int smem) {
+  return blocks_per_sm<float>(ns, threads, smem);
+}
+
+// Launch on `stream` and return cudaGetLastError() (0 on success). `ns` must
+// divide M2; the table has `n_ent` entries, a multiple of 32; `smem` is the
+// block's shared memory, summed on the host over the arrays the kernel lays
+// out (ops/fused_agg.py:aggregate_fwd_smem). Operands and outputs are f32, or
+// all bf16.
+extern "C" int cg_aggregate_edge_fused_f32(
+    const float* sph, const float* rad, const float* q_r, const float* q_i,
+    const int* grp_ptr, const int* ent, float* out_r, float* out_i,
+    int B, int N, int T, int L, int M1, int M2, int K, int G, int n_ent,
+    int TT, int ns, int threads, int smem, void* stream) {
+  return launch(sph, rad, q_r, q_i, grp_ptr, ent, out_r, out_i, B, N, T, L,
+                M1, M2, K, G, n_ent, TT, ns, threads, smem, stream);
+}
+
+extern "C" int cg_aggregate_edge_fused_bf16(
+    const __nv_bfloat16* sph, const __nv_bfloat16* rad,
+    const __nv_bfloat16* q_r, const __nv_bfloat16* q_i, const int* grp_ptr,
+    const int* ent, __nv_bfloat16* out_r, __nv_bfloat16* out_i, int B, int N,
+    int T, int L, int M1, int M2, int K, int G, int n_ent, int TT, int ns,
+    int threads, int smem, void* stream) {
+  return launch(sph, rad, q_r, q_i, grp_ptr, ent, out_r, out_i, B, N, T, L,
+                M1, M2, K, G, n_ent, TT, ns, threads, smem, stream);
 }

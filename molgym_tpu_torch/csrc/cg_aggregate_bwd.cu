@@ -1,5 +1,6 @@
 // Backward (vector-Jacobian product) of the fused edge build + CG aggregate
-// of cg_aggregate.cu for Hopper (sm_90a), f32 accumulation. Given the output
+// of cg_aggregate.cu for Hopper (sm_90a), f32 or bf16 operands, f32
+// accumulation. Given the output
 // gradients g[b,i,t,k] (real and imaginary parts separate):
 //
 //   dz[b,i,t,(m,n)] = sum_k C[(m,n),k] g[b,i,t,k]
@@ -61,9 +62,16 @@
 //    (b, t) block (20 bytes at a stride of T * L floats): 1.4 MB in all,
 //    and the stores leave the block without waiting.
 //
-// Operands are f32. They reach shared memory as raw bytes (cp.async) and
-// every sum is f32, so a second operand type changes the width of the
-// copies and the type read from the buffers, and nothing of the arithmetic.
+// Operands, cotangents and outputs are f32, or all bf16 (operand.cuh). f32
+// operands reach shared memory as raw bytes (cp.async, 16 bytes from the line
+// that holds a row's first value); bf16 ones are converted to f32 value by
+// value as they are staged (2-byte loads, aligned at any offset: a bf16 row of
+// g or Y may start on any even byte) and lie at the start of their buffers.
+// So the shared-memory layout (ops/fused_agg.py:aggregate_bwd_smem), the plan
+// and every sum, in the same fixed order, are the same for both, and each
+// output is rounded once. The bf16 staging is a plain load: it does not
+// overlap the work of the rows before as cp.async does. With bf16 the bytes
+// halve (about 5.5 us at SF6) and the operations bound the kernel.
 //
 // Measured on an NVIDIA H100 80GB HBM3 (700 W), CUDA-graph replay, B = 140
 // (molgym_tpu_torch/bench_encoder.py): SF6 levels 1-2 0.140 ms (first
@@ -83,7 +91,17 @@
 #include <map>
 #include <mutex>
 
+#include "operand.cuh"
+
 namespace {
+
+using operand::cp_async_16;
+using operand::cp_async_wait_all;
+using operand::from_f32;
+using operand::lead_floats;
+using operand::stage_row;
+using operand::stage_value;
+using operand::to_f32;
 
 constexpr int kWarp = 32;
 constexpr unsigned kFull = 0xffffffffu;
@@ -92,42 +110,23 @@ constexpr int kMinBlocks = 6;       // per SM: caps a thread at 56 registers
 
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) / 16 * 16; }
 
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  if (BYTES == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src),
-                 "n"(BYTES));
-}
-
-// floats between the 16-byte line that holds *p and p
-__device__ __forceinline__ int lead_floats(const float* p) {
-  return (int)((reinterpret_cast<size_t>(p) & 15) >> 2);
-}
-
 // floats a shared row of k values takes with the slack of its 16-byte copy
 __host__ __device__ inline int padded_row(int k) { return ((k + 3) / 4 + 1) * 4; }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-template <int NS, int MS>
+template <typename In, int NS, int MS>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) cg_aggregate_bwd_kernel(
-    const float* __restrict__ sph,     // [B, N, N, M1, 2]
-    const float* __restrict__ rad,     // [B, N, N, T, L]
-    const float* __restrict__ q_r,     // [B, N, T, M2]
-    const float* __restrict__ q_i,     // [B, N, T, M2]
-    const float* __restrict__ g_r,     // [B, N, T, K]
-    const float* __restrict__ g_i,     // [B, N, T, K]
+    const In* __restrict__ sph,        // [B, N, N, M1, 2]
+    const In* __restrict__ rad,        // [B, N, N, T, L]
+    const In* __restrict__ q_r,        // [B, N, T, M2]
+    const In* __restrict__ q_i,        // [B, N, T, M2]
+    const In* __restrict__ g_r,        // [B, N, T, K]
+    const In* __restrict__ g_i,        // [B, N, T, K]
     const int* __restrict__ grp_ptr,   // [G + 1] entry offset of each group
     const int* __restrict__ row_of,    // [32 G] (m << 16 | n) of each slot, or -1
     const int2* __restrict__ ent,      // [n_ent] (column k, coef bits)
-    float* __restrict__ drad,          // [B, N, N, T, L]
-    float* __restrict__ dq_r,          // [B, N, T, M2]
-    float* __restrict__ dq_i,          // [B, N, T, M2]
+    In* __restrict__ drad,             // [B, N, N, T, L]
+    In* __restrict__ dq_r,             // [B, N, T, M2]
+    In* __restrict__ dq_i,             // [B, N, T, M2]
     int n_work, int N, int T, int L, int M1, int M2, int K, int G, int n_ent,
     int NI, int M2P, int MC, int m_chunk, int NC, int n_chunk) {
   extern __shared__ float4 smem4[];
@@ -170,7 +169,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) cg_aggregate_bwd_kernel(
   // once per block: the table (asynchronously), offsets, rows, l of m; the
   // first barrier of the first (b, t) covers them
   for (int idx = tid; idx < n_ent / 2; idx += blockDim.x)
-    cp_async<16>(s_ent + 2 * idx, ent + 2 * idx);
+    cp_async_16(s_ent + 2 * idx, ent + 2 * idx);
   for (int idx = tid; idx <= G; idx += blockDim.x) s_ptr[idx] = grp_ptr[idx];
   for (int idx = tid; idx < kWarp * G; idx += blockDim.x) s_row[idx] = row_of[idx];
   for (int m = tid; m < M1; m += blockDim.x) {
@@ -202,35 +201,25 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) cg_aggregate_bwd_kernel(
     const int b = work / T;
     const int t = work - b * T;
 
-    // asynchronous copies of what rows i0 .. i0 + ni need: g[b, i, t, :],
-    // Y[b, i, :, :] and rad[b, i, :, t, :]
+    // copies of what rows i0 .. i0 + ni need (asynchronous for f32):
+    // g[b, i, t, :], Y[b, i, :, :] and rad[b, i, :, t, :]
     auto prefetch = [&](int i0, int ni, int buf) {
       const size_t bi0 = (size_t)b * N + i0;
-      // 16-byte copies: a row of g starts at any multiple of 4 bytes, so the
-      // copy starts at the 16-byte line that holds its first value (at most
-      // 3 floats early, `lead`) and the row lies at sg + lead. The first and
-      // last lines may reach up to 12 bytes outside the tensor, inside a
-      // line that holds valid values, so inside its allocation.
+      // a row of g starts at any multiple of the operand's size and lies at
+      // sg + lead_floats of its address (at most 3 floats of slack)
       float* sg = s_g + buf * (g_buf / sizeof(float));
       for (int ii = 0; ii < ni; ++ii) {
-        const float* gr = g_r + ((bi0 + ii) * T + t) * K;
-        const float* gi = g_i + ((bi0 + ii) * T + t) * K;
-        const int lead_r = lead_floats(gr), lead_i = lead_floats(gi);
-        for (int c = tid; 4 * c < lead_r + K; c += blockDim.x)
-          cp_async<16>(sg + ii * 2 * KP + 4 * c, gr - lead_r + 4 * c);
-        for (int c = tid; 4 * c < lead_i + K; c += blockDim.x)
-          cp_async<16>(sg + ii * 2 * KP + KP + 4 * c, gi - lead_i + 4 * c);
+        stage_row(sg + ii * 2 * KP, g_r + ((bi0 + ii) * T + t) * K, K);
+        stage_row(sg + ii * 2 * KP + KP, g_i + ((bi0 + ii) * T + t) * K, K);
       }
-      // Y of the step's rows is one run of float2, 8-byte aligned
-      const float* y = sph + bi0 * NM * 2;
-      const int lead_y = lead_floats(y);           // 0 or 2 floats
-      float* sy = reinterpret_cast<float*>(s_y + buf * (y_buf / sizeof(float2)));
-      for (int c = tid; 4 * c < lead_y + 2 * ni * NM; c += blockDim.x)
-        cp_async<16>(sy + 4 * c, y - lead_y + 4 * c);
+      // Y of the step's rows is one run of pairs (f32: 8-byte aligned, at
+      // most 2 floats of slack)
+      stage_row(reinterpret_cast<float*>(s_y + buf * (y_buf / sizeof(float2))),
+                sph + bi0 * NM * 2, 2 * ni * NM);
       float* sr = s_rad + buf * (r_buf / sizeof(float));
       for (int row = tid; row < ni * N; row += blockDim.x) {  // (i - i0) * N + j
-        const float* src = rad + ((bi0 * N + row) * T + t) * L;
-        for (int l = 0; l < L; ++l) cp_async<4>(sr + row * L + l, src + l);
+        const In* src = rad + ((bi0 * N + row) * T + t) * L;
+        for (int l = 0; l < L; ++l) stage_value(sr + row * L + l, src + l);
       }
     };
     // drad[b, i0 + ii, j, t, l] for the ni rows whose radial terms are in
@@ -242,7 +231,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) cg_aggregate_bwd_kernel(
         const float* term = s_term + row * M1;
         float s = 0.f;
         for (int m = l * l; m < (l + 1) * (l + 1); ++m) s += term[m];
-        drad[((((size_t)b * N + i0) * N + row) * T + t) * L + l] = s;
+        drad[((((size_t)b * N + i0) * N + row) * T + t) * L + l] = from_f32<In>(s);
       }
     };
 
@@ -252,7 +241,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) cg_aggregate_bwd_kernel(
     for (int idx = tid; idx < N * M2; idx += blockDim.x) {
       const int j = idx / M2;
       const size_t src = (((size_t)b * N + j) * T + t) * M2 + (idx - j * M2);
-      s_q[idx] = make_float2(q_r[src], q_i[src]);
+      s_q[idx] = make_float2(to_f32(q_r[src]), to_f32(q_i[src]));
     }
 
     float acc_r[NS], acc_i[NS];        // this thread's share of dq
@@ -381,36 +370,61 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) cg_aggregate_bwd_kernel(
       const size_t dst = (((size_t)b * N + qj) * T + t) * M2 + qs;
 #pragma unroll
       for (int x = 0; x < NS; ++x) {
-        dq_r[dst + x * SQ] = acc_r[x];
-        dq_i[dst + x * SQ] = acc_i[x];
+        dq_r[dst + x * SQ] = from_f32<In>(acc_r[x]);
+        dq_i[dst + x * SQ] = from_f32<In>(acc_i[x]);
       }
     }
   }
   cp_async_wait_all();                 // a block that got no (b, t)
 }
 
-typedef void (*Kernel)(const float*, const float*, const float*, const float*,
-                       const float*, const float*, const int*, const int*,
-                       const int2*, float*, float*, float*, int, int, int, int,
-                       int, int, int, int, int, int, int, int, int, int, int);
+template <typename In>
+using Kernel = void (*)(const In*, const In*, const In*, const In*, const In*,
+                        const In*, const int*, const int*, const int2*, In*, In*,
+                        In*, int, int, int, int, int, int, int, int, int, int,
+                        int, int, int, int, int);
 
 template <int NS>
-Kernel kernel_for_ms(int ms) {
+Kernel<float> kernel_for_ms(int ms) {
   switch (ms) {
-    case 1: return cg_aggregate_bwd_kernel<NS, 1>;
-    case 3: return cg_aggregate_bwd_kernel<NS, 3>;
-    case 4: return cg_aggregate_bwd_kernel<NS, 4>;
-    case 5: return cg_aggregate_bwd_kernel<NS, 5>;
+    case 1: return cg_aggregate_bwd_kernel<float, NS, 1>;
+    case 3: return cg_aggregate_bwd_kernel<float, NS, 3>;
+    case 4: return cg_aggregate_bwd_kernel<float, NS, 4>;
+    case 5: return cg_aggregate_bwd_kernel<float, NS, 5>;
     default: return nullptr;
   }
 }
 
-Kernel kernel_for(int ns, int ms) {
+// f32: every pair of strips the host's strip_of can give
+template <typename In>
+Kernel<In> kernel_for(int ns, int ms);
+template <>
+Kernel<float> kernel_for<float>(int ns, int ms) {
   switch (ns) {
     case 1: return kernel_for_ms<1>(ms);
     case 3: return kernel_for_ms<3>(ms);
     case 4: return kernel_for_ms<4>(ms);
     case 5: return kernel_for_ms<5>(ms);
+    default: return nullptr;
+  }
+}
+
+// bf16: only the pairs the encoder gives, whose atom rep is one l (level 0,
+// ns = 1) or as wide as the harmonics (ns = ms); the build's slowest file
+// takes 7 more instantiations, not 16
+template <int MS>
+Kernel<__nv_bfloat16> kernel_bf16(int ns) {
+  if (ns == 1) return cg_aggregate_bwd_kernel<__nv_bfloat16, 1, MS>;
+  if (ns == MS) return cg_aggregate_bwd_kernel<__nv_bfloat16, MS, MS>;
+  return nullptr;
+}
+template <>
+Kernel<__nv_bfloat16> kernel_for<__nv_bfloat16>(int ns, int ms) {
+  switch (ms) {
+    case 1: return kernel_bf16<1>(ns);
+    case 3: return kernel_bf16<3>(ns);
+    case 4: return kernel_bf16<4>(ns);
+    case 5: return kernel_bf16<5>(ns);
     default: return nullptr;
   }
 }
@@ -427,16 +441,18 @@ int num_sms() {
 
 bool power_of_two(int n) { return n > 0 && (n & (n - 1)) == 0; }
 
-// Resident blocks per SM of the instantiation for strips of `ns` and `ms` on
-// the current device; -1 for strips the kernel is not compiled for or a
-// refused configuration. The runtime is asked once per (device, ns, ms,
-// threads, smem), and the kernel's limit of dynamic shared memory is only ever
-// raised: a launch costs the host one look into the map.
+// Resident blocks per SM of the instantiation for operands `In` and strips
+// of `ns` and `ms` on the current device; -1 for strips the kernel is not
+// compiled for or a refused configuration. The runtime is asked once per
+// (device, ns, ms, threads, smem) and operand type, and the kernel's limit of
+// dynamic shared memory is only ever raised: a launch costs the host one look
+// into the map.
+template <typename In>
 int blocks_per_sm(int ns, int ms, int threads, int smem) {
   static std::mutex mutex;
   static std::map<std::array<int, 5>, int> known;
   static std::map<std::array<int, 3>, int> limit;
-  Kernel kernel = kernel_for(ns, ms);
+  Kernel<In> kernel = kernel_for<In>(ns, ms);
   if (kernel == nullptr) return -1;
   int dev = 0;
   cudaGetDevice(&dev);
@@ -459,28 +475,13 @@ int blocks_per_sm(int ns, int ms, int threads, int smem) {
   return blocks;
 }
 
-}  // namespace
-
-extern "C" int cg_aggregate_bwd_blocks_per_sm(int ns, int ms, int threads,
-                                              int smem) {
-  return blocks_per_sm(ns, ms, threads, smem);
-}
-
-// Launches on `stream` and returns cudaGetLastError() (0 on success). A
-// strip `ns` > 1 has M2 = ns * ns, a strip `ms` > 1 has M1 = ms * ms; `mc`
-// and `nc` are powers of two of at most 32 with N * (M2 / ns) * mc and
-// N * (M1 / ms) * nc at most `threads`; `NI` rows i a step, 1 <= NI <= N (all N
-// at once in one buffer, or fewer in two buffers that take turns); dz rows of
-// `M2P` >= M2 slots; `smem` is the block's shared memory, summed on the host
-// over the arrays the kernel lays out (ops/fused_agg.py:aggregate_bwd_smem).
-extern "C" int cg_aggregate_bwd_f32(
-    const float* sph, const float* rad, const float* q_r, const float* q_i,
-    const float* g_r, const float* g_i, const int* grp_ptr, const int* row_of,
-    const int* ent, float* drad, float* dq_r, float* dq_i,
-    int B, int N, int T, int L, int M1, int M2, int K, int G, int n_ent,
-    int NI, int M2P, int ns, int ms, int mc, int nc, int threads, int smem,
-    void* stream) {
-  Kernel kernel = kernel_for(ns, ms);
+template <typename In>
+int launch(const In* sph, const In* rad, const In* q_r, const In* q_i,
+           const In* g_r, const In* g_i, const int* grp_ptr, const int* row_of,
+           const int* ent, In* drad, In* dq_r, In* dq_i, int B, int N, int T,
+           int L, int M1, int M2, int K, int G, int n_ent, int NI, int M2P,
+           int ns, int ms, int mc, int nc, int threads, int smem, void* stream) {
+  Kernel<In> kernel = kernel_for<In>(ns, ms);
   if (kernel == nullptr || (ns > 1 && M2 != ns * ns) ||
       (ms > 1 && M1 != ms * ms) || !power_of_two(mc) || !power_of_two(nc) ||
       mc > kWarp || nc > kWarp || n_ent % kWarp != 0 || threads % kWarp != 0 ||
@@ -488,7 +489,7 @@ extern "C" int cg_aggregate_bwd_f32(
       N * (M1 / ms) * nc > threads || NI < 1 || NI > N || M2P < M2 ||
       smem < 0)
     return (int)cudaErrorInvalidValue;
-  const int per_sm = blocks_per_sm(ns, ms, threads, smem);
+  const int per_sm = blocks_per_sm<In>(ns, ms, threads, smem);
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   const long long n_work = (long long)B * T;
   if (n_work > 0) {
@@ -501,4 +502,45 @@ extern "C" int cg_aggregate_bwd_f32(
         (M2 + nc - 1) / nc);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int cg_aggregate_bwd_blocks_per_sm(int ns, int ms, int threads,
+                                              int smem) {
+  return blocks_per_sm<float>(ns, ms, threads, smem);
+}
+
+// Launch on `stream` and return cudaGetLastError() (0 on success). A strip
+// `ns` > 1 has M2 = ns * ns, a strip `ms` > 1 has M1 = ms * ms (bf16: ns is
+// 1 or ms); `mc` and `nc` are powers of two of at most 32 with
+// N * (M2 / ns) * mc and N * (M1 / ms) * nc at most `threads`; `NI` rows i a
+// step, 1 <= NI <= N (all N at once in one buffer, or fewer in two buffers
+// that take turns); dz rows of `M2P` >= M2 slots; `smem` is the block's
+// shared memory, summed on the host over the arrays the kernel lays out
+// (ops/fused_agg.py:aggregate_bwd_smem). Operands, cotangents and outputs are
+// f32, or all bf16.
+extern "C" int cg_aggregate_bwd_f32(
+    const float* sph, const float* rad, const float* q_r, const float* q_i,
+    const float* g_r, const float* g_i, const int* grp_ptr, const int* row_of,
+    const int* ent, float* drad, float* dq_r, float* dq_i,
+    int B, int N, int T, int L, int M1, int M2, int K, int G, int n_ent,
+    int NI, int M2P, int ns, int ms, int mc, int nc, int threads, int smem,
+    void* stream) {
+  return launch(sph, rad, q_r, q_i, g_r, g_i, grp_ptr, row_of, ent, drad, dq_r,
+                dq_i, B, N, T, L, M1, M2, K, G, n_ent, NI, M2P, ns, ms, mc, nc,
+                threads, smem, stream);
+}
+
+extern "C" int cg_aggregate_bwd_bf16(
+    const __nv_bfloat16* sph, const __nv_bfloat16* rad,
+    const __nv_bfloat16* q_r, const __nv_bfloat16* q_i,
+    const __nv_bfloat16* g_r, const __nv_bfloat16* g_i, const int* grp_ptr,
+    const int* row_of, const int* ent, __nv_bfloat16* drad,
+    __nv_bfloat16* dq_r, __nv_bfloat16* dq_i, int B, int N, int T, int L,
+    int M1, int M2, int K, int G, int n_ent, int NI, int M2P, int ns, int ms,
+    int mc, int nc, int threads, int smem, void* stream) {
+  return launch(sph, rad, q_r, q_i, g_r, g_i, grp_ptr, row_of, ent, drad, dq_r,
+                dq_i, B, N, T, L, M1, M2, K, G, n_ent, NI, M2P, ns, ms, mc, nc,
+                threads, smem, stream);
 }

@@ -1,5 +1,5 @@
 // CG self-product ("CG square") of a packed rep over a list of (m, n) pairs,
-// f32, for Hopper (sm_90a).
+// f32 or bf16 operands, f32 accumulation, for Hopper (sm_90a).
 //
 //   z[r, p]   = a[r, m_p] * a[r, n_p]              (complex)
 //   out[r, k] = sum_p C[p, k] * z[r, p]            (C real)
@@ -62,13 +62,27 @@
 // stores to 0.016-0.018 ms, against 0.0098 ms for writing the output alone
 // (zero_): the block's phases, more than the write, set its pace.
 // PERF.md, section 6, has every shape.
+//
+// `In` is the operand type of a and out, f32 or bf16 (operand.cuh). A bf16
+// rep is converted to f32 as it is staged into its slots, by plain 2-byte
+// loads (no cp.async: the copy converts), so the slot layout
+// (ops/fused_agg.py:square_fwd_smem), the plan and every sum are the same for
+// both, and each output is rounded once. With bf16 the bytes halve (about
+// 4.7 us at SF6), still above the operations.
 #include <cuda_runtime.h>
 
 #include <array>
 #include <map>
 #include <mutex>
 
+#include "operand.cuh"
+
 namespace {
+
+using operand::cp_async_16;
+using operand::cp_async_wait_all;
+using operand::from_f32;
+using operand::stage_value;
 
 constexpr int kWarp = 32;
 constexpr int kMaxThreads = 256;
@@ -79,20 +93,6 @@ __host__ __device__ inline size_t align16(size_t n) { return (n + 15) / 16 * 16;
 // (8 bytes at R = 1) on which slot s starts at bank group s or 3 s mod 8
 template <int R>
 __host__ __device__ constexpr int slot_stride() { return R >= 4 ? R + 2 : R; }
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
 
 // R complex values from a 16-byte aligned slot (8 bytes for R = 1)
 template <int R>
@@ -128,16 +128,16 @@ __device__ __forceinline__ int snake(int i, int c, int ways) {
   return i * ways + ((i & 1) ? ways - 1 - c : c);
 }
 
-template <int R>
+template <typename In, int R>
 __global__ void __launch_bounds__(kMaxThreads) cg_square_kernel(
-    const float* __restrict__ a_r,      // [rows, M]
-    const float* __restrict__ a_i,      // [rows, M]
+    const In* __restrict__ a_r,         // [rows, M]
+    const In* __restrict__ a_i,         // [rows, M]
     const int* __restrict__ slot_mn,    // [S] (m << 16 | n) of the pair in z slot s
     const int* __restrict__ grp_ptr,    // [G + 1] entry offset of each group of 32 columns
     const int* __restrict__ grp_seq,    // [G] the groups, longest first
     const int2* __restrict__ ent,       // [n_ent] (z slot, coef bits)
-    float* __restrict__ out_r,          // [rows, K]
-    float* __restrict__ out_i,          // [rows, K]
+    In* __restrict__ out_r,             // [rows, K]
+    In* __restrict__ out_i,             // [rows, K]
     int rows, int M, int K, int G, int n_ent, int S) {
   constexpr int ZS = slot_stride<R>();
   extern __shared__ float4 smem4[];
@@ -163,16 +163,17 @@ __global__ void __launch_bounds__(kMaxThreads) cg_square_kernel(
   // once per block: the table (asynchronously), offsets, order, pairs; the
   // first barrier of the first item covers them
   for (int idx = tid; idx < n_ent / 2; idx += blockDim.x)
-    cp_async16(s_ent + 2 * idx, ent + 2 * idx);
+    cp_async_16(s_ent + 2 * idx, ent + 2 * idx);
   for (int idx = tid; idx <= G; idx += blockDim.x) s_ptr[idx] = grp_ptr[idx];
   for (int idx = tid; idx < G; idx += blockDim.x) s_seq[idx] = grp_seq[idx];
   for (int idx = tid; idx < S; idx += blockDim.x) s_mn[idx] = slot_mn[idx];
 
   const int n_tiles = (rows + R - 1) / R;
 
-  // a[row0 + r, m] into slot m of buffer `buf`, a 4-byte copy per value; the
-  // rows of a last, short tile keep what they held (their sums are not
-  // stored). One division per copy, R * M copies a tile.
+  // a[row0 + r, m] into slot m of buffer `buf`, a 4-byte copy (or a bf16
+  // conversion) per value; the rows of a last, short tile keep what they
+  // held (their sums are not stored). One division per copy, R * M copies a
+  // tile.
   auto prefetch = [&](int tile, int buf) {
     const int row0 = tile * R;
     float2* dst = reinterpret_cast<float2*>(reinterpret_cast<char*>(s_a) + buf * a_buf);
@@ -180,8 +181,8 @@ __global__ void __launch_bounds__(kMaxThreads) cg_square_kernel(
     for (int idx = tid; idx < n; idx += blockDim.x) {
       const int r = idx / M;
       float2* d = dst + (idx - r * M) * ZS + r;
-      cp_async4(&d->x, a_r + (size_t)row0 * M + idx);
-      cp_async4(&d->y, a_i + (size_t)row0 * M + idx);
+      stage_value(&d->x, a_r + (size_t)row0 * M + idx);
+      stage_value(&d->y, a_i + (size_t)row0 * M + idx);
     }
   };
 
@@ -236,13 +237,13 @@ __global__ void __launch_bounds__(kMaxThreads) cg_square_kernel(
       }
       const int k = g * kWarp + lane;
       if (k < K) {
-        float* o_r = out_r + (size_t)row0 * K + k;
-        float* o_i = out_i + (size_t)row0 * K + k;
+        In* o_r = out_r + (size_t)row0 * K + k;
+        In* o_i = out_i + (size_t)row0 * K + k;
 #pragma unroll
         for (int r = 0; r < R; ++r) {
           if (r < nr) {
-            o_r[(size_t)r * K] = acc_r[r];
-            o_i[(size_t)r * K] = acc_i[r];
+            o_r[(size_t)r * K] = from_f32<In>(acc_r[r]);
+            o_i[(size_t)r * K] = from_f32<In>(acc_i[r]);
           }
         }
       }
@@ -251,15 +252,17 @@ __global__ void __launch_bounds__(kMaxThreads) cg_square_kernel(
   cp_async_wait_all();   // a block that got no tile
 }
 
-typedef void (*Kernel)(const float*, const float*, const int*, const int*,
-                       const int*, const int2*, float*, float*, int, int, int,
-                       int, int, int);
+template <typename In>
+using Kernel = void (*)(const In*, const In*, const int*, const int*,
+                        const int*, const int2*, In*, In*, int, int, int, int,
+                        int, int);
 
-Kernel kernel_for(int rows_per_tile) {
+template <typename In>
+Kernel<In> kernel_for(int rows_per_tile) {
   switch (rows_per_tile) {
-    case 1: return cg_square_kernel<1>;
-    case 2: return cg_square_kernel<2>;
-    case 4: return cg_square_kernel<4>;
+    case 1: return cg_square_kernel<In, 1>;
+    case 2: return cg_square_kernel<In, 2>;
+    case 4: return cg_square_kernel<In, 4>;
     default: return nullptr;
   }
 }
@@ -274,16 +277,18 @@ int num_sms() {
   return n;
 }
 
-// Resident blocks per SM of the instantiation for tiles of `rows_per_tile`
-// rows on the current device; -1 for a tile the kernel is not compiled for or
-// a refused configuration. The runtime is asked once per (device, tile,
-// threads, smem), and the kernel's limit of dynamic shared memory is only
-// ever raised: a launch costs the host one look into the map.
+// Resident blocks per SM of the instantiation for operands `In` and tiles of
+// `rows_per_tile` rows on the current device; -1 for a tile the kernel is not
+// compiled for or a refused configuration. The runtime is asked once per
+// (device, tile, threads, smem) and operand type, and the kernel's limit of
+// dynamic shared memory is only ever raised: a launch costs the host one look
+// into the map.
+template <typename In>
 int blocks_per_sm(int rows_per_tile, int threads, int smem) {
   static std::mutex mutex;
   static std::map<std::array<int, 4>, int> known;
   static std::map<std::array<int, 2>, int> limit;
-  Kernel kernel = kernel_for(rows_per_tile);
+  Kernel<In> kernel = kernel_for<In>(rows_per_tile);
   if (kernel == nullptr) return -1;
   int dev = 0;
   cudaGetDevice(&dev);
@@ -306,28 +311,17 @@ int blocks_per_sm(int rows_per_tile, int threads, int smem) {
   return blocks;
 }
 
-}  // namespace
-
-extern "C" int cg_square_blocks_per_sm(int rows_per_tile, int threads, int smem) {
-  return blocks_per_sm(rows_per_tile, threads, smem);
-}
-
-// Launches on `stream` and returns cudaGetLastError() (0 on success). The
-// table has `n_ent` entries, a multiple of 32, in G groups; M < 65536; tiles
-// of `rows_per_tile` rows (1, 2 or 4); `smem` is the block's shared
-// memory, summed on the host over the arrays the kernel lays out
-// (ops/fused_agg.py:square_fwd_smem).
-extern "C" int cg_square_fused_f32(
-    const float* a_r, const float* a_i, const int* slot_mn, const int* grp_ptr,
-    const int* grp_seq, const int* ent, float* out_r, float* out_i, int rows,
-    int M, int K, int G, int n_ent, int S, int rows_per_tile, int threads,
-    int smem, void* stream) {
-  Kernel kernel = kernel_for(rows_per_tile);
+template <typename In>
+int launch(const In* a_r, const In* a_i, const int* slot_mn, const int* grp_ptr,
+           const int* grp_seq, const int* ent, In* out_r, In* out_i, int rows,
+           int M, int K, int G, int n_ent, int S, int rows_per_tile,
+           int threads, int smem, void* stream) {
+  Kernel<In> kernel = kernel_for<In>(rows_per_tile);
   if (kernel == nullptr || n_ent % kWarp != 0 || M < 1 || M >= 65536 ||
       G < 1 || K > G * kWarp || threads % kWarp != 0 || threads < kWarp || threads > kMaxThreads ||
       smem < 0)
     return (int)cudaErrorInvalidValue;
-  const int per_sm = blocks_per_sm(rows_per_tile, threads, smem);
+  const int per_sm = blocks_per_sm<In>(rows_per_tile, threads, smem);
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   const int n_tiles = (rows + rows_per_tile - 1) / rows_per_tile;
   if (n_tiles > 0) {
@@ -338,4 +332,34 @@ extern "C" int cg_square_fused_f32(
         out_r, out_i, rows, M, K, G, n_ent, S);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int cg_square_blocks_per_sm(int rows_per_tile, int threads, int smem) {
+  return blocks_per_sm<float>(rows_per_tile, threads, smem);
+}
+
+// Launch on `stream` and return cudaGetLastError() (0 on success). The table
+// has `n_ent` entries, a multiple of 32, in G groups; M < 65536; tiles of
+// `rows_per_tile` rows (1, 2 or 4); `smem` is the block's shared memory,
+// summed on the host over the arrays the kernel lays out
+// (ops/fused_agg.py:square_fwd_smem). Operands and outputs are f32, or all
+// bf16.
+extern "C" int cg_square_fused_f32(
+    const float* a_r, const float* a_i, const int* slot_mn, const int* grp_ptr,
+    const int* grp_seq, const int* ent, float* out_r, float* out_i, int rows,
+    int M, int K, int G, int n_ent, int S, int rows_per_tile, int threads,
+    int smem, void* stream) {
+  return launch(a_r, a_i, slot_mn, grp_ptr, grp_seq, ent, out_r, out_i, rows,
+                M, K, G, n_ent, S, rows_per_tile, threads, smem, stream);
+}
+
+extern "C" int cg_square_fused_bf16(
+    const __nv_bfloat16* a_r, const __nv_bfloat16* a_i, const int* slot_mn,
+    const int* grp_ptr, const int* grp_seq, const int* ent,
+    __nv_bfloat16* out_r, __nv_bfloat16* out_i, int rows, int M, int K, int G,
+    int n_ent, int S, int rows_per_tile, int threads, int smem, void* stream) {
+  return launch(a_r, a_i, slot_mn, grp_ptr, grp_seq, ent, out_r, out_i, rows,
+                M, K, G, n_ent, S, rows_per_tile, threads, smem, stream);
 }

@@ -1,5 +1,5 @@
-// Backward (vector-Jacobian product) of the CG square of cg_square.cu, f32,
-// for Hopper (sm_90a). Given the output gradients g[r, k] (real and
+// Backward (vector-Jacobian product) of the CG square of cg_square.cu, f32
+// or bf16 operands, f32 accumulation, for Hopper (sm_90a). Given the output gradients g[r, k] (real and
 // imaginary parts separate) of out[r, k] = sum_p C[p, k] a[r, m_p] a[r, n_p]:
 //
 //   dz[r, p]    = sum_k C[p, k] g[r, k]
@@ -62,13 +62,30 @@
 // copies took it from 0.024 to 0.017, 0.017 and 0.019 ms: the three
 // overlap, and none alone sets the pace.
 // PERF.md, section 6, has every shape.
+//
+// `In` is the operand type of a, g and da, f32 or bf16 (operand.cuh). bf16 g
+// and a are converted to f32 as they are staged, value by value (2-byte
+// loads, aligned at any offset: a bf16 row of g may start on any even byte),
+// g at the start of its row's buffer, so the layout
+// (ops/fused_agg.py:square_bwd_smem) and every sum, in the same fixed order,
+// are the same for both, and each output is rounded once. With bf16 the
+// bytes halve (about 5 us at SF6), still above the operations.
 #include <cuda_runtime.h>
 
 #include <array>
 #include <map>
 #include <mutex>
 
+#include "operand.cuh"
+
 namespace {
+
+using operand::cp_async_16;
+using operand::cp_async_wait_all;
+using operand::from_f32;
+using operand::lead_floats;
+using operand::stage_row;
+using operand::stage_value;
 
 constexpr int kWarp = 32;
 constexpr int kThreads = 128;
@@ -83,41 +100,23 @@ constexpr int ZS = R;
 // floats a shared row of k values takes with the slack of its 16-byte copy
 __host__ __device__ inline int padded_row(int k) { return ((k + 3) / 4 + 1) * 4; }
 
-// floats between the 16-byte line that holds *p and p
-__device__ __forceinline__ int lead_floats(const float* p) {
-  return (int)((reinterpret_cast<size_t>(p) & 15) >> 2);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
 // position of the i-th of `ways` takers' items in a snake over a sequence:
 // taker c takes c, 2 ways - 1 - c, 2 ways + c, ... (increasing in i)
 __device__ __forceinline__ int snake(int i, int c, int ways) {
   return i * ways + ((i & 1) ? ways - 1 - c : c);
 }
 
+template <typename In>
 __global__ void __launch_bounds__(kThreads) cg_square_bwd_kernel(
-    const float* __restrict__ a_r,       // [rows, M]
-    const float* __restrict__ a_i,       // [rows, M]
-    const float* __restrict__ g_r,       // [rows, K]
-    const float* __restrict__ g_i,       // [rows, K]
+    const In* __restrict__ a_r,          // [rows, M]
+    const In* __restrict__ a_i,          // [rows, M]
+    const In* __restrict__ g_r,          // [rows, K]
+    const In* __restrict__ g_i,          // [rows, K]
     const int* __restrict__ grp_ptr,     // [G + 1] entry offset of each group of 32 pairs
     const int2* __restrict__ ent,        // [n_ent] (column k, coef bits)
     const int* __restrict__ inc,         // [M][L] (dz slot << 8 | other slot)
-    float* __restrict__ da_r,            // [rows, M]
-    float* __restrict__ da_i,            // [rows, M]
+    In* __restrict__ da_r,               // [rows, M]
+    In* __restrict__ da_i,               // [rows, M]
     int rows, int M, int K, int G, int n_ent, int L) {
   const int S = kWarp * G + 1;           // dz slots; the last holds zeros
   const int KP = padded_row(K);
@@ -145,40 +144,32 @@ __global__ void __launch_bounds__(kThreads) cg_square_bwd_kernel(
   // once per block: the table (asynchronously), offsets, incidence, the
   // slot of zeros; the first barrier of the first tile covers them
   for (int idx = tid; idx < n_ent / 2; idx += blockDim.x)
-    cp_async16(s_ent + 2 * idx, ent + 2 * idx);
+    cp_async_16(s_ent + 2 * idx, ent + 2 * idx);
   for (int idx = tid; idx <= G; idx += blockDim.x) s_ptr[idx] = grp_ptr[idx];
   for (int idx = tid; idx < M * L; idx += blockDim.x) s_inc[idx] = inc[idx];
   for (int r = tid; r < R; r += blockDim.x) s_dz[(S - 1) * ZS + r] = make_float2(0.f, 0.f);
 
   const int n_tiles = (rows + R - 1) / R;
 
-  // asynchronous copies of what tile `tile` needs into buffer `buf`: its
-  // rows of g (16 bytes at a time: a row of g starts at any multiple of 4
-  // bytes, so its copy starts at the 16-byte line that holds its first
-  // value, at most 3 floats early, and the row lies at lead_floats of its
-  // address; the first and last lines may reach up to 12 bytes outside the
-  // tensor, inside a line that holds valid values, so inside its
-  // allocation) and a, value by value into its slots. The rows of a last,
-  // short tile keep what they held: their sums are not stored.
+  // copies (asynchronous for f32) of what tile `tile` needs into buffer
+  // `buf`: its rows of g (stage_row: a row lies at lead_floats of its
+  // address, at most 3 floats into its buffer) and a, value by value into
+  // its slots. The rows of a last, short tile keep what they held: their
+  // sums are not stored.
   auto prefetch = [&](int tile, int buf) {
     const int row0 = tile * R;
     const int nr = min(R, rows - row0);
     float* sg = s_g + buf * (g_buf / sizeof(float));
     for (int r = 0; r < nr; ++r) {
-      const float* gr = g_r + (size_t)(row0 + r) * K;
-      const float* gi = g_i + (size_t)(row0 + r) * K;
-      const int lead_r = lead_floats(gr), lead_i = lead_floats(gi);
-      for (int c = tid; 4 * c < lead_r + K; c += blockDim.x)
-        cp_async16(sg + r * 2 * KP + 4 * c, gr - lead_r + 4 * c);
-      for (int c = tid; 4 * c < lead_i + K; c += blockDim.x)
-        cp_async16(sg + r * 2 * KP + KP + 4 * c, gi - lead_i + 4 * c);
+      stage_row(sg + r * 2 * KP, g_r + (size_t)(row0 + r) * K, K);
+      stage_row(sg + r * 2 * KP + KP, g_i + (size_t)(row0 + r) * K, K);
     }
     float2* sa = reinterpret_cast<float2*>(reinterpret_cast<char*>(s_a) + buf * a_buf);
     for (int idx = tid; idx < nr * M; idx += blockDim.x) {
       const int r = idx / M;
       float2* d = sa + (idx - r * M) * ZS + r;
-      cp_async4(&d->x, a_r + (size_t)row0 * M + idx);
-      cp_async4(&d->y, a_i + (size_t)row0 * M + idx);
+      stage_value(&d->x, a_r + (size_t)row0 * M + idx);
+      stage_value(&d->y, a_i + (size_t)row0 * M + idx);
     }
   };
 
@@ -242,8 +233,8 @@ __global__ void __launch_bounds__(kThreads) cg_square_bwd_kernel(
         acc_i = fmaf(z.y, x.x, fmaf(-z.x, x.y, acc_i));
       }
       if (r < nr) {
-        da_r[(size_t)(row0 + r) * M + m] = acc_r;
-        da_i[(size_t)(row0 + r) * M + m] = acc_i;
+        da_r[(size_t)(row0 + r) * M + m] = from_f32<In>(acc_r);
+        da_i[(size_t)(row0 + r) * M + m] = from_f32<In>(acc_i);
       }
     }
   }
@@ -260,8 +251,10 @@ int num_sms() {
   return n;
 }
 
-// Resident blocks per SM for `smem` bytes, asked of the runtime once per
-// (device, smem), as in cg_square.cu.
+// Resident blocks per SM of the instantiation for operands `In` at `smem`
+// bytes, asked of the runtime once per (device, smem) and operand type, as
+// in cg_square.cu.
+template <typename In>
 int blocks_per_sm(int smem) {
   static std::mutex mutex;
   static std::map<std::array<int, 2>, int> known;
@@ -274,7 +267,7 @@ int blocks_per_sm(int smem) {
   if (found != known.end()) return found->second;
   int& allowed = limit[dev];
   if (smem > allowed) {
-    if (cudaFuncSetAttribute(cg_square_bwd_kernel,
+    if (cudaFuncSetAttribute(cg_square_bwd_kernel<In>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem) != cudaSuccess)
       return -1;
@@ -282,37 +275,56 @@ int blocks_per_sm(int smem) {
   }
   int blocks = 0;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, cg_square_bwd_kernel, kThreads, smem) != cudaSuccess)
+          &blocks, cg_square_bwd_kernel<In>, kThreads, smem) != cudaSuccess)
     return -1;
   known[key] = blocks;
   return blocks;
 }
 
-}  // namespace
-
-extern "C" int cg_square_bwd_blocks_per_sm(int smem) { return blocks_per_sm(smem); }
-
-// Launches on `stream` and returns cudaGetLastError() (0 on success). The
-// table has `n_ent` entries, a multiple of 32, in G groups of 32 dz slots;
-// `inc` is [M][L] with M <= 256 and every dz slot at most 32 G; `smem` is the
-// block's shared memory, summed on the host over the arrays the kernel lays
-// out (ops/fused_agg.py:square_bwd_smem).
-extern "C" int cg_square_bwd_f32(
-    const float* a_r, const float* a_i, const float* g_r, const float* g_i,
-    const int* grp_ptr, const int* ent, const int* inc, float* da_r,
-    float* da_i, int rows, int M, int K, int G, int n_ent, int L, int smem,
-    void* stream) {
+template <typename In>
+int launch(const In* a_r, const In* a_i, const In* g_r, const In* g_i,
+           const int* grp_ptr, const int* ent, const int* inc, In* da_r,
+           In* da_i, int rows, int M, int K, int G, int n_ent, int L, int smem,
+           void* stream) {
   if (n_ent % kWarp != 0 || M < 1 || M > 256 || G < 1 || L < 1 || smem < 0)
     return (int)cudaErrorInvalidValue;
-  const int per_sm = blocks_per_sm(smem);
+  const int per_sm = blocks_per_sm<In>(smem);
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   const int n_tiles = (rows + R - 1) / R;
   if (n_tiles > 0) {
     const int slots = per_sm * num_sms();
     const int grid = n_tiles < slots ? n_tiles : slots;
-    cg_square_bwd_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+    cg_square_bwd_kernel<In><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
         a_r, a_i, g_r, g_i, grp_ptr, reinterpret_cast<const int2*>(ent), inc,
         da_r, da_i, rows, M, K, G, n_ent, L);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int cg_square_bwd_blocks_per_sm(int smem) { return blocks_per_sm<float>(smem); }
+
+// Launch on `stream` and return cudaGetLastError() (0 on success). The table
+// has `n_ent` entries, a multiple of 32, in G groups of 32 dz slots; `inc`
+// is [M][L] with M <= 256 and every dz slot at most 32 G; `smem` is the
+// block's shared memory, summed on the host over the arrays the kernel lays
+// out (ops/fused_agg.py:square_bwd_smem). Operands, cotangents and outputs
+// are f32, or all bf16.
+extern "C" int cg_square_bwd_f32(
+    const float* a_r, const float* a_i, const float* g_r, const float* g_i,
+    const int* grp_ptr, const int* ent, const int* inc, float* da_r,
+    float* da_i, int rows, int M, int K, int G, int n_ent, int L, int smem,
+    void* stream) {
+  return launch(a_r, a_i, g_r, g_i, grp_ptr, ent, inc, da_r, da_i, rows, M, K,
+                G, n_ent, L, smem, stream);
+}
+
+extern "C" int cg_square_bwd_bf16(
+    const __nv_bfloat16* a_r, const __nv_bfloat16* a_i,
+    const __nv_bfloat16* g_r, const __nv_bfloat16* g_i, const int* grp_ptr,
+    const int* ent, const int* inc, __nv_bfloat16* da_r, __nv_bfloat16* da_i,
+    int rows, int M, int K, int G, int n_ent, int L, int smem, void* stream) {
+  return launch(a_r, a_i, g_r, g_i, grp_ptr, ent, inc, da_r, da_i, rows, M, K,
+                G, n_ent, L, smem, stream);
 }

@@ -20,6 +20,12 @@ backward versions (`*_bwd_plain`) compute the same vector-Jacobian products
 from their formulas. `launch_counts` (the registry of ops/kernel_common.py,
 shared by all kernels) counts kernel launches only, so a run can show that
 its main path went through the kernels.
+
+Operands are float32, or all bfloat16 (the encoder's bf16 path). A bf16
+call computes "bf16 in, f32 math, bf16 out": the kernels convert each
+operand to f32 as they stage it and round each output once, and the plain
+versions compute in f32 on the upcast operands and round their outputs
+once; the tables stay f32. Gradients come back in the operands' dtype.
 """
 from __future__ import annotations
 
@@ -39,9 +45,12 @@ from molgym_tpu_torch import cuda_build
 from molgym_tpu_torch.ops.kernel_common import (MAX_SMEM,
                                                 check_cuda_operands,
                                                 incoming, launch_counts,
-                                                ptrs, raise_on,
+                                                operand_dtype, ptrs, raise_on,
                                                 reset_launch_counts,
                                                 table_cache)
+
+# the operand dtypes of the four kernels and their plain versions
+DTYPES = (torch.float32, torch.bfloat16)
 
 # (row_a, row_b, table [row_b - row_a, K_g]) blocks of a contraction: output
 # columns are the blocks' columns in order, each contracting z[..., a:b].
@@ -358,6 +367,12 @@ def _l_of_m(n_ells: int, device: torch.device) -> torch.Tensor:
                         device=device)
 
 
+def _f32(*tensors):
+    """The operands upcast for the plain versions' f32 arithmetic (f32
+    tensors are returned as they are)."""
+    return [t.float() for t in tensors]
+
+
 def _contract(z_r, z_i, blocks):
     outs_r = [z_r[..., a:b] @ t for a, b, t in blocks]
     outs_i = [z_i[..., a:b] @ t for a, b, t in blocks]
@@ -385,11 +400,27 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
+def _bind(lib, entry, argtypes):
+    """Both dtype entries `entry`_f32 and `entry`_bf16 of `lib`."""
+    for suffix in ('f32', 'bf16'):
+        fn = getattr(lib, f'{entry}_{suffix}')
+        fn.argtypes = argtypes
+        fn.restype = _I
+
+
+def _entry(lib, entry, dtype):
+    return getattr(lib, f'{entry}_{"bf16" if dtype == torch.bfloat16 else "f32"}')
+
+
+def _counter(name, dtype):
+    """The launch counter of kernel `name` for operands of `dtype`."""
+    return name + '_bf16' if dtype == torch.bfloat16 else name
+
+
 @functools.lru_cache(maxsize=None)
 def _aggregate_lib() -> ctypes.CDLL:
     lib = cuda_build.load('cg_aggregate')
-    lib.cg_aggregate_edge_fused_f32.argtypes = [_P] * 8 + [_I] * 13 + [_P]
-    lib.cg_aggregate_edge_fused_f32.restype = _I
+    _bind(lib, 'cg_aggregate_edge_fused', [_P] * 8 + [_I] * 13 + [_P])
     lib.cg_aggregate_blocks_per_sm.argtypes = [_I] * 3
     lib.cg_aggregate_blocks_per_sm.restype = _I
     return lib
@@ -398,8 +429,7 @@ def _aggregate_lib() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def _aggregate_bwd_lib() -> ctypes.CDLL:
     lib = cuda_build.load('cg_aggregate_bwd')
-    lib.cg_aggregate_bwd_f32.argtypes = [_P] * 12 + [_I] * 17 + [_P]
-    lib.cg_aggregate_bwd_f32.restype = _I
+    _bind(lib, 'cg_aggregate_bwd', [_P] * 12 + [_I] * 17 + [_P])
     lib.cg_aggregate_bwd_blocks_per_sm.argtypes = [_I] * 4
     lib.cg_aggregate_bwd_blocks_per_sm.restype = _I
     return lib
@@ -408,8 +438,7 @@ def _aggregate_bwd_lib() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def _square_lib() -> ctypes.CDLL:
     lib = cuda_build.load('cg_square')
-    lib.cg_square_fused_f32.argtypes = [_P] * 8 + [_I] * 9 + [_P]
-    lib.cg_square_fused_f32.restype = _I
+    _bind(lib, 'cg_square_fused', [_P] * 8 + [_I] * 9 + [_P])
     lib.cg_square_blocks_per_sm.argtypes = [_I] * 3
     lib.cg_square_blocks_per_sm.restype = _I
     return lib
@@ -418,8 +447,7 @@ def _square_lib() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def _square_bwd_lib() -> ctypes.CDLL:
     lib = cuda_build.load('cg_square_bwd')
-    lib.cg_square_bwd_f32.argtypes = [_P] * 9 + [_I] * 7 + [_P]
-    lib.cg_square_bwd_f32.restype = _I
+    _bind(lib, 'cg_square_bwd', [_P] * 9 + [_I] * 7 + [_P])
     lib.cg_square_bwd_blocks_per_sm.argtypes = [_I]
     lib.cg_square_bwd_blocks_per_sm.restype = _I
     return lib
@@ -435,7 +463,11 @@ def cg_aggregate_edge_fused_ri_plain(sph_packed: torch.Tensor,
                                      atom_i: torch.Tensor,
                                      table3: np.ndarray, grouped=None):
     """Plain PyTorch version of cg_aggregate_edge_fused_ri: builds the edge
-    rep and the [.., tau, M1*M2] pair tensor z in memory, then contracts."""
+    rep and the [.., tau, M1*M2] pair tensor z in memory, then contracts,
+    in f32; outputs in the operands' dtype."""
+    dtype = atom_r.dtype
+    sph_packed, rad_feats, atom_r, atom_i = _f32(sph_packed, rad_feats, atom_r,
+                                                 atom_i)
     B, N, _, tau, n_l = rad_feats.shape
     m1 = sph_packed.shape[-2]
     m2 = atom_r.shape[-1]
@@ -449,7 +481,8 @@ def cg_aggregate_edge_fused_ri_plain(sph_packed: torch.Tensor,
            torch.einsum(pattern, e_i, atom_r)).reshape(B, N, tau, m1 * m2)
     _pairs, blocks = _plain_tables('aggregate', table3, grouped, None,
                                    rad_feats.device)
-    return _contract(z_r, z_i, blocks)
+    out_r, out_i = _contract(z_r, z_i, blocks)
+    return out_r.to(dtype), out_i.to(dtype)
 
 
 def cg_aggregate_edge_fused_ri_bwd_plain(sph_packed: torch.Tensor,
@@ -466,7 +499,12 @@ def cg_aggregate_edge_fused_ri_bwd_plain(sph_packed: torch.Tensor,
         d e[b,i,j,t,m]  = sum_n dz[b,i,t,m,n] conj(q[b,j,t,n])
         d rad[..., l]   = sum_{m in l} Re(d e[..., m] conj(Y[..., m]))
         d q[b,j,t,n]    = sum_{i,m} dz[b,i,t,m,n] conj(e[b,i,j,t,m])
+
+    in f32; the gradients in the operands' dtype.
     """
+    dtype = atom_r.dtype
+    sph_packed, rad_feats, atom_r, atom_i, g_r, g_i = _f32(
+        sph_packed, rad_feats, atom_r, atom_i, g_r, g_i)
     B, N, _, tau, n_l = rad_feats.shape
     m1 = sph_packed.shape[-2]
     m2 = atom_r.shape[-1]
@@ -488,7 +526,7 @@ def cg_aggregate_edge_fused_ri_bwd_plain(sph_packed: torch.Tensor,
     to_q = 'bitmn,bijtm->bjtn'
     dq_r = torch.einsum(to_q, dz_r, e_r) + torch.einsum(to_q, dz_i, e_i)
     dq_i = torch.einsum(to_q, dz_i, e_r) - torch.einsum(to_q, dz_r, e_i)
-    return drad, dq_r, dq_i
+    return drad.to(dtype), dq_r.to(dtype), dq_i.to(dtype)
 
 
 def _aggregate_shapes(name, sph_packed, rad_feats, atom_r, atom_i, table3):
@@ -647,7 +685,8 @@ def _aggregate_fwd_kernel(sph_packed, rad_feats, atom_r, atom_i, table3,
                           grouped):
     name = 'cg_aggregate_edge_fused_ri'
     operands = (sph_packed, rad_feats, atom_r, atom_i)
-    device = check_cuda_operands(name, operands)
+    device = check_cuda_operands(name, operands, DTYPES)
+    dtype = atom_r.dtype
     B, N, tau, n_l, m1, m2 = _aggregate_shapes(name, *operands, table3)
     tabs = _kernel_tables('aggregate', table3, grouped, None, device)
     k = tabs['k']
@@ -659,15 +698,15 @@ def _aggregate_fwd_kernel(sph_packed, rad_feats, atom_r, atom_i, table3,
         raise ValueError(f'{name}: N={N}, M1={m1}, M2={m2}, K={k} with '
                          f'{tile_t} channels a block need {smem} bytes of '
                          'shared memory, more than a block has')
-    out_r = torch.empty((B, N, tau, k), dtype=torch.float32, device=device)
+    out_r = torch.empty((B, N, tau, k), dtype=dtype, device=device)
     out_i = torch.empty_like(out_r)
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = _aggregate_lib().cg_aggregate_edge_fused_f32(
+    err = _entry(_aggregate_lib(), 'cg_aggregate_edge_fused', dtype)(
         *ptrs(*operands, tabs['fwd_ptr'], tabs['fwd_ent'], out_r, out_i),
         B, N, tau, n_l, m1, m2, k, n_groups, n_ent, tile_t, strip_of(m2),
         FWD_THREADS, smem, stream)
     raise_on(err, name)
-    launch_counts[name] += 1
+    launch_counts[_counter(name, dtype)] += 1
     return out_r, out_i
 
 
@@ -675,7 +714,8 @@ def _aggregate_bwd_kernel(sph_packed, rad_feats, atom_r, atom_i, g_r, g_i,
                           table3, grouped):
     name = 'cg_aggregate_edge_fused_ri_bwd'
     operands = (sph_packed, rad_feats, atom_r, atom_i, g_r, g_i)
-    device = check_cuda_operands(name, operands)
+    device = check_cuda_operands(name, operands, DTYPES)
+    dtype = atom_r.dtype
     B, N, tau, n_l, m1, m2 = _aggregate_shapes(name, *operands[:4], table3)
     tabs = _kernel_tables('aggregate', table3, grouped, None, device)
     k = tabs['k']
@@ -684,6 +724,10 @@ def _aggregate_bwd_kernel(sph_packed, rad_feats, atom_r, atom_i, g_r, g_i,
                          f'{tuple(g_i.shape)}, expected {(B, N, tau, k)}')
     n_groups, n_ent = tabs['bwd_ptr'].shape[0] - 1, tabs['bwd_ent'].shape[0]
     plan = _bwd_plan(N, n_l, m1, m2, k, n_groups, n_ent)
+    if dtype == torch.bfloat16 and plan['ns'] not in (1, plan['ms']):
+        raise ValueError(f'{name}: the bf16 kernel is built for atom reps of '
+                         f'one l or as wide as the harmonics, not M1={m1}, '
+                         f'M2={m2}')
     smem = aggregate_bwd_smem(N, n_l, m1, m2, k, n_groups, n_ent,
                               plan['rows'], plan['m2_stride'])
     if smem > MAX_SMEM:
@@ -694,13 +738,13 @@ def _aggregate_bwd_kernel(sph_packed, rad_feats, atom_r, atom_i, g_r, g_i,
     dq_r = torch.empty_like(atom_r)
     dq_i = torch.empty_like(atom_i)
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = _aggregate_bwd_lib().cg_aggregate_bwd_f32(
+    err = _entry(_aggregate_bwd_lib(), 'cg_aggregate_bwd', dtype)(
         *ptrs(*operands, tabs['bwd_ptr'], tabs['bwd_row'], tabs['bwd_ent'],
                drad, dq_r, dq_i), B, N, tau, n_l, m1, m2, k, n_groups, n_ent,
         plan['rows'], plan['m2_stride'], plan['ns'], plan['ms'], plan['mc'],
         plan['nc'], BWD_THREADS, smem, stream)
     raise_on(err, name)
-    launch_counts[name] += 1
+    launch_counts[_counter(name, dtype)] += 1
     return drad, dq_r, dq_i
 
 
@@ -764,8 +808,11 @@ def cg_aggregate_edge_fused_ri(sph_packed: torch.Tensor,
     table3        [M1, M2, K] combined CG block table (cg._fused_cg_table)
     grouped       optional (tables, perm) from cg.fused_cg_table_grouped:
                   the output K axis is then PERMUTED l1-major.
-    returns (out_r, out_i), each [B, N, tau, K].
+    returns (out_r, out_i), each [B, N, tau, K], in the operands' one dtype
+    (float32 or bfloat16).
     """
+    operand_dtype('cg_aggregate_edge_fused_ri',
+                  (sph_packed, rad_feats, atom_r, atom_i), DTYPES)
     sph_packed = sph_packed.detach()
     if sph_packed.device.type == 'cpu':
         return cg_aggregate_edge_fused_ri_plain(sph_packed, rad_feats, atom_r,
@@ -781,12 +828,16 @@ def cg_aggregate_edge_fused_ri(sph_packed: torch.Tensor,
 def cg_square_fused_ri_plain(a_r: torch.Tensor, a_i: torch.Tensor,
                              table3: np.ndarray, grouped=None, tri=None):
     """Plain PyTorch version of cg_square_fused_ri: the pair products in
-    memory, then the block contraction."""
+    memory, then the block contraction, in f32; outputs in the operands'
+    dtype."""
+    dtype = a_r.dtype
+    a_r, a_i = _f32(a_r, a_i)
     pairs, blocks = _plain_tables('square', table3, grouped, tri, a_r.device)
     pm, pn = pairs[:, 0], pairs[:, 1]
     xr, xi = a_r[..., pm], a_i[..., pm]
     yr, yi = a_r[..., pn], a_i[..., pn]
-    return _contract(xr * yr - xi * yi, xr * yi + xi * yr, blocks)
+    out_r, out_i = _contract(xr * yr - xi * yi, xr * yi + xi * yr, blocks)
+    return out_r.to(dtype), out_i.to(dtype)
 
 
 def cg_square_fused_ri_bwd_plain(a_r: torch.Tensor, a_i: torch.Tensor,
@@ -799,7 +850,11 @@ def cg_square_fused_ri_bwd_plain(a_r: torch.Tensor, a_i: torch.Tensor,
 
         dz[..., p] = sum_k C[p, k] g[..., k]
         d a[m_p]  += dz[p] conj(a[n_p]),   d a[n_p] += dz[p] conj(a[m_p])
+
+    in f32; the gradients in the operands' dtype.
     """
+    dtype = a_r.dtype
+    a_r, a_i, g_r, g_i = _f32(a_r, a_i, g_r, g_i)
     pairs, blocks = _plain_tables('square', table3, grouped, tri, a_r.device)
     dz_r, dz_i = _contract_t(g_r, g_i, blocks, pairs.shape[0])
     pm, pn = pairs[:, 0], pairs[:, 1]
@@ -811,7 +866,7 @@ def cg_square_fused_ri_bwd_plain(a_r: torch.Tensor, a_i: torch.Tensor,
     da_i = (a_i.new_zeros(a_i.shape)
             .index_add_(-1, pm, dz_i * yr - dz_r * yi)
             .index_add_(-1, pn, dz_i * xr - dz_r * xi))
-    return da_r, da_i
+    return da_r.to(dtype), da_i.to(dtype)
 
 
 def _square_shapes(name, a_r, a_i, table3):
@@ -898,7 +953,8 @@ def _square_bwd_smem(m, tabs):
 
 def _square_fwd_kernel(a_r, a_i, table3, grouped, tri):
     name = 'cg_square_fused_ri'
-    device = check_cuda_operands(name, (a_r, a_i))
+    device = check_cuda_operands(name, (a_r, a_i), DTYPES)
+    dtype = a_r.dtype
     m, batch = _square_shapes(name, a_r, a_i, table3)
     tabs = _kernel_tables('square', table3, grouped, tri, device)
     n_rows, k = math.prod(batch), tabs['k']
@@ -907,23 +963,24 @@ def _square_fwd_kernel(a_r, a_i, table3, grouped, tri):
         raise ValueError(f'{name}: M={m}, K={k} with {plan["rows"]} rows a '
                          f'tile need {plan["smem"]} bytes of shared memory, '
                          'more than a block has')
-    out_r = torch.empty(batch + (k, ), dtype=torch.float32, device=device)
+    out_r = torch.empty(batch + (k, ), dtype=dtype, device=device)
     out_i = torch.empty_like(out_r)
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = _square_lib().cg_square_fused_f32(
+    err = _entry(_square_lib(), 'cg_square_fused', dtype)(
         *ptrs(a_r, a_i, tabs['slot_mn'], tabs['fwd_ptr'], tabs['fwd_seq'],
               tabs['fwd_ent'], out_r, out_i),
         n_rows, m, k, tabs['fwd_ptr'].shape[0] - 1, tabs['fwd_ent'].shape[0],
         tabs['slot_mn'].shape[0], plan['rows'], plan['threads'], plan['smem'],
         stream)
     raise_on(err, name)
-    launch_counts[name] += 1
+    launch_counts[_counter(name, dtype)] += 1
     return out_r, out_i
 
 
 def _square_bwd_kernel(a_r, a_i, g_r, g_i, table3, grouped, tri):
     name = 'cg_square_fused_ri_bwd'
-    device = check_cuda_operands(name, (a_r, a_i, g_r, g_i))
+    device = check_cuda_operands(name, (a_r, a_i, g_r, g_i), DTYPES)
+    dtype = a_r.dtype
     m, batch = _square_shapes(name, a_r, a_i, table3)
     tabs = _kernel_tables('square', table3, grouped, tri, device)
     k = tabs['k']
@@ -940,13 +997,13 @@ def _square_bwd_kernel(a_r, a_i, g_r, g_i, table3, grouped, tri):
     da_r = torch.empty_like(a_r)
     da_i = torch.empty_like(a_i)
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = _square_bwd_lib().cg_square_bwd_f32(
+    err = _entry(_square_bwd_lib(), 'cg_square_bwd', dtype)(
         *ptrs(a_r, a_i, g_r, g_i, tabs['bwd_ptr'], tabs['bwd_ent'],
               tabs['inc'], da_r, da_i),
         math.prod(batch), m, k, tabs['bwd_ptr'].shape[0] - 1,
         tabs['bwd_ent'].shape[0], tabs['inc'].shape[1], smem, stream)
     raise_on(err, name)
-    launch_counts[name] += 1
+    launch_counts[_counter(name, dtype)] += 1
     return da_r, da_i
 
 
@@ -998,8 +1055,10 @@ def cg_square_fused_ri(a_r: torch.Tensor, a_i: torch.Tensor,
     tri      optional (pairs, groups) from cg.fused_cg_table_tri(n, maxl):
              only the M(M+1)/2 tri pairs, K axis PERMUTED lmin-major. Takes
              precedence over `grouped`.
-    returns (out_r, out_i), each [..., tau, K].
+    returns (out_r, out_i), each [..., tau, K], in the operands' one dtype
+    (float32 or bfloat16).
     """
+    operand_dtype('cg_square_fused_ri', (a_r, a_i), DTYPES)
     if a_r.device.type == 'cpu':
         return cg_square_fused_ri_plain(a_r, a_i, table3, grouped, tri)
     return _SquareFn.apply(a_r, a_i, table3, grouped, tri)

@@ -5,7 +5,8 @@ helpers around a ctypes launch.
 `launch_counts` has one entry per kernel, and a wrapper adds one to its
 entry where it launches its kernel and nowhere else, so a run can show that
 its main path went through the kernels; `reset_launch_counts` zeroes them
-all.
+all. The encoder's four kernels have a bf16 version each (operands and
+outputs bf16, f32 arithmetic), counted under the f32 name + `_bf16`.
 """
 from __future__ import annotations
 
@@ -13,14 +14,12 @@ from typing import Dict, Optional
 
 import torch
 
-launch_counts: Dict[str, int] = {'cg_aggregate_edge_fused_ri': 0,
-                                 'cg_aggregate_edge_fused_ri_bwd': 0,
-                                 'cg_square_fused_ri': 0,
-                                 'cg_square_fused_ri_bwd': 0,
-                                 'cg_contract_ri': 0,
-                                 'cg_contract_ri_bwd': 0,
-                                 'masked_softmax': 0,
-                                 'masked_softmax_bwd': 0}
+BF16_KERNELS = ('cg_aggregate_edge_fused_ri', 'cg_aggregate_edge_fused_ri_bwd',
+                'cg_square_fused_ri', 'cg_square_fused_ri_bwd')
+launch_counts: Dict[str, int] = {
+    name: 0 for name in BF16_KERNELS + tuple(n + '_bf16' for n in BF16_KERNELS)
+    + ('cg_contract_ri', 'cg_contract_ri_bwd', 'masked_softmax',
+       'masked_softmax_bwd')}
 
 # what one thread block may hold (H100: 227 KB of the SM's shared memory)
 MAX_SMEM = 232448
@@ -53,17 +52,28 @@ class TableCache:
 table_cache = TableCache()
 
 
+def operand_dtype(name, tensors, dtypes=(torch.float32, )):
+    """The one dtype of `tensors`, after checking that it is one of
+    `dtypes`; raises on another or on a mix (nothing is cast quietly)."""
+    dtype = tensors[0].dtype
+    if dtype not in dtypes:
+        raise TypeError(f'{name}: the kernel takes '
+                        f'{" or ".join(str(d) for d in dtypes)}, got {dtype}')
+    for t in tensors:
+        if t.dtype != dtype:
+            raise TypeError(f'{name}: operands of {dtype} and {t.dtype}; '
+                            'the kernel takes one dtype')
+    return dtype
+
+
 def check_cuda_operands(name, tensors, dtypes=(torch.float32, )):
     """The device of `tensors`, after checking that all lie on one CUDA
-    device, are contiguous and have one of `dtypes`; raises otherwise."""
+    device, are contiguous and share one of `dtypes`; raises otherwise."""
     device = tensors[0].device
+    operand_dtype(name, tensors, dtypes)
     for t in tensors:
         if t.device != device:
             raise ValueError(f'{name}: operands on {t.device} and {device}')
-        if t.dtype not in dtypes:
-            raise TypeError(f'{name}: the kernel takes '
-                            f'{" or ".join(str(d) for d in dtypes)}, got '
-                            f'{t.dtype}')
         if not t.is_contiguous():
             raise ValueError(f'{name}: the kernel takes contiguous tensors')
     if device.type != 'cuda':

@@ -107,7 +107,9 @@ def build_default_argparser() -> argparse.ArgumentParser:
                         help='SchNet interaction blocks (internal model)',
                         type=int, default=3)
     parser.add_argument('--encoder_dtype',
-                        help='compute dtype of the covariant CG stack',
+                        help='compute dtype of the covariant CG stack '
+                        '(bfloat16: the bf16 versions of the encoder\'s '
+                        'kernels; parameters and heads stay float32)',
                         type=str, choices=['float32', 'bfloat16'],
                         default='float32')
 
@@ -199,9 +201,6 @@ def check_supported(config: dict) -> None:
     if config.get('model') in ('internal', 'mlp'):
         refused.append(f"model '{config['model']}' "
                        '(ROADMAP.md Queue 2 item 6)')
-    if config.get('encoder_dtype', 'float32') != 'float32':
-        refused.append(f"encoder_dtype '{config['encoder_dtype']}' "
-                       '(ROADMAP.md Queue 1 item 4, bf16)')
     if (config.get('num_devices') or 0) > 1 or config.get('multihost'):
         refused.append('data parallelism (num_devices > 1, multihost; '
                        'ROADMAP.md Queue 2 item 8)')

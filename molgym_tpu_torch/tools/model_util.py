@@ -31,4 +31,5 @@ def build_model(config: dict, observation_space: ObservationSpace,
         min_max_distance=(config['min_mean_distance'],
                           config['max_mean_distance']),
         beta=float(beta) if beta is not None else None,
+        encoder_dtype=config.get('encoder_dtype'),
         device=device)

@@ -530,3 +530,77 @@ def test_aggregate_bwd_kernel_walk_matches_plain(maxl, atom_n_ells, N, tau,
         scale = float(plain.abs().max())
         np.testing.assert_allclose(mine, plain.numpy(), rtol=1e-5,
                                    atol=1e-5 * scale)
+
+
+# ---------------------------------------------------------------------------
+# the backwards' staging of g and Y (csrc/cg_aggregate_bwd.cu and
+# csrc/cg_square_bwd.cu, `stage_row`), walked in numpy for both operand
+# types: f32 rows by 16-byte copies from the line that holds their first
+# value (the row lies `lead` floats into its buffer), bf16 rows converted
+# value by value to the buffer's start. Rows of odd width start on any
+# 4-byte (f32) or 2-byte (bf16) boundary.
+# ---------------------------------------------------------------------------
+
+def _stage_row(flat, off, n, elem_bytes, buf_len):
+    """One row of n values at element `off` of `flat` (an allocation that
+    starts on a 256-byte boundary, as the caching allocator's do) staged into
+    a buffer of `buf_len` floats; returns (buffer, lead). Asserts that every
+    write stays in the buffer and every read inside the 16-byte lines that
+    hold the tensor's values."""
+    buf = np.full(buf_len, np.nan, np.float32)
+    if elem_bytes == 2:
+        lead = 0
+        for c in range(n):
+            buf[c] = flat[off + c]
+        return buf, lead
+    lead = (off * 4 % 16) // 4
+    line_end = -(-len(flat) // 4) * 4    # the last line that holds a value
+    c = 0
+    while 4 * c < lead + n:
+        src = off - lead + 4 * c
+        assert 0 <= src and src + 4 <= line_end
+        assert 4 * c + 4 <= buf_len
+        padded = np.concatenate([flat, np.zeros(4, np.float32)])
+        buf[4 * c:4 * c + 4] = padded[src:src + 4]
+        c += 1
+    return buf, lead
+
+
+@pytest.mark.parametrize('elem_bytes', [4, 2], ids=['f32', 'bf16'])
+@pytest.mark.parametrize('N,n_l,m2,k,tau', [
+    (7, 5, 25, 375, 10),     # SF6 levels 1-2
+    (7, 5, 1, 25, 3),        # SF6 level 0, odd channels
+    (10, 4, 16, 156, 7),     # stochastic level 1
+    (10, 4, 1, 16, 10),      # stochastic level 0
+    (3, 3, 9, 51, 5)])       # maxl 2: odd widths everywhere
+def test_staged_rows_land_where_the_kernels_read_them(elem_bytes, N, n_l, m2,
+                                                      k, tau):
+    """Every row of g and every run of Y rows a backward block stages, at
+    storage offsets that put f32 rows on each 4-byte and bf16 rows on each
+    2-byte position of a 16-byte line, reads back equal at its lead and fits
+    the buffers the host sizes (aggregate_bwd_smem, square_bwd_smem)."""
+    m1 = n_l * n_l
+    kp = fused_agg._padded_row(k)
+    plan = fused_agg.aggregate_bwd_plan(N, n_l, m1, m2, k, 1, 32)
+    ni = plan['rows']
+    rng = np.random.RandomState(k + tau)
+    B = 2
+    for shift in range(4):
+        g = rng.randn(B * N * tau * k + shift).astype(np.float32)
+        for row in range(B * N * tau):         # (b, i, t): one row of g
+            off = shift + row * k
+            buf, lead = _stage_row(g, off, k, elem_bytes, kp)
+            np.testing.assert_array_equal(buf[lead:lead + k], g[off:off + k])
+        if elem_bytes == 4 and shift % 2:
+            continue        # f32 harmonics are pairs, 8-byte aligned
+        nm = N * m1
+        y = rng.randn(B * N * nm * 2 + shift).astype(np.float32)
+        y_len = 2 * (ni * nm + 2)                # float2s with their slack
+        for b in range(B):
+            for i0 in range(0, N, ni):
+                n = 2 * min(ni, N - i0) * nm
+                off = shift + (b * N + i0) * nm * 2
+                buf, lead = _stage_row(y, off, n, elem_bytes, y_len)
+                assert lead % 2 == 0                 # whole pairs
+                np.testing.assert_array_equal(buf[lead:lead + n],
+                                              y[off:off + n])

@@ -8,7 +8,10 @@ one. The file imports no JAX, so that it also runs on a machine without it:
 
 Tolerance: 1e-4 relative and absolute (f32, another summation order); the
 agent's gradients within 1e-3 of each leaf's largest |g| on the CPU (or of
-1e-3 of the largest leaf's, for a leaf whose true gradient is zero)."""
+1e-3 of the largest leaf's, for a leaf whose true gradient is zero). The
+bf16 versions of the encoder's kernels within one bf16 ulp of their plain
+versions on the same bf16 operands (both compute in f32 and round once, so
+another summation order can move a rounding by one ulp at most)."""
 import numpy as np
 import pytest
 import torch
@@ -529,11 +532,12 @@ def test_agent_backward_reaches_every_parameter(cuda_device, cfg):
     # heads' two products and two softmaxes
     levels = cfg['num_cg_levels']
     launched = {k: v - before[k] for k, v in fused_agg.launch_counts.items()}
-    assert launched == {
-        'cg_aggregate_edge_fused_ri': levels, 'cg_square_fused_ri': levels,
-        'cg_aggregate_edge_fused_ri_bwd': levels,
-        'cg_square_fused_ri_bwd': levels, 'cg_contract_ri': 2,
-        'cg_contract_ri_bwd': 2, 'masked_softmax': 2, 'masked_softmax_bwd': 2}
+    assert launched == dict(
+        dict.fromkeys(launched, 0),     # no bf16 version in an f32 agent
+        cg_aggregate_edge_fused_ri=levels, cg_square_fused_ri=levels,
+        cg_aggregate_edge_fused_ri_bwd=levels,
+        cg_square_fused_ri_bwd=levels, cg_contract_ri=2,
+        cg_contract_ri_bwd=2, masked_softmax=2, masked_softmax_bwd=2)
     missing = [k for k, g in grads['cuda'].items() if g is None]
     assert not missing, f'no gradient on the card for {missing}'
     # a leaf whose true gradient is zero (the focus head's last bias: a
@@ -543,3 +547,147 @@ def test_agent_backward_reaches_every_parameter(cuda_device, cfg):
         scale = max(float(g.abs().max()), floor)
         err = float((grads['cuda'][k].cpu() - g).abs().max())
         assert err <= 1e-3 * scale, (k, err, scale)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 versions of the encoder's four kernels
+# ---------------------------------------------------------------------------
+
+def assert_within_one_ulp(got, ref):
+    """bf16 `got` within one bf16 ulp of bf16 `ref` everywhere:
+    |got - ref| <= 2^-7 |ref| + 1e-5 max |ref|."""
+    assert got.dtype == ref.dtype == torch.bfloat16
+    assert got.shape == ref.shape
+    g, r = got.float(), ref.float()
+    tol = 2.0 ** -7 * r.abs() + 1e-5 * float(r.abs().max())
+    worst = float(((g - r).abs() - tol).max()) if r.numel() else 0.0
+    assert worst <= 0.0, f'{worst} above one ulp'
+
+
+def _shifted(t, shift):
+    """`t` copied into a contiguous tensor whose storage starts `shift`
+    elements into its allocation (shift 1: every bf16 row of odd width
+    starts on a 2-byte, not a 4-byte, boundary)."""
+    if not shift:
+        return t.contiguous()
+    buf = torch.empty(t.numel() + shift, dtype=t.dtype, device=t.device)
+    out = buf[shift:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _launched(before):
+    return {k: v - before[k] for k, v in fused_agg.launch_counts.items() if
+            v != before[k]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shift', [0, 1])
+@pytest.mark.parametrize('full_atom', [False, True], ids=['level0', 'upper'])
+@pytest.mark.parametrize('maxl,N,tau', [(4, 7, 10), (3, 10, 10), (4, 7, 3),
+                                        (3, 10, 7), (2, 3, 5)])
+@pytest.mark.parametrize('B', [1, 10, 140])
+def test_bf16_aggregate_kernels_within_one_ulp(cuda_device, B, maxl, N, tau,
+                                               full_atom, shift):
+    """M = 25, 16 and 9, odd channel counts, rows that start on odd 2-byte
+    addresses: forward and backward against the plain versions on the same
+    bf16 operands, the backward the same bits twice, counted as bf16."""
+    atom_n_ells = maxl + 1 if full_atom else 1
+    args, table3, grouped, randn = _aggregate_case(
+        cuda_device, B, N, tau, maxl, atom_n_ells, B + N + tau + maxl + shift)
+    args = tuple(_shifted(x.to(torch.bfloat16), shift) for x in args)
+    before = dict(fused_agg.launch_counts)
+    out = fused_agg._aggregate_fwd_kernel(*args, table3, grouped)
+    torch.cuda.synchronize()
+    ref = fused_agg.cg_aggregate_edge_fused_ri_plain(*args, table3,
+                                                     grouped=grouped)
+    for o, r in zip(out, ref):
+        assert_within_one_ulp(o, r)
+    grads = tuple(_shifted(randn(*out[0].shape).to(torch.bfloat16), shift)
+                  for _ in range(2))
+    got = fused_agg._aggregate_bwd_kernel(*args, *grads, table3, grouped)
+    again = fused_agg._aggregate_bwd_kernel(*args, *grads, table3, grouped)
+    torch.cuda.synchronize()
+    assert _launched(before) == {'cg_aggregate_edge_fused_ri_bf16': 1,
+                                 'cg_aggregate_edge_fused_ri_bwd_bf16': 2}
+    ref = fused_agg.cg_aggregate_edge_fused_ri_bwd_plain(*args, *grads, table3,
+                                                         grouped=grouped)
+    for o, o2, r in zip(got, again, ref):
+        assert torch.equal(o, o2)
+        assert_within_one_ulp(o, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shift', [0, 1])
+@pytest.mark.parametrize('mode', ['tri', 'dense'])
+@pytest.mark.parametrize('maxl', [3, 4])
+@pytest.mark.parametrize('tau', [3, 10, 16])
+@pytest.mark.parametrize('B', [1, 10, 140])
+def test_bf16_square_kernels_within_one_ulp(cuda_device, B, tau, maxl, mode,
+                                            shift):
+    """Every tile of rows the host picks, M = 25 and 16, odd widths and odd
+    starting addresses: forward and backward against the plain versions on
+    the same bf16 operands, the backward the same bits twice."""
+    n_ells = maxl + 1
+    N = {3: 10, 4: 7}[maxl]
+    gen = torch.Generator(device=cuda_device).manual_seed(B + tau + maxl)
+    table3, _sl = cg._fused_cg_table(n_ells, n_ells, maxl)
+    tri = None
+    if mode == 'tri':
+        pairs, groups, _perm, _si = cg.fused_cg_table_tri(n_ells, maxl)
+        tri = (pairs, groups)
+
+    def bf16(*shape):
+        return _shifted(torch.randn(shape, generator=gen, device=cuda_device)
+                        .to(torch.bfloat16), shift)
+    a = (bf16(B, N, tau, n_ells ** 2), bf16(B, N, tau, n_ells ** 2))
+    before = dict(fused_agg.launch_counts)
+    out = fused_agg._square_fwd_kernel(*a, table3, None, tri)
+    torch.cuda.synchronize()
+    ref = fused_agg.cg_square_fused_ri_plain(*a, table3, tri=tri)
+    for o, r in zip(out, ref):
+        assert_within_one_ulp(o, r)
+    grads = (bf16(*out[0].shape), bf16(*out[0].shape))
+    got = fused_agg._square_bwd_kernel(*a, *grads, table3, None, tri)
+    again = fused_agg._square_bwd_kernel(*a, *grads, table3, None, tri)
+    torch.cuda.synchronize()
+    assert _launched(before) == {'cg_square_fused_ri_bf16': 1,
+                                 'cg_square_fused_ri_bwd_bf16': 2}
+    ref = fused_agg.cg_square_fused_ri_bwd_plain(*a, *grads, table3, tri=tri)
+    for o, o2, r in zip(got, again, ref):
+        assert torch.equal(o, o2)
+        assert_within_one_ulp(o, r)
+
+
+@pytest.mark.cuda
+def test_bf16_autograd_passes_bf16_cotangents(cuda_device):
+    """Through the public wrappers: bf16 outputs, bf16 gradients from
+    non-contiguous bf16 cotangents, the same as the plain backward's."""
+    args, table3, grouped, randn = _aggregate_case(cuda_device, 9, 7, 10, 4,
+                                                   5, 3)
+    sph, rad, q_r, q_i = (x.to(torch.bfloat16) for x in args)
+    leaves = [x.requires_grad_() for x in (rad, q_r, q_i)]
+    out = fused_agg.cg_aggregate_edge_fused_ri(sph, *leaves, table3,
+                                               grouped=grouped)
+    assert all(o.dtype == torch.bfloat16 for o in out)
+    # every other channel of a wider tensor: not contiguous
+    grads = tuple(randn(*out[0].shape[:-2], 2 * out[0].shape[-2],
+                        out[0].shape[-1]).to(torch.bfloat16)[..., ::2, :]
+                  for _ in range(2))
+    assert not grads[0].is_contiguous()
+    got = torch.autograd.grad(out, leaves, grads)
+    ref = fused_agg.cg_aggregate_edge_fused_ri_bwd_plain(
+        sph, *(x.detach() for x in leaves), *grads, table3, grouped=grouped)
+    for o, r in zip(got, ref):
+        assert_within_one_ulp(o, r)
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_mixed_dtypes(cuda_device):
+    n_ells = MAXL + 1
+    table3, _sl = cg._fused_cg_table(n_ells, n_ells, MAXL)
+    a = torch.randn((4, 3, n_ells ** 2), device=cuda_device)
+    with pytest.raises(TypeError, match='one dtype'):
+        fused_agg.cg_square_fused_ri(a, a.to(torch.bfloat16), table3)
+    with pytest.raises(TypeError, match='float16'):
+        fused_agg.cg_square_fused_ri(a.half(), a.half(), table3)

@@ -153,10 +153,13 @@ def test_heads_take_the_kernel_route_off_the_cpu(monkeypatch):
 def test_one_registry_counts_every_kernel():
     from molgym_tpu_torch.ops import fused_agg, kernel_common
     assert fused_agg.launch_counts is kernel_common.launch_counts
-    assert set(kernel_common.launch_counts) == {
-        'cg_aggregate_edge_fused_ri', 'cg_aggregate_edge_fused_ri_bwd',
-        'cg_square_fused_ri', 'cg_square_fused_ri_bwd', 'cg_contract_ri',
-        'cg_contract_ri_bwd', 'masked_softmax', 'masked_softmax_bwd'}
+    encoder = {'cg_aggregate_edge_fused_ri', 'cg_aggregate_edge_fused_ri_bwd',
+               'cg_square_fused_ri', 'cg_square_fused_ri_bwd'}
+    # the encoder's four kernels also have a bf16 version each
+    assert set(kernel_common.launch_counts) == encoder | {
+        name + '_bf16' for name in encoder} | {
+        'cg_contract_ri', 'cg_contract_ri_bwd', 'masked_softmax',
+        'masked_softmax_bwd'}
     kernel_common.launch_counts['masked_softmax'] = 3
     fused_agg.reset_launch_counts()
     assert not any(kernel_common.launch_counts.values())
