@@ -71,7 +71,27 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      and element wherever the f32 agent's choice is not a tie); 2 PPO
      iterations through molgym_tpu_torch.run with the checks of phase 7,
      the encoder's launches all on the bf16 counters and none on the f32
-     ones.
+     ones;
+ 10. the fourth path, SF6 with the PM6 reward on the host
+     (experiments/sf6_pm6/logs/sf6pm6_run-1.json): the native library
+     built from csrc/ into molgym_tpu_torch/_build (its seconds and the
+     host's cores logged); a 10-env x 14-step rollout of the SF6 agent at
+     full width through each of the in-step, serial and pipelined
+     transports from one generator state, every field of the three
+     trajectories and the generator's final state the same bits, each
+     placed atom's reward computed again by a fresh calculator equal to
+     the trajectory's in float32, and exact launch counts with the
+     pipelined transport's recomputed forwards; each transport over its
+     own copy of the library, so that each meets an empty energy cache,
+     the host's time in the policy's forwards and in the reward batches
+     and their overlap logged, and the three again in the reverse order
+     for the times' spread (the pipelined one also with the interpreter
+     switching threads every 0.5 ms); the same comparison with the host LJ
+     at epsilon 40, where the pipelined transport's low-reward fix-up must
+     fire; then 2 PPO iterations of the recorded run through
+     molgym_tpu_torch.run with --host_reward_mode=loop and the checks of
+     phase 7, recomputes included in the launch counts, and reward_time
+     and transport in every train record.
 
 The line before the last two is {"kernels": [...]}, then the card's name and
 power limit, and the last line is {"ok": true, "device": {...}}.
@@ -79,6 +99,7 @@ power limit, and the last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -715,6 +736,18 @@ STOCHASTIC = ['--name=stoch', '--formulas=C2H6O', '--size_range=4,9',
               '--log_level=WARNING']
 
 
+# experiments/sf6_pm6/logs/sf6pm6_run-1.json, cut to 2 iterations, with the
+# pipelined host loop
+SF6_PM6 = ['--name=sf6pm6', '--formulas=SF6', '--canvas_size=7',
+           '--symbols=X,S,F', '--bag_scale=5', '--model=covariant',
+           '--beta=-10', '--min_mean_distance=1.1', '--max_mean_distance=2.1',
+           '--num_envs=10', '--num_steps_per_iter=140',
+           '--mini_batch_size=140', '--reward=pm6', '--num_eval_episodes=1',
+           '--save_rollouts=eval', '--seed=1', '--num_steps=280',
+           '--host_reward_mode=loop', '--log_level=WARNING']
+PM6_ENVS = 10   # the recorded run's --num_envs
+
+
 def expected_launches(levels, forwards, passes, encoder_dtype='float32'):
     """The launch counts a run implies, of every counter. A policy forward
     launches one aggregate and one square per CG level (their bf16 versions
@@ -734,12 +767,14 @@ def expected_launches(levels, forwards, passes, encoder_dtype='float32'):
     return out
 
 
-def run_training(dev, entry, build_parser, argv, iterations):
+def run_training(dev, entry, build_parser, argv, iterations,
+                 transport='in_step'):
     """`iterations` PPO iterations of the run `argv` describes through the
     main of the module `entry` (`build_parser` makes its parser, for the
     configuration the checks read), from a checkpoint of random
     weights written first, so that the initial weights are known; the launch
-    counts are zeroed just before and read just after."""
+    counts are zeroed just before and read just after. Every training
+    rollout must name `transport`, and a host reward's its reward_time."""
     import tempfile
 
     from molgym_tpu_torch.ops import fused_agg
@@ -778,9 +813,15 @@ def run_training(dev, entry, build_parser, argv, iterations):
         if len(opt) != iterations or len(train) != iterations:
             raise AssertionError(f'{len(opt)} updates, {len(train)} rollouts')
         for rec in opt + train + evals:
-            bad = [k for k, v in rec.items() if not np.isfinite(v)]
+            bad = [k for k, v in rec.items()
+                   if not isinstance(v, str) and not np.isfinite(v)]
             if bad:
                 raise AssertionError(f'non-finite {bad} in {rec}')
+        host = config['reward'] not in ('device_lj', 'device_morse')
+        for rec in train:
+            if rec['transport'] != transport or host != ('reward_time' in rec):
+                raise AssertionError(f'train info {rec}: expected the '
+                                     f'{transport} transport')
         if min(r['num_opt_steps'] for r in opt) < 1:
             raise AssertionError(f'an update took no step: {opt}')
         after = agent.state_dict()
@@ -803,9 +844,11 @@ def run_training(dev, entry, build_parser, argv, iterations):
     # forwards: a rollout of 14 steps per env makes 15 (the bootstrap), an
     # eval rollout of one episode canvas_size + 1 steps and the bootstrap;
     # every gradient pass makes one forward and one backward
+    # a pipelined rollout computes a forward again after a low reward
     passes = sum(r['num_grad_passes'] for r in opt)
+    recomputes = sum(r.get('recomputes', 0) for r in train + evals)
     forwards = (len(train) * (NUM_STEPS + 1)
-                + len(evals) * (config['canvas_size'] + 2))
+                + len(evals) * (config['canvas_size'] + 2) + recomputes)
     expected = expected_launches(agent.encoder.num_cg_levels, forwards, passes,
                                  config['encoder_dtype'])
     if counts != expected:
@@ -818,7 +861,9 @@ def run_training(dev, entry, build_parser, argv, iterations):
                 total_loss=[r['total_loss'] for r in opt],
                 approx_kl=[r['approx_kl'] for r in opt],
                 return_mean=[r['return_mean'] for r in train],
-                eval_return_mean=[r['return_mean'] for r in evals])
+                eval_return_mean=[r['return_mean'] for r in evals],
+                recomputes=recomputes,
+                reward_time_s=[r.get('reward_time') for r in train])
 
 
 def run_rollout(dev, env, agent, agent_kwargs, max_episode_len):
@@ -945,6 +990,190 @@ def run_stochastic_rollout(dev):
                 bag_size_mean=float(sizes.mean()))
 
 
+def build_host_library():
+    """The native library from csrc/ into molgym_tpu_torch/_build, timed,
+    with the host's cores (the library's pool takes one thread a core)."""
+    from molgym_tpu_torch import host_build
+    t0 = time.perf_counter()
+    path = host_build.build()
+    return dict(seconds=time.perf_counter() - t0, library=os.path.relpath(path),
+                nproc=len(os.sched_getaffinity(0)), cpu_count=os.cpu_count())
+
+
+def recompute_rewards(traj, space, calculator, min_reward):
+    """Every placed atom's reward computed again by `calculator` from the
+    trajectory's float32 canvases and positions, clamped at min_reward in
+    float32 as the env does; the number of placed atoms, and the largest
+    difference from the trajectory's rewards (0: the same bits)."""
+    zs_table = np.asarray(space.zs)
+    elements = traj.obs.elements.cpu().numpy()
+    positions = traj.obs.positions.cpu().numpy()
+    next_el = traj.next_obs.elements.cpu().numpy()
+    next_pos = traj.next_obs.positions.cpu().numpy()
+    n_obs, n_next = (elements != 0).sum(-1), (next_el != 0).sum(-1)
+    t_idx, b_idx = np.nonzero(n_next > n_obs)
+    slot = n_obs[t_idx, b_idx]
+    raw = calculator.batch_reward(
+        zs_table[elements[t_idx, b_idx]], positions[t_idx, b_idx],
+        n_obs[t_idx, b_idx], zs_table[next_el[t_idx, b_idx, slot]],
+        next_pos[t_idx, b_idx, slot], np.ones(len(t_idx), np.uint8))
+    want = np.maximum(raw.astype(np.float32), np.float32(min_reward))
+    got = traj.rewards.cpu().numpy()[t_idx, b_idx]
+    return len(t_idx), float(np.abs(got - want).max(initial=0.0))
+
+
+class Spans:
+    """Host-clock spans of the calls to `obj.method` (a policy's `act`, a
+    calculator's `batch_reward`), recorded by a wrapper set on the instance
+    until `close`, and the time they overlap another Spans' calls."""
+
+    def __init__(self, obj, method):
+        self.obj, self.method, self.spans = obj, method, []
+        inner = getattr(obj, method)
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = inner(*args, **kwargs)
+            self.spans.append((t0, time.perf_counter()))
+            return out
+        setattr(obj, method, timed)
+
+    def close(self):
+        delattr(self.obj, self.method)
+
+    def total_ms(self):
+        return sum(b - a for a, b in self.spans) * 1e3
+
+    def overlap_ms(self, other):
+        return sum(max(0.0, min(b, d) - max(a, c))
+                   for a, b in self.spans for c, d in other.spans) * 1e3
+
+
+def run_host_transports(dev, method, epsilon, tmp):
+    """A PM6_ENVS x NUM_STEPS rollout of the SF6 agent (full width, random
+    weights from a seed) with the host reward `method`, through each of the
+    in-step, serial and pipelined transports from one generator state, each
+    over its own copy of the library (under `tmp`), so that each meets an
+    empty energy cache and does the same work; the launch counts zeroed
+    before each and read after. Every field of the trajectories and the
+    generator's final state the same bits, each placed atom's reward
+    computed again by a fresh calculator equal to the trajectory's, and
+    exact launch counts (T + 1 forwards, and one for each recompute). A
+    second round, in the reverse order, gives the times' spread. Each run
+    also reports the host's time in the policy's `act` calls and in the
+    reward batches, and how long the two overlapped."""
+    import shutil
+    import tempfile
+
+    from molgym_tpu_torch import host_build
+    from molgym_tpu_torch.agents.covariant import CovariantAC
+    from molgym_tpu_torch.calculators import native
+    from molgym_tpu_torch.calculators.reward_host import (
+        TimedBatchCalculator, make_host_reward)
+    from molgym_tpu_torch.envs.environment import MolecularEnv
+    from molgym_tpu_torch.formula import string_to_formula
+    from molgym_tpu_torch.ops import fused_agg
+    from molgym_tpu_torch.rl import rollout as rl
+    from molgym_tpu_torch.spaces import ObservationSpace
+
+    space = ObservationSpace(canvas_size=7, zs=list(SF6_AGENT['zs']))
+    bag = space.bag_from_formula(string_to_formula('SF6'))
+    env = MolecularEnv(make_host_reward(native.NativeBatchCalculator(
+        method, epsilon)), space, bag[None], device=dev)
+    torch.manual_seed(SEED + 3)
+    agent = CovariantAC(**SF6_AGENT, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    rl.make_rollout_fn(env, agent, 2)(agent, env.init_states(PM6_ENVS, gen),
+                                      gen)   # warm-up: tables, allocator
+
+    def one(name):
+        # a new file each time: a loaded library's file is never written
+        lib = tempfile.mkdtemp(dir=tmp) + '/libmolgym_host.so'
+        shutil.copy(host_build.build(), lib)
+        calc = native.NativeBatchCalculator(method, epsilon)
+        calc.lib = native.open_library(lib)
+        calc = TimedBatchCalculator(calc)
+        batches = Spans(calc, 'batch_reward')
+        actor = Spans(agent, 'act')
+        env.reward_fn = make_host_reward(calc)
+        fn = {'in_step': lambda: rl.make_rollout_fn(env, agent, NUM_STEPS),
+              'serial': lambda: rl.make_host_loop_rollout_fn(
+                  env, agent, calc, NUM_STEPS),
+              'pipelined': lambda: rl.make_pipelined_host_rollout_fn(
+                  env, agent, calc, NUM_STEPS)}[name]()
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        states = env.init_states(PM6_ENVS, gen)
+        torch.cuda.synchronize()
+        fused_agg.reset_launch_counts()
+        t0 = time.perf_counter()
+        states, traj = fn(agent, states, gen)
+        torch.cuda.synchronize()
+        actor.close()
+        batches.close()
+        rel = lambda spans: [[round((a - t0) * 1e3, 2), round((b - t0) * 1e3, 2)]
+                             for a, b in spans]
+        res = dict(ms=(time.perf_counter() - t0) * 1e3,
+                   act_spans_ms=rel(actor.spans),
+                   reward_spans_ms=rel(batches.spans),
+                   act_host_ms=actor.total_ms(),
+                   act_reward_overlap_ms=actor.overlap_ms(batches),
+                   reward_ms=calc.total_time * 1e3,
+                   reward_calls=calc.total_calls,
+                   pool_evals_batches=calc.pool_stats(),
+                   recomputes=getattr(fn, 'recomputes', 0),
+                   counts=dict(fused_agg.launch_counts))
+        expected = expected_launches(agent.encoder.num_cg_levels,
+                                     NUM_STEPS + 1 + res['recomputes'], 0)
+        if res['counts'] != expected:
+            raise AssertionError(f'{name}: launches {res["counts"]}, '
+                                 f'expected {expected}')
+        if res['reward_calls'] != NUM_STEPS:
+            raise AssertionError(f'{name}: {res["reward_calls"]} reward calls')
+        return res, (states, traj, gen.get_state())
+
+    names = ('in_step', 'serial', 'pipelined')
+    runs = {name: one(name) for name in names}
+    again = {name: one(name)[0] for name in reversed(names)}
+    # the pipelined transport with the interpreter switching threads every
+    # 0.5 ms instead of 5: how much of its overlap the lock's handoffs take
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(0.0005)
+    try:
+        again['pipelined_switch_0.5ms'] = one('pipelined')[0]
+    finally:
+        sys.setswitchinterval(switch)
+    _ref_res, (ref_states, ref, ref_gen) = runs['in_step']
+    for name in ('serial', 'pipelined'):
+        _res, (states, traj, gen_state) = runs[name]
+        same = [torch.equal(getattr(traj, f), getattr(ref, f)) for f in (
+            'rewards', 'terminals', 'actions', 'logps', 'values',
+            'bootstrap_value')]
+        same += [torch.equal(getattr(getattr(traj, o), f),
+                             getattr(getattr(ref, o), f))
+                 for o in ('obs', 'next_obs')
+                 for f in ('elements', 'positions', 'bag')]
+        same += [torch.equal(states.elements, ref_states.elements),
+                 torch.equal(gen_state, ref_gen)]
+        if not all(same):
+            raise AssertionError(f'{name} transport: another trajectory than '
+                                 f'the in-step one ({same})')
+    if not torch.isfinite(ref.rewards).all():
+        raise AssertionError('non-finite rewards')
+    placed, err = recompute_rewards(
+        ref, space, native.NativeBatchCalculator(method, epsilon),
+        env.min_reward)
+    if err != 0.0 or placed == 0:
+        raise AssertionError(f'recomputed rewards of {placed} placed atoms '
+                             f'differ by {err}')
+    strip = lambda r: {k: v for k, v in r.items() if k != 'counts'}
+    return dict(placed_atoms=placed,
+                steps_at_min_reward=int((ref.rewards <= env.min_reward).sum()),
+                mean_reward=float(ref.rewards.mean()),
+                counts=runs['pipelined'][0]['counts'],
+                transports={n: strip(r) for n, (r, _t) in runs.items()},
+                again={n: strip(r) for n, r in again.items()})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log('chip_smoke: no CUDA device is visible')
@@ -1060,6 +1289,30 @@ def main() -> int:
                                  CANONICAL_BF16, iterations=2)
     log('bf16 training:', json.dumps(bf16_training))
 
+    # the fourth path: SF6 with the PM6 reward on the host
+    import tempfile
+
+    from molgym_tpu_torch.calculators.native import METHOD_LJ, METHOD_PM6
+    host_lib = build_host_library()
+    log('host library:', json.dumps(host_lib))
+    with tempfile.TemporaryDirectory() as tmp:
+        pm6 = run_host_transports(dev, METHOD_PM6, 0.0, tmp)
+        log('pm6 transports:', json.dumps(pm6))
+        for kind in ('transports', 'again'):
+            log(f'pm6 rollout {PM6_ENVS} envs x {NUM_STEPS} steps, cold '
+                f'cache ({kind}): ' +
+                ', '.join(f'{n} {r["ms"]:.1f} ms (reward {r["reward_ms"]:.1f}'
+                          f' ms, {r["recomputes"]} recomputes)'
+                          for n, r in pm6[kind].items()) +
+                f' on {card}, nproc {host_lib["nproc"]}')
+        fixup = run_host_transports(dev, METHOD_LJ, 40.0, tmp)
+        log('lj epsilon 40 transports:', json.dumps(fixup))
+    if fixup['transports']['pipelined']['recomputes'] < 1:
+        raise AssertionError('the low-reward fix-up did not fire')
+    pm6_training = run_training(dev, run, build_default_argparser, SF6_PM6,
+                                iterations=2, transport='pipelined')
+    log('pm6 training:', json.dumps(pm6_training))
+
     def entry(name, source, replaces, main, others, path=training, **extra):
         """A kernel's line: `launches` from the run of its main path (the
         SF6 training for the f32 kernels, the bf16 SF6 training for the
@@ -1075,6 +1328,8 @@ def main() -> int:
                     stochastic_rollout_launches=stoch_rollout['counts'][name],
                     stochastic_training_launches=stoch_training['counts'][name],
                     bf16_training_launches=bf16_training['counts'][name],
+                    pm6_rollout_launches=pm6['counts'][name],
+                    pm6_training_launches=pm6_training['counts'][name],
                     **extra)
 
     def entry16(name, source, replaces, main, others, **extra):
@@ -1171,7 +1426,10 @@ def main() -> int:
                                          for k, v in sq_bwd16.items()}},
                       'bf16_agent_grads': bf16_grads,
                       'bf16_vs_f32': bf16_vs_f32,
-                      'bf16_training': bf16_training}))
+                      'bf16_training': bf16_training,
+                      'host_library': host_lib, 'pm6_transports': pm6,
+                      'lj_fixup_transports': fixup,
+                      'pm6_training': pm6_training}))
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

@@ -1,5 +1,6 @@
 """Minimal host-side molecule container (the port's own copy of the parts of
-molgym_tpu/atoms.py that the observation space uses)."""
+molgym_tpu/atoms.py that the observation space, the reward classes and the
+minimizer use)."""
 from __future__ import annotations
 
 from typing import Iterable, List, Optional, Sequence, Union
@@ -56,6 +57,24 @@ class Atoms:
         self._positions = np.concatenate(
             [self._positions, atom.position.reshape(1, 3)], axis=0)
 
+    def copy(self) -> 'Atoms':
+        return Atoms(list(self._zs), self._positions.copy())
+
+    @property
+    def numbers(self) -> np.ndarray:
+        return np.asarray(self._zs, dtype=np.int64)
+
+    @property
+    def symbols(self) -> List[str]:
+        return [CHEMICAL_SYMBOLS[z] for z in self._zs]
+
     @property
     def positions(self) -> np.ndarray:
         return self._positions
+
+    @positions.setter
+    def positions(self, value) -> None:
+        value = np.asarray(value, dtype=np.float64).reshape(-1, 3)
+        if len(value) != len(self._zs):
+            raise ValueError(f'{len(value)} positions for {len(self._zs)} atoms')
+        self._positions = value

@@ -1,5 +1,7 @@
 """Device rewards (counterpart of molgym_tpu/envs/reward.py): Lennard-Jones
-and Morse pair potentials between the new atom and the canvas.
+and Morse pair potentials between the new atom and the canvas, and the
+solvation distance penalty. The host rewards (PM6, EHT, the native pair
+potentials) have the same contract: calculators/reward_host.py.
 
 Batched reward contract:
     reward_fn(positions[B,N,3], zs[B,N], new_pos[B,3], new_z[B], valid[B])
@@ -9,7 +11,7 @@ reward is needed.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Iterable
 
 import numpy as np
 import torch
@@ -65,3 +67,21 @@ def make_morse_reward(depth: float = 0.15, a: float = 1.7) -> RewardFn:
         return torch.where(valid, -interaction, torch.zeros_like(interaction)).float()
 
     return reward_fn
+
+
+def with_solvation_penalty(reward_fn: RewardFn,
+                           distance_penalty: float = 0.01) -> RewardFn:
+    """`reward_fn` less distance_penalty * |new_pos| where valid (the
+    reference's SolvationReward, molgym/reward.py:75-100)."""
+
+    def wrapped(positions, zs, new_pos, new_z, valid):
+        base = reward_fn(positions, zs, new_pos, new_z, valid)
+        dist = torch.linalg.norm(new_pos, dim=-1)
+        return torch.where(valid, base - distance_penalty * dist, base).float()
+
+    return wrapped
+
+
+def get_minimum_spin_multiplicity(zs: Iterable[int]) -> int:
+    """(sum of Z) mod 2 + 1 (reference molgym/reward.py:17-19)."""
+    return int(sum(int(z) for z in zs)) % 2 + 1

@@ -8,7 +8,19 @@ The canonical SF6 covariant run, on the card:
         --num_envs=10 --num_steps_per_iter=140 --mini_batch_size=140 \\
         --reward=device_lj --num_steps=50000
 
-Add `--device=cpu` to run on the CPU (slow; for tiny configurations).
+The recorded SF6 run with the PM6 reward (experiments/sf6_pm6/logs/
+sf6pm6_run-1.json), its reward computed on the host by the native library:
+
+    python3 -m molgym_tpu_torch.run --name=sf6pm6 --formulas=SF6 \\
+        --canvas_size=7 --symbols=X,S,F --bag_scale=5 --model=covariant \\
+        --beta=-10 --min_mean_distance=1.1 --max_mean_distance=2.1 \\
+        --num_envs=10 --num_steps_per_iter=140 --mini_batch_size=140 \\
+        --reward=pm6 --host_reward_mode=auto --num_eval_episodes=1 \\
+        --save_rollouts=eval --num_steps=15120 --seed=1
+
+`--host_reward_mode=loop` overlaps each step's host reward with the next
+policy forward; `loop_serial` steps strictly in order. Add `--device=cpu`
+to run on the CPU (slow; for tiny configurations).
 """
 from __future__ import annotations
 

@@ -14,7 +14,10 @@ on the card:
         --mini_batch_size=140 --reward=device_lj --num_steps=7000 \\
         --save_rollouts=eval --seed=1
 
-Add `--device=cpu` to run on the CPU (slow; for tiny configurations).
+The same run with the PM6 reward on the host (experiments/stochastic_pm6)
+takes `--reward=pm6 --maxl=4 --num_cg_levels=3` in place of the device LJ
+reward and the narrower agent. Add `--device=cpu` to run on the CPU (slow;
+for tiny configurations).
 """
 from __future__ import annotations
 

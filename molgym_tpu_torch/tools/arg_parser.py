@@ -10,8 +10,6 @@ from __future__ import annotations
 
 import argparse
 
-DEVICE_REWARDS = ('device_lj', 'device_morse')
-
 
 def build_default_argparser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
@@ -67,14 +65,20 @@ def build_default_argparser() -> argparse.ArgumentParser:
 
     # Reward backend
     parser.add_argument('--reward',
-                        help='reward backend; the port runs the on-device '
-                             'pair potentials device_lj and device_morse',
+                        help='reward backend: pm6 (native NDDO SCF on the '
+                             'host), sparrow (PM6 via scine when installed), '
+                             'eht (native extended Hückel), lj/morse (native '
+                             'pair potentials on the host), '
+                             'device_lj/device_morse (on the device)',
                         type=str, default='sparrow',
                         choices=['sparrow', 'pm6', 'eht', 'lj', 'morse',
                                  'device_lj', 'device_morse'])
     parser.add_argument('--host_reward_mode',
-                        help='host reward transport (host rewards are not '
-                             'ported: auto only)',
+                        help='host reward transport: auto and callback call '
+                             'the host inside the env step; loop overlaps '
+                             'the host reward with the next policy forward '
+                             '(pipelined); loop_serial steps strictly in '
+                             'order',
                         type=str, default='auto',
                         choices=['auto', 'callback', 'loop', 'loop_serial'])
     parser.add_argument('--num_reward_threads',
@@ -191,13 +195,6 @@ def check_supported(config: dict) -> None:
     """Raises NotImplementedError for every option value the port does not
     run yet, naming the ROADMAP.md item that will bring it."""
     refused = []
-    if config.get('reward', 'sparrow') not in DEVICE_REWARDS:
-        refused.append(f"reward '{config.get('reward', 'sparrow')}' (host "
-                       'rewards: ROADMAP.md Queue 2 item 4; the port runs '
-                       f'{", ".join(DEVICE_REWARDS)})')
-    if config.get('host_reward_mode', 'auto') != 'auto':
-        refused.append(f"host_reward_mode '{config['host_reward_mode']}' "
-                       '(ROADMAP.md Queue 2 item 4)')
     if config.get('model') in ('internal', 'mlp'):
         refused.append(f"model '{config['model']}' "
                        '(ROADMAP.md Queue 2 item 6)')

@@ -2,12 +2,12 @@
 logger, config snapshot, seeds, device, spaces, reward, model build or
 resume, and the PPO launch.
 
-The port runs the on-device rewards only; `arg_parser.check_supported`
-refuses every option it does not run yet before anything is built."""
+`arg_parser.check_supported` refuses every option the port does not run
+yet before anything is built."""
 from __future__ import annotations
 
 import logging
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,16 +31,46 @@ def symbols_to_zs(symbols: str):
     return [ATOMIC_NUMBERS[s.strip()] for s in symbols.split(',')]
 
 
-def make_reward_fn(config: dict) -> RewardFn:
-    """The batched device reward of `config['reward']`."""
+def make_reward_fn(config: dict, solvation: bool = False
+                   ) -> Tuple[RewardFn, Optional[object], float]:
+    """(batched RewardFn, host batch calculator or None, distance penalty)
+    of `config['reward']`. A host reward's calculator is a
+    TimedBatchCalculator, and its RewardFn calls the host in the env's
+    step; the penalty (config['distance_penalty'] with `solvation`, else 0)
+    is returned so that the host-loop transports apply the same one."""
     backend = config.get('reward', 'sparrow')
-    if backend == 'device_lj':
-        return device_reward.make_lennard_jones_reward()
-    if backend == 'device_morse':
-        return device_reward.make_morse_reward()
-    raise NotImplementedError(
-        f"reward '{backend}' is not yet ported (host rewards: ROADMAP.md "
-        'Queue 2 item 4); use device_lj or device_morse')
+    penalty = config.get('distance_penalty', 0.01) if solvation else 0.0
+    device_fns = {'device_lj': device_reward.make_lennard_jones_reward,
+                  'device_morse': device_reward.make_morse_reward}
+    if backend in device_fns:
+        fn = device_fns[backend]()
+        if solvation:
+            fn = device_reward.with_solvation_penalty(fn, penalty)
+        return fn, None, penalty
+
+    from molgym_tpu_torch.calculators.reward_host import (
+        TimedBatchCalculator, make_host_reward)
+    if backend == 'sparrow':
+        from molgym_tpu_torch.calculators.sparrow import SparrowBatchCalculator
+        calc = SparrowBatchCalculator(
+            num_threads=config.get('num_reward_threads', 8))
+    else:
+        from molgym_tpu_torch.calculators.native import (METHODS,
+                                                         NativeBatchCalculator)
+        calc = NativeBatchCalculator(method=METHODS[backend])
+    calc = TimedBatchCalculator(calc)
+    return make_host_reward(calc, distance_penalty=penalty), calc, penalty
+
+
+def host_transport(mode: str, host_calc) -> Tuple[Optional[object], object]:
+    """(host-loop calculator or None, batch_ppo's host_loop_pipelined) of
+    --host_reward_mode. A step of the port can always reach the host, so
+    'auto' and 'callback' take the in-step transport, as the JAX package
+    does on backends with io_callback; 'loop' is the pipelined host loop,
+    'loop_serial' the serial one."""
+    if host_calc is None or mode not in ('loop', 'loop_serial'):
+        return None, True
+    return host_calc, mode == 'loop'
 
 
 EnvBuilder = Callable[[dict, ObservationSpace, RewardFn, torch.device],
@@ -85,6 +115,9 @@ def run_experiment(config: dict, env_builder: EnvBuilder = standard_envs,
     check_supported(config)
     device = resolve_device(device if device is not None
                             else config.get('device'))
+    # a host reward's calculator first: its library builds, or a missing
+    # backend (scine) raises, before anything is written
+    reward_fn, host_calc, distance_penalty = make_reward_fn(config)
     util.create_directories([config['log_dir'], config['model_dir'],
                              config['data_dir'], config['results_dir']])
     tag = util.get_tag(config)
@@ -97,7 +130,8 @@ def run_experiment(config: dict, env_builder: EnvBuilder = standard_envs,
 
     observation_space = ObservationSpace(canvas_size=config['canvas_size'],
                                          zs=symbols_to_zs(config['symbols']))
-    reward_fn = make_reward_fn(config)
+    host_loop_calc, pipelined = host_transport(
+        config.get('host_reward_mode', 'auto'), host_calc)
     train_env, eval_env = env_builder(config, observation_space, reward_fn,
                                       device)
 
@@ -124,7 +158,7 @@ def run_experiment(config: dict, env_builder: EnvBuilder = standard_envs,
                      if save_mode != 'none' else None)
     info_saver = util.InfoSaver(directory=config['results_dir'], tag=tag)
 
-    return batch_ppo(
+    result = batch_ppo(
         train_env, eval_env, agent,
         optimizer=optimizer,
         num_envs=config['num_envs'],
@@ -145,4 +179,11 @@ def run_experiment(config: dict, env_builder: EnvBuilder = standard_envs,
         save_eval_rollout=save_mode in ('eval', 'all'),
         info_saver=info_saver,
         seed=config['seed'],
+        host_loop_calculator=host_loop_calc,
+        host_distance_penalty=distance_penalty,
+        host_loop_pipelined=pipelined,
+        host_reward_timer=host_calc,
     )
+    if host_calc is not None:
+        logging.info(f'Host reward pool stats: {host_calc.pool_stats()}')
+    return result

@@ -1,10 +1,12 @@
 """The port's experiment driver on the CPU: the CLI's flags, a tiny covariant
 run of two PPO iterations through `run_experiment` with its JSON-lines
-streams and checkpoint, a resume from that checkpoint, and the refusal of
-every option the port does not run yet."""
+streams and checkpoint, a resume from that checkpoint, an iteration of each
+host reward and transport, and the refusal of every option the port does
+not run yet."""
 import json
 import pickle
 
+import numpy as np
 import pytest
 import torch
 
@@ -162,12 +164,10 @@ def test_run_stochastic_main_parses_the_cli(monkeypatch):
 
 
 @pytest.mark.parametrize('flag,match', [
-    ('--reward=sparrow', 'Queue 2 item 4'), ('--reward=pm6', 'Queue 2 item 4'),
-    ('--reward=lj', 'Queue 2 item 4'), ('--model=internal', 'Queue 2 item 6'),
+    ('--model=internal', 'Queue 2 item 6'),
     ('--num_devices=4', 'Queue 2 item 8'), ('--multihost', 'Queue 2 item 8'),
     ('--tensorboard', 'tensorboard'), ('--agg_backend=einsum', 'agg_backend'),
-    ('--profile', 'profile'),
-    ('--host_reward_mode=loop', 'Queue 2 item 4')])
+    ('--profile', 'profile')])
 def test_unported_options_are_refused(tmp_path, flag, match):
     config = _config(tmp_path, flag)
     with pytest.raises(NotImplementedError, match=match):
@@ -175,3 +175,50 @@ def test_unported_options_are_refused(tmp_path, flag, match):
     with pytest.raises(NotImplementedError, match=match):
         run_experiment(config, device='cpu')
     assert not (tmp_path / 'results').exists()
+
+
+def test_sparrow_reward_raises_through_its_gate(tmp_path):
+    """--reward=sparrow is accepted, and its calculator raises where scine
+    is not installed, before anything is written."""
+    config = _config(tmp_path, '--reward=sparrow')
+    check_supported(config)
+    with pytest.raises(RuntimeError, match='scine_sparrow'):
+        run_experiment(config, device='cpu')
+    assert not (tmp_path / 'results').exists()
+
+
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread while the test runs: the suite runs six workers
+    on the host's cores, and torch's thread pool then waits at its barriers
+    for threads the other workers hold."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.usefixtures('one_torch_thread')
+@pytest.mark.parametrize('flags,transport', [
+    (['--reward=pm6'], 'in_step'), (['--reward=eht'], 'in_step'),
+    (['--reward=lj'], 'in_step'), (['--reward=morse'], 'in_step'),
+    (['--reward=pm6', '--host_reward_mode=loop'], 'pipelined'),
+    (['--reward=pm6', '--host_reward_mode=loop_serial'], 'serial'),
+    (['--reward=pm6', '--host_reward_mode=callback'], 'in_step')],
+    ids=['pm6', 'eht', 'lj', 'morse', 'pm6-loop', 'pm6-loop_serial',
+         'pm6-callback'])
+def test_host_reward_options_run(tmp_path, flags, transport):
+    """Each host reward and transport passes check_supported and trains an
+    iteration; the train info names the transport and the seconds spent in
+    the host reward, and the pipelined transport counts its recomputes."""
+    config = _config(tmp_path, '--num_steps=8', '--save_rollouts=none', *flags)
+    check_supported(config)
+    run_experiment(config, device='cpu')
+    (train, ) = _lines(tmp_path / 'results' / 'tiny_run-1_train.txt')
+    assert train['transport'] == transport
+    assert train['reward_time'] > 0
+    assert ('recomputes' in train) == (transport == 'pipelined')
+    (opt, ) = _lines(tmp_path / 'results' / 'tiny_run-1_opt.txt')
+    assert opt['num_opt_steps'] >= 1 and opt['total_loss'] == opt['total_loss']
+    (evals, ) = _lines(tmp_path / 'results' / 'tiny_run-1_eval.txt')
+    assert np.isfinite(evals['return_mean'])
