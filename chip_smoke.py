@@ -76,19 +76,15 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      (experiments/sf6_pm6/logs/sf6pm6_run-1.json): the native library
      built from csrc/ into molgym_tpu_torch/_build (its seconds and the
      host's cores logged); a 10-env x 14-step rollout of the SF6 agent at
-     full width through each of the in-step, serial and pipelined
-     transports from one generator state, every field of the three
-     trajectories and the generator's final state the same bits, each
+     full width through the pipelined and the in-step transports from one
+     generator state (the in-step one is also the serial host loop, and
+     meets the energy cache the pipelined one filled), every field of the
+     two trajectories and the generator's final state the same bits, each
      placed atom's reward computed again by a fresh calculator equal to
      the trajectory's in float32, and exact launch counts with the
-     pipelined transport's recomputed forwards; each transport over its
-     own copy of the library, so that each meets an empty energy cache,
-     the host's time in the policy's forwards and in the reward batches
-     and their overlap logged, and the three again in the reverse order
-     for the times' spread (the pipelined one also with the interpreter
-     switching threads every 0.5 ms); the same comparison with the host LJ
-     at epsilon 40, where the pipelined transport's low-reward fix-up must
-     fire; then 2 PPO iterations of the recorded run through
+     pipelined transport's recomputed forwards; the same comparison with
+     the host LJ at epsilon 40, where the pipelined transport's low-reward
+     fix-up must fire; then 2 PPO iterations of the recorded run through
      molgym_tpu_torch.run with --host_reward_mode=loop and the checks of
      phase 7, recomputes included in the launch counts, and reward_time
      and transport in every train record.
@@ -1022,50 +1018,16 @@ def recompute_rewards(traj, space, calculator, min_reward):
     return len(t_idx), float(np.abs(got - want).max(initial=0.0))
 
 
-class Spans:
-    """Host-clock spans of the calls to `obj.method` (a policy's `act`, a
-    calculator's `batch_reward`), recorded by a wrapper set on the instance
-    until `close`, and the time they overlap another Spans' calls."""
-
-    def __init__(self, obj, method):
-        self.obj, self.method, self.spans = obj, method, []
-        inner = getattr(obj, method)
-
-        def timed(*args, **kwargs):
-            t0 = time.perf_counter()
-            out = inner(*args, **kwargs)
-            self.spans.append((t0, time.perf_counter()))
-            return out
-        setattr(obj, method, timed)
-
-    def close(self):
-        delattr(self.obj, self.method)
-
-    def total_ms(self):
-        return sum(b - a for a, b in self.spans) * 1e3
-
-    def overlap_ms(self, other):
-        return sum(max(0.0, min(b, d) - max(a, c))
-                   for a, b in self.spans for c, d in other.spans) * 1e3
-
-
-def run_host_transports(dev, method, epsilon, tmp):
+def run_host_transports(dev, method, epsilon):
     """A PM6_ENVS x NUM_STEPS rollout of the SF6 agent (full width, random
-    weights from a seed) with the host reward `method`, through each of the
-    in-step, serial and pipelined transports from one generator state, each
-    over its own copy of the library (under `tmp`), so that each meets an
-    empty energy cache and does the same work; the launch counts zeroed
-    before each and read after. Every field of the trajectories and the
+    weights from a seed) with the host reward `method`, through the
+    pipelined and then the in-step transport from one generator state; the
+    launch counts zeroed before each and read after. The library's energy
+    cache is the process's: the in-step run meets the geometries the
+    pipelined one computed. Every field of the trajectories and the
     generator's final state the same bits, each placed atom's reward
     computed again by a fresh calculator equal to the trajectory's, and
-    exact launch counts (T + 1 forwards, and one for each recompute). A
-    second round, in the reverse order, gives the times' spread. Each run
-    also reports the host's time in the policy's `act` calls and in the
-    reward batches, and how long the two overlapped."""
-    import shutil
-    import tempfile
-
-    from molgym_tpu_torch import host_build
+    exact launch counts (T + 1 forwards, and one for each recompute)."""
     from molgym_tpu_torch.agents.covariant import CovariantAC
     from molgym_tpu_torch.calculators import native
     from molgym_tpu_torch.calculators.reward_host import (
@@ -1078,48 +1040,26 @@ def run_host_transports(dev, method, epsilon, tmp):
 
     space = ObservationSpace(canvas_size=7, zs=list(SF6_AGENT['zs']))
     bag = space.bag_from_formula(string_to_formula('SF6'))
-    env = MolecularEnv(make_host_reward(native.NativeBatchCalculator(
-        method, epsilon)), space, bag[None], device=dev)
+    calc = TimedBatchCalculator(native.NativeBatchCalculator(method, epsilon))
+    env = MolecularEnv(make_host_reward(calc), space, bag[None], device=dev)
     torch.manual_seed(SEED + 3)
     agent = CovariantAC(**SF6_AGENT, device=dev)
     gen = torch.Generator(device=dev).manual_seed(SEED + 9)
     rl.make_rollout_fn(env, agent, 2)(agent, env.init_states(PM6_ENVS, gen),
                                       gen)   # warm-up: tables, allocator
 
-    def one(name):
-        # a new file each time: a loaded library's file is never written
-        lib = tempfile.mkdtemp(dir=tmp) + '/libmolgym_host.so'
-        shutil.copy(host_build.build(), lib)
-        calc = native.NativeBatchCalculator(method, epsilon)
-        calc.lib = native.open_library(lib)
-        calc = TimedBatchCalculator(calc)
-        batches = Spans(calc, 'batch_reward')
-        actor = Spans(agent, 'act')
-        env.reward_fn = make_host_reward(calc)
-        fn = {'in_step': lambda: rl.make_rollout_fn(env, agent, NUM_STEPS),
-              'serial': lambda: rl.make_host_loop_rollout_fn(
-                  env, agent, calc, NUM_STEPS),
-              'pipelined': lambda: rl.make_pipelined_host_rollout_fn(
-                  env, agent, calc, NUM_STEPS)}[name]()
+    def one(name, fn):
         gen = torch.Generator(device=dev).manual_seed(SEED)
         states = env.init_states(PM6_ENVS, gen)
+        time0, calls0 = calc.total_time, calc.total_calls
         torch.cuda.synchronize()
         fused_agg.reset_launch_counts()
         t0 = time.perf_counter()
         states, traj = fn(agent, states, gen)
         torch.cuda.synchronize()
-        actor.close()
-        batches.close()
-        rel = lambda spans: [[round((a - t0) * 1e3, 2), round((b - t0) * 1e3, 2)]
-                             for a, b in spans]
         res = dict(ms=(time.perf_counter() - t0) * 1e3,
-                   act_spans_ms=rel(actor.spans),
-                   reward_spans_ms=rel(batches.spans),
-                   act_host_ms=actor.total_ms(),
-                   act_reward_overlap_ms=actor.overlap_ms(batches),
-                   reward_ms=calc.total_time * 1e3,
-                   reward_calls=calc.total_calls,
-                   pool_evals_batches=calc.pool_stats(),
+                   reward_ms=(calc.total_time - time0) * 1e3,
+                   reward_calls=calc.total_calls - calls0,
                    recomputes=getattr(fn, 'recomputes', 0),
                    counts=dict(fused_agg.launch_counts))
         expected = expected_launches(agent.encoder.num_cg_levels,
@@ -1131,32 +1071,24 @@ def run_host_transports(dev, method, epsilon, tmp):
             raise AssertionError(f'{name}: {res["reward_calls"]} reward calls')
         return res, (states, traj, gen.get_state())
 
-    names = ('in_step', 'serial', 'pipelined')
-    runs = {name: one(name) for name in names}
-    again = {name: one(name)[0] for name in reversed(names)}
-    # the pipelined transport with the interpreter switching threads every
-    # 0.5 ms instead of 5: how much of its overlap the lock's handoffs take
-    switch = sys.getswitchinterval()
-    sys.setswitchinterval(0.0005)
-    try:
-        again['pipelined_switch_0.5ms'] = one('pipelined')[0]
-    finally:
-        sys.setswitchinterval(switch)
-    _ref_res, (ref_states, ref, ref_gen) = runs['in_step']
-    for name in ('serial', 'pipelined'):
-        _res, (states, traj, gen_state) = runs[name]
-        same = [torch.equal(getattr(traj, f), getattr(ref, f)) for f in (
-            'rewards', 'terminals', 'actions', 'logps', 'values',
-            'bootstrap_value')]
-        same += [torch.equal(getattr(getattr(traj, o), f),
-                             getattr(getattr(ref, o), f))
-                 for o in ('obs', 'next_obs')
-                 for f in ('elements', 'positions', 'bag')]
-        same += [torch.equal(states.elements, ref_states.elements),
-                 torch.equal(gen_state, ref_gen)]
-        if not all(same):
-            raise AssertionError(f'{name} transport: another trajectory than '
-                                 f'the in-step one ({same})')
+    runs = {'pipelined': one('pipelined', rl.make_pipelined_host_rollout_fn(
+                env, agent, calc, NUM_STEPS)),
+            'in_step': one('in_step', rl.make_rollout_fn(env, agent,
+                                                         NUM_STEPS))}
+    (_r, (states, traj, gen_state)), (_r, (ref_states, ref, ref_gen)) = (
+        runs['pipelined'], runs['in_step'])
+    same = [torch.equal(getattr(traj, f), getattr(ref, f)) for f in (
+        'rewards', 'terminals', 'actions', 'logps', 'values',
+        'bootstrap_value')]
+    same += [torch.equal(getattr(getattr(traj, o), f),
+                         getattr(getattr(ref, o), f))
+             for o in ('obs', 'next_obs') for f in ('elements', 'positions',
+                                                    'bag')]
+    same += [torch.equal(states.elements, ref_states.elements),
+             torch.equal(gen_state, ref_gen)]
+    if not all(same):
+        raise AssertionError('pipelined transport: another trajectory than '
+                             f'the in-step one ({same})')
     if not torch.isfinite(ref.rewards).all():
         raise AssertionError('non-finite rewards')
     placed, err = recompute_rewards(
@@ -1165,13 +1097,13 @@ def run_host_transports(dev, method, epsilon, tmp):
     if err != 0.0 or placed == 0:
         raise AssertionError(f'recomputed rewards of {placed} placed atoms '
                              f'differ by {err}')
-    strip = lambda r: {k: v for k, v in r.items() if k != 'counts'}
     return dict(placed_atoms=placed,
                 steps_at_min_reward=int((ref.rewards <= env.min_reward).sum()),
                 mean_reward=float(ref.rewards.mean()),
                 counts=runs['pipelined'][0]['counts'],
-                transports={n: strip(r) for n, (r, _t) in runs.items()},
-                again={n: strip(r) for n, r in again.items()})
+                pool_evals_batches=calc.pool_stats(),
+                transports={n: {k: v for k, v in r.items() if k != 'counts'}
+                            for n, (r, _t) in runs.items()})
 
 
 def main() -> int:
@@ -1290,23 +1222,18 @@ def main() -> int:
     log('bf16 training:', json.dumps(bf16_training))
 
     # the fourth path: SF6 with the PM6 reward on the host
-    import tempfile
-
     from molgym_tpu_torch.calculators.native import METHOD_LJ, METHOD_PM6
     host_lib = build_host_library()
     log('host library:', json.dumps(host_lib))
-    with tempfile.TemporaryDirectory() as tmp:
-        pm6 = run_host_transports(dev, METHOD_PM6, 0.0, tmp)
-        log('pm6 transports:', json.dumps(pm6))
-        for kind in ('transports', 'again'):
-            log(f'pm6 rollout {PM6_ENVS} envs x {NUM_STEPS} steps, cold '
-                f'cache ({kind}): ' +
-                ', '.join(f'{n} {r["ms"]:.1f} ms (reward {r["reward_ms"]:.1f}'
-                          f' ms, {r["recomputes"]} recomputes)'
-                          for n, r in pm6[kind].items()) +
-                f' on {card}, nproc {host_lib["nproc"]}')
-        fixup = run_host_transports(dev, METHOD_LJ, 40.0, tmp)
-        log('lj epsilon 40 transports:', json.dumps(fixup))
+    pm6 = run_host_transports(dev, METHOD_PM6, 0.0)
+    log('pm6 transports:', json.dumps(pm6))
+    log(f'pm6 rollout {PM6_ENVS} envs x {NUM_STEPS} steps: ' + ', '.join(
+        f'{n} {r["ms"]:.1f} ms (reward {r["reward_ms"]:.1f} ms, '
+        f'{r["recomputes"]} recomputes)' for n, r in pm6['transports'].items())
+        + f' (in_step on a warm energy cache) on {card}, nproc '
+        f'{host_lib["nproc"]}')
+    fixup = run_host_transports(dev, METHOD_LJ, 40.0)
+    log('lj epsilon 40 transports:', json.dumps(fixup))
     if fixup['transports']['pipelined']['recomputes'] < 1:
         raise AssertionError('the low-reward fix-up did not fire')
     pm6_training = run_training(dev, run, build_default_argparser, SF6_PM6,

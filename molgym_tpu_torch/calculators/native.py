@@ -55,21 +55,15 @@ _SIGNATURES = {
 }
 
 
-def open_library(path) -> ctypes.CDLL:
-    """The library file at `path`, with its C interface's signatures set.
-    Another copy of the file loads as a library of its own, with its own
-    energy cache and thread pool."""
-    lib = ctypes.CDLL(str(path))
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """The host library, built first if this host has no current one, with
+    its C interface's signatures set."""
+    lib = ctypes.CDLL(str(host_build.build()))
     for name, (restype, argtypes) in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.restype, fn.argtypes = restype, argtypes
     return lib
-
-
-@functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """The host library, built first if this host has no current one."""
-    return open_library(host_build.build())
 
 
 def _ptr(a: np.ndarray, ctype):

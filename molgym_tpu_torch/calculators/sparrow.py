@@ -21,6 +21,8 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 
+from molgym_tpu_torch.envs.reward import get_minimum_spin_multiplicity
+
 SPARROW_AVAILABLE = False
 Sparrow = None
 _su = None
@@ -96,10 +98,6 @@ DEFAULT_SETTINGS = {
 }
 
 
-def minimum_spin_multiplicity(zs: Sequence[int]) -> int:
-    return int(sum(int(z) for z in zs)) % 2 + 1
-
-
 class SparrowBatchCalculator:
     """Thread-pooled batched PM6 interaction rewards with a per-element
     atomic-energy cache (reference molgym/reward.py:57-62 semantics)."""
@@ -125,7 +123,7 @@ class SparrowBatchCalculator:
         calc.set_elements(list(zs))
         calc.set_positions(np.asarray(positions, dtype=np.float64))
         settings = dict(self.settings)
-        settings['spin_multiplicity'] = minimum_spin_multiplicity(zs)
+        settings['spin_multiplicity'] = get_minimum_spin_multiplicity(zs)
         calc.set_settings(settings)
         return float(calc.calculate_energy())
 

@@ -31,9 +31,7 @@ from torch import nn
 from molgym_tpu_torch.envs.environment import MolecularEnv
 from molgym_tpu_torch.rl.buffer import (buffer_stats, compute_ppo_data,
                                         episode_stats)
-from molgym_tpu_torch.rl.rollout import (make_auto_host_rollout_fn,
-                                         make_host_loop_rollout_fn,
-                                         make_pipelined_host_rollout_fn,
+from molgym_tpu_torch.rl.rollout import (make_pipelined_host_rollout_fn,
                                          make_rollout_fn)
 
 INFO_KEYS = ('policy_loss', 'entropy_loss', 'vf_loss', 'total_loss',
@@ -245,18 +243,13 @@ def _episode_info(returns: list, lengths: list) -> dict:
     }
 
 
-def _make_rollout(env, agent, num_steps, deterministic, calculator,
-                  penalty, pipelined):
+def _make_rollout(env, agent, num_steps, deterministic, calculator):
     """(rollout fn, transport name): in step without a host-loop
-    calculator, else the pipelined (True), serial (False) or measured
-    ('auto') host loop."""
+    calculator, else the pipelined host loop."""
     if calculator is None:
         return make_rollout_fn(env, agent, num_steps, deterministic), 'in_step'
-    make, name = {True: (make_pipelined_host_rollout_fn, 'pipelined'),
-                  False: (make_host_loop_rollout_fn, 'serial'),
-                  'auto': (make_auto_host_rollout_fn, None)}[pipelined]
-    return make(env, agent, calculator, num_steps, deterministic=deterministic,
-                distance_penalty=penalty), name
+    return make_pipelined_host_rollout_fn(
+        env, agent, calculator, num_steps, deterministic), 'pipelined'
 
 
 def batch_ppo(
@@ -281,8 +274,6 @@ def batch_ppo(
     info_saver=None,
     seed: int = 0,
     host_loop_calculator=None,
-    host_distance_penalty: float = 0.0,
-    host_loop_pipelined=True,
     host_reward_timer=None,
     eval_sample_k: int = 0,
 ) -> Tuple[nn.Module, Optimizer]:
@@ -293,16 +284,17 @@ def batch_ppo(
 
     A host reward runs in the env's step (the env's reward function is a
     `make_host_reward`) unless `host_loop_calculator` is given: then the
-    training and evaluation rollouts step in a host loop over that batch
-    calculator, less `host_distance_penalty` * |new position|, pipelined
-    (True), serial (False), or the faster of the two measured on the first
-    warm iterations ('auto'; the evaluation rollout then takes the
-    training's choice, pipelined until it is made). `host_reward_timer`
-    (a TimedBatchCalculator) adds `reward_time`, the seconds spent in the
-    host reward during the training rollout, to the train info. The train
-    info's `transport` names the rollout's transport (in_step, serial or
-    pipelined), and `recomputes` counts the pipelined transport's forwards
-    computed again after a low-reward termination (also in the eval info).
+    training and evaluation rollouts step in the pipelined host loop over
+    that batch calculator (the JAX loop's `host_distance_penalty` comes with
+    the solvation runner, ROADMAP.md Queue 2 item 7).
+    The port has no serial host loop: a step can always reach the host, so
+    the in-step transport does the serial loop's work in its order.
+    `host_reward_timer` (a TimedBatchCalculator) adds `reward_time`, the
+    seconds spent in the host reward during the training rollout, to the
+    train info. The train info's `transport` names the rollout's transport
+    (in_step or pipelined), and `recomputes` counts the pipelined
+    transport's forwards computed again after a low-reward termination
+    (also in the eval info).
 
     eval_sample_k = 0 (default) evaluates greedily; K > 0 samples K episodes
     per eval formula and adds `return_best_mean`, the mean over formulas of
@@ -318,8 +310,7 @@ def batch_ppo(
     if optimizer is None:
         optimizer = make_optimizer(config, agent)
     rollout_fn, transport = _make_rollout(
-        envs, agent, steps_per_env, False, host_loop_calculator,
-        host_distance_penalty, host_loop_pipelined)
+        envs, agent, steps_per_env, False, host_loop_calculator)
     train_fn = make_train_fn(agent, optimizer, config, num_steps_per_iter)
 
     eval_rollout_fn = None
@@ -329,21 +320,9 @@ def batch_ppo(
         # complete at least the required episodes; the first are kept
         total_eval_episodes = num_eval_episodes * max(1, eval_sample_k)
         eval_steps = total_eval_episodes * (eval_envs.canvas_size + 1)
-        eval_rollouts = {}
-
-        def eval_rollout_fn(module, states, generator):
-            # under 'auto', the transport the training rollout chose
-            name = (getattr(rollout_fn, 'choice', None) or 'pipelined'
-                    if transport is None else transport)
-            if name not in eval_rollouts:
-                eval_rollouts[name] = _make_rollout(
-                    eval_envs, agent, eval_steps, eval_sample_k == 0,
-                    host_loop_calculator, host_distance_penalty,
-                    {'pipelined': True, 'serial': False}.get(name))[0]
-            fn = eval_rollouts[name]
-            out = fn(module, states, generator)
-            eval_rollout_fn.recomputes = getattr(fn, 'recomputes', None)
-            return out
+        eval_rollout_fn = _make_rollout(
+            eval_envs, agent, eval_steps, eval_sample_k == 0,
+            host_loop_calculator)[0]
 
     generator = torch.Generator(device=device).manual_seed(seed)
     states = envs.init_states(num_envs, generator)
@@ -363,7 +342,7 @@ def batch_ppo(
         t_iter = t0 = time.perf_counter()
         reward_t0 = (host_reward_timer.total_time
                      if host_reward_timer is not None else None)
-        train_info = {'transport': transport or rollout_fn.current_transport()}
+        train_info = {'transport': transport}
         states, traj = rollout_fn(agent, states, generator)
         returns, lengths = _episodes(traj, config.gamma)
         train_info.update(time=time.perf_counter() - t0,
@@ -424,7 +403,7 @@ def batch_ppo(
                     eval_sample_k, num_eval_episodes)
                 eval_info['return_best_mean'] = float(
                     np.mean(per_formula.max(axis=0)))
-            if eval_rollout_fn.recomputes is not None:
+            if getattr(eval_rollout_fn, 'recomputes', None) is not None:
                 eval_info['recomputes'] = eval_rollout_fn.recomputes
             logging.info(f'Evaluation rollout: return='
                          f'{eval_info["return_mean"]:.3f} '

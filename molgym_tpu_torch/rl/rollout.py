@@ -4,36 +4,30 @@ head on the final observation gives the bootstrap value. The JAX
 `lax.scan` becomes a Python loop; the rollout runs without autograd. A
 stochastic-bag env draws its bags from the rollout's generator.
 
-Three transports for a host reward (calculators/reward_host.py), each with
-make_rollout_fn's (params_or_module, states, generator) -> (states,
-Trajectory) contract and the same trajectory, bit for bit, from one
-generator state:
+Two transports for a host reward (calculators/reward_host.py), each with
+the (params_or_module, states, generator) -> (states, Trajectory) contract
+and the same trajectory, bit for bit, from one generator state:
   * make_rollout_fn                — in step: the env's reward function
                                      copies its inputs to the host itself
-                                     (the JAX package's io_callback)
-  * make_host_loop_rollout_fn      — serial: policy forward, host reward,
-                                     state update, strictly in order
+                                     (the JAX package's io_callback and its
+                                     serial host loop alike)
   * make_pipelined_host_rollout_fn — the host reward batch runs on a worker
                                      thread while the next policy forward
                                      runs on the device (SURVEY §7 hard-part
                                      3). The next state depends on the
                                      reward only through the `reward <
                                      min_reward` termination, so the next
-                                     forward is computed speculatively as if
-                                     no env went low, and computed again
-                                     from the same generator state on the
-                                     steps where one did.
-Every transport draws from the generator in the serial order: the
-policy's draws of step t, then the auto-reset's (a stochastic-bag env's
-bags), then step t + 1's. The pipelined transport speculates from a copy
-of the generator's state and leaves the generator where the serial order
-does.
+                                     forward is computed speculatively with
+                                     rewards of 0, and computed again from
+                                     the same generator state on the steps
+                                     where that guessed another `done`.
+Both draw from the generator in the same order: the policy's draws of step
+t, then the auto-reset's (a stochastic-bag env's bags), then step t + 1's.
+The pipelined transport speculates from a copy of the generator's state and
+leaves the generator where the in-step order does.
 """
 from __future__ import annotations
 
-import collections
-import logging
-import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Tuple
 
@@ -109,60 +103,14 @@ def make_rollout_fn(env: MolecularEnv, agent: nn.Module,
     return rollout
 
 
-def _step_rewards(env, states, out, batch_calculator, distance_penalty):
-    """Validity, the reward inputs on the host (one copy) and a function
-    that computes the float64 rewards from them."""
-    element = out.element.long()
-    stop, valid, needs, zs_atomic, new_z = env.reward_inputs(
-        states, element, out.position)
-    host = inputs_to_host(states.positions, zs_atomic, out.position, new_z,
-                          needs)
-
-    def compute():
-        return host_rewards(batch_calculator, distance_penalty, *host)
-    return element, stop, valid, host[-1], compute
-
-
-def _to_device(rewards, device) -> torch.Tensor:
-    return torch.from_numpy(rewards.astype(np.float32)).to(device)
-
-
-def make_host_loop_rollout_fn(env: MolecularEnv, agent: nn.Module,
-                              batch_calculator, num_steps_per_env: int,
-                              deterministic: bool = False,
-                              distance_penalty: float = 0.0) -> Callable:
-    """Serial host-reward rollout: per step the policy forward, the reward
-    inputs copied to the host, `batch_calculator`'s batch, and the state
-    update with auto-reset, in that order. `env.reward_fn` is not called."""
-
-    def rollout(params, states: EnvState,
-                generator: torch.Generator) -> Tuple[EnvState, Trajectory]:
-        module = _module(agent, params)
-        rec = _Recorder()
-        with torch.no_grad():
-            states, obs = env.reset(states, generator)
-            for _ in range(num_steps_per_env):
-                out = module.act(obs, generator, deterministic)
-                element, stop, valid, _needs, compute = _step_rewards(
-                    env, states, out, batch_calculator, distance_penalty)
-                result = env.finalize_step(
-                    states, element, out.position, stop, valid,
-                    _to_device(compute(), obs.elements.device))
-                rec.add(obs, out, result)
-                states, obs = env.reset_if_terminal(
-                    result.state, result.done, generator)
-            final_out = module.act(obs, generator, True)
-        return states, rec.trajectory(final_out.v)
-
-    return rollout
-
-
 def make_pipelined_host_rollout_fn(env: MolecularEnv, agent: nn.Module,
                                    batch_calculator, num_steps_per_env: int,
                                    deterministic: bool = False,
                                    distance_penalty: float = 0.0) -> Callable:
     """Host-reward rollout with the reward batch overlapped against the next
     policy forward (see the module docstring for why it is exact).
+    `env.reward_fn` is not called: the rewards are `batch_calculator`'s,
+    less `distance_penalty` * |new position|, as `make_host_reward`'s.
 
     Per step: copy the reward inputs to the host (this synchronises with the
     device), hand the numpy arrays to a worker thread (the library's ctypes
@@ -171,8 +119,8 @@ def make_pipelined_host_rollout_fn(env: MolecularEnv, agent: nn.Module,
     forward on the device from a copy of the generator's state, then join the
     reward and finalize. The rollout function's `recomputes` is the number
     of forwards its last call computed again: one per step, not the last,
-    on which an env went below min_reward (or on which the real auto-reset
-    drew otherwise than the speculative one)."""
+    whose real rewards ended another set of episodes than rewards of 0
+    would have (a reward below min_reward, whatever its sign)."""
     executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix='mg_reward')
 
     def rollout(params, states: EnvState,
@@ -185,113 +133,44 @@ def make_pipelined_host_rollout_fn(env: MolecularEnv, agent: nn.Module,
             device = obs.elements.device
             out = module.act(obs, generator, deterministic)
             for t in range(num_steps_per_env):
-                element, stop, valid, needs, compute = _step_rewards(
-                    env, states, out, batch_calculator, distance_penalty)
-                future = executor.submit(compute)
+                element = out.element.long()
+                stop, valid, needs, zs_atomic, new_z = env.reward_inputs(
+                    states, element, out.position)
+                host = inputs_to_host(states.positions, zs_atomic,
+                                      out.position, new_z, needs)
+                future = executor.submit(host_rewards, batch_calculator,
+                                         distance_penalty, *host)
                 last = t + 1 == num_steps_per_env
                 if not last:
-                    # reward 0 never trips `reward < min_reward` (min_reward
-                    # < 0): the real update whenever no env goes low
                     before_reset = generator.get_state()
                     spec = env.finalize_step(states, element, out.position,
                                              stop, valid,
                                              torch.zeros_like(out.v))
                     _spec_states, spec_obs = env.reset_if_terminal(
                         spec.state, spec.done, generator)
-                    after_reset = generator.get_state()
                     out_next = module.act(spec_obs, generator, deterministic)
                     after_act = generator.get_state()
                     generator.set_state(before_reset)
                 rewards = future.result().astype(np.float32)
-                result = env.finalize_step(states, element, out.position,
-                                           stop, valid,
-                                           _to_device(rewards, device))
+                result = env.finalize_step(
+                    states, element, out.position, stop, valid,
+                    torch.from_numpy(rewards).to(device))
                 rec.add(obs, out, result)
                 states, obs = env.reset_if_terminal(result.state, result.done,
                                                     generator)
                 if not last:
-                    # the comparison finalize_step makes, in float32
-                    low = bool(((rewards < np.float32(env.min_reward))
-                                & (needs > 0)).any())
-                    if low or not torch.equal(generator.get_state(),
-                                              after_reset):
+                    # the reward reaches the next state only through `done`:
+                    # with the same dones the speculative state, reset (whose
+                    # draws depend on the batch size alone) and forward are
+                    # the real ones
+                    if torch.equal(spec.done, result.done):
+                        generator.set_state(after_act)
+                    else:
                         out_next = module.act(obs, generator, deterministic)
                         rollout.recomputes += 1
-                    else:
-                        generator.set_state(after_act)
                     out = out_next
             final_out = module.act(obs, generator, True)
         return states, rec.trajectory(final_out.v)
 
     rollout.recomputes = 0
     return rollout
-
-
-class AutoTransportRollout:
-    """Measured choice between host-reward transports: each runs once to
-    warm up (calls 0-1), once timed (calls 2-3), and the faster is kept for
-    the rest of training. The transports give the same trajectories, so
-    switching changes no result. Before it reads the clock the timed call
-    waits for the device (torch.cuda.synchronize).
-
-    `fns` maps transport name -> rollout fn with the (params, states,
-    generator) -> (states, Trajectory) contract; its order is the order of
-    the probes."""
-
-    def __init__(self, fns):
-        self._fns = collections.OrderedDict(fns)
-        if len(self._fns) < 2:
-            raise ValueError('AutoTransportRollout needs two transports')
-        self._order = list(self._fns)
-        self._calls = 0
-        self._times = {}
-        self._last = self._order[0]
-        self.choice = None
-
-    def current_transport(self) -> str:
-        if self.choice is not None:
-            return self.choice
-        return self._order[self._calls % len(self._order)]
-
-    @property
-    def recomputes(self) -> int:
-        """The recomputed forwards of the last call's transport."""
-        return getattr(self._fns[self._last], 'recomputes', 0)
-
-    def __call__(self, params, states, generator):
-        name = self._last = self.current_transport()
-        if self.choice is not None:
-            return self._fns[name](params, states, generator)
-        warm = self._calls >= len(self._order)
-        t0 = time.perf_counter()
-        out_states, traj = self._fns[name](params, states, generator)
-        rewards = getattr(traj, 'rewards', None)
-        if isinstance(rewards, torch.Tensor) and rewards.is_cuda:
-            torch.cuda.synchronize(rewards.device)
-        if warm:  # the first call of each transport warms up; not scored
-            self._times[name] = time.perf_counter() - t0
-        self._calls += 1
-        if len(self._times) == len(self._order):
-            self.choice = min(self._times, key=self._times.__getitem__)
-            timing = ', '.join(f'{n}: {t * 1e3:.0f} ms'
-                               for n, t in self._times.items())
-            logging.info(f'host-reward transport auto-selected '
-                         f'{self.choice!r} ({timing})')
-        return out_states, traj
-
-
-def make_auto_host_rollout_fn(env: MolecularEnv, agent: nn.Module,
-                              batch_calculator, num_steps_per_env: int,
-                              deterministic: bool = False,
-                              distance_penalty: float = 0.0
-                              ) -> AutoTransportRollout:
-    """The pipelined and the serial transports, measured on the first warm
-    iterations, the faster kept."""
-    common = dict(deterministic=deterministic,
-                  distance_penalty=distance_penalty)
-    return AutoTransportRollout({
-        'pipelined': make_pipelined_host_rollout_fn(
-            env, agent, batch_calculator, num_steps_per_env, **common),
-        'serial': make_host_loop_rollout_fn(
-            env, agent, batch_calculator, num_steps_per_env, **common),
-    })

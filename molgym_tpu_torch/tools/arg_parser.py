@@ -74,11 +74,11 @@ def build_default_argparser() -> argparse.ArgumentParser:
                         choices=['sparrow', 'pm6', 'eht', 'lj', 'morse',
                                  'device_lj', 'device_morse'])
     parser.add_argument('--host_reward_mode',
-                        help='host reward transport: auto and callback call '
-                             'the host inside the env step; loop overlaps '
-                             'the host reward with the next policy forward '
-                             '(pipelined); loop_serial steps strictly in '
-                             'order',
+                        help='host reward transport: loop overlaps the '
+                             'host reward with the next policy forward '
+                             '(pipelined); auto, callback and loop_serial '
+                             'call the host inside the env step, strictly '
+                             'in order',
                         type=str, default='auto',
                         choices=['auto', 'callback', 'loop', 'loop_serial'])
     parser.add_argument('--num_reward_threads',

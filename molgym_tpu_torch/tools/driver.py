@@ -31,22 +31,17 @@ def symbols_to_zs(symbols: str):
     return [ATOMIC_NUMBERS[s.strip()] for s in symbols.split(',')]
 
 
-def make_reward_fn(config: dict, solvation: bool = False
-                   ) -> Tuple[RewardFn, Optional[object], float]:
-    """(batched RewardFn, host batch calculator or None, distance penalty)
-    of `config['reward']`. A host reward's calculator is a
+def make_reward_fn(config: dict) -> Tuple[RewardFn, Optional[object]]:
+    """(batched RewardFn, host batch calculator or None) of
+    `config['reward']`. A host reward's calculator is a
     TimedBatchCalculator, and its RewardFn calls the host in the env's
-    step; the penalty (config['distance_penalty'] with `solvation`, else 0)
-    is returned so that the host-loop transports apply the same one."""
+    step. The JAX driver's `solvation` penalty comes with the solvation
+    runner (ROADMAP.md Queue 2 item 7)."""
     backend = config.get('reward', 'sparrow')
-    penalty = config.get('distance_penalty', 0.01) if solvation else 0.0
     device_fns = {'device_lj': device_reward.make_lennard_jones_reward,
                   'device_morse': device_reward.make_morse_reward}
     if backend in device_fns:
-        fn = device_fns[backend]()
-        if solvation:
-            fn = device_reward.with_solvation_penalty(fn, penalty)
-        return fn, None, penalty
+        return device_fns[backend](), None
 
     from molgym_tpu_torch.calculators.reward_host import (
         TimedBatchCalculator, make_host_reward)
@@ -59,18 +54,17 @@ def make_reward_fn(config: dict, solvation: bool = False
                                                          NativeBatchCalculator)
         calc = NativeBatchCalculator(method=METHODS[backend])
     calc = TimedBatchCalculator(calc)
-    return make_host_reward(calc, distance_penalty=penalty), calc, penalty
+    return make_host_reward(calc), calc
 
 
-def host_transport(mode: str, host_calc) -> Tuple[Optional[object], object]:
-    """(host-loop calculator or None, batch_ppo's host_loop_pipelined) of
-    --host_reward_mode. A step of the port can always reach the host, so
-    'auto' and 'callback' take the in-step transport, as the JAX package
-    does on backends with io_callback; 'loop' is the pipelined host loop,
-    'loop_serial' the serial one."""
-    if host_calc is None or mode not in ('loop', 'loop_serial'):
-        return None, True
-    return host_calc, mode == 'loop'
+def host_loop_calculator(mode: str, host_calc):
+    """batch_ppo's host_loop_calculator for --host_reward_mode: the host
+    calculator under 'loop' (the pipelined host loop), else None (the
+    in-step transport). A step of the port can always reach the host, so
+    'auto' and 'callback' step in the env, as the JAX package does on
+    backends with io_callback, and so does 'loop_serial': the in-step
+    transport is the serial loop, the same work in the same order."""
+    return host_calc if mode == 'loop' else None
 
 
 EnvBuilder = Callable[[dict, ObservationSpace, RewardFn, torch.device],
@@ -117,7 +111,7 @@ def run_experiment(config: dict, env_builder: EnvBuilder = standard_envs,
                             else config.get('device'))
     # a host reward's calculator first: its library builds, or a missing
     # backend (scine) raises, before anything is written
-    reward_fn, host_calc, distance_penalty = make_reward_fn(config)
+    reward_fn, host_calc = make_reward_fn(config)
     util.create_directories([config['log_dir'], config['model_dir'],
                              config['data_dir'], config['results_dir']])
     tag = util.get_tag(config)
@@ -130,8 +124,6 @@ def run_experiment(config: dict, env_builder: EnvBuilder = standard_envs,
 
     observation_space = ObservationSpace(canvas_size=config['canvas_size'],
                                          zs=symbols_to_zs(config['symbols']))
-    host_loop_calc, pipelined = host_transport(
-        config.get('host_reward_mode', 'auto'), host_calc)
     train_env, eval_env = env_builder(config, observation_space, reward_fn,
                                       device)
 
@@ -179,9 +171,8 @@ def run_experiment(config: dict, env_builder: EnvBuilder = standard_envs,
         save_eval_rollout=save_mode in ('eval', 'all'),
         info_saver=info_saver,
         seed=config['seed'],
-        host_loop_calculator=host_loop_calc,
-        host_distance_penalty=distance_penalty,
-        host_loop_pipelined=pipelined,
+        host_loop_calculator=host_loop_calculator(
+            config.get('host_reward_mode', 'auto'), host_calc),
         host_reward_timer=host_calc,
     )
     if host_calc is not None:

@@ -203,14 +203,16 @@ def one_torch_thread():
     (['--reward=pm6'], 'in_step'), (['--reward=eht'], 'in_step'),
     (['--reward=lj'], 'in_step'), (['--reward=morse'], 'in_step'),
     (['--reward=pm6', '--host_reward_mode=loop'], 'pipelined'),
-    (['--reward=pm6', '--host_reward_mode=loop_serial'], 'serial'),
+    (['--reward=pm6', '--host_reward_mode=loop_serial'], 'in_step'),
     (['--reward=pm6', '--host_reward_mode=callback'], 'in_step')],
     ids=['pm6', 'eht', 'lj', 'morse', 'pm6-loop', 'pm6-loop_serial',
          'pm6-callback'])
 def test_host_reward_options_run(tmp_path, flags, transport):
     """Each host reward and transport passes check_supported and trains an
     iteration; the train info names the transport and the seconds spent in
-    the host reward, and the pipelined transport counts its recomputes."""
+    the host reward, and the pipelined transport counts its recomputes, in
+    training and in evaluation. loop_serial steps in the env: the in-step
+    transport is the serial loop."""
     config = _config(tmp_path, '--num_steps=8', '--save_rollouts=none', *flags)
     check_supported(config)
     run_experiment(config, device='cpu')
@@ -222,3 +224,4 @@ def test_host_reward_options_run(tmp_path, flags, transport):
     assert opt['num_opt_steps'] >= 1 and opt['total_loss'] == opt['total_loss']
     (evals, ) = _lines(tmp_path / 'results' / 'tiny_run-1_eval.txt')
     assert np.isfinite(evals['return_mean'])
+    assert ('recomputes' in evals) == (transport == 'pipelined')

@@ -1,10 +1,14 @@
 """The port's host reward layer against molgym_tpu's, on the CPU: the native
-library (built by the port into molgym_tpu_torch/_build, loaded beside the
-JAX package's csrc/libmolgym_host.so), its single-molecule calculator, the
-reward classes, the device solvation penalty, the minimizer, and the env's
-host-reward step.
+library (built by the port into molgym_tpu_torch/_build), its
+single-molecule calculator, the reward classes, the device solvation
+penalty, the minimizer, and the env's host-reward step.
 
-Both libraries are compiled from the same sources with the same flags, so
+The JAX package's bindings run here over a second copy of the port's build
+(`jax_library_over_the_port_build`): their own loader would run `make -C
+csrc`, which rewrites the tracked csrc/libmolgym_host.so, and no test of
+the port may write there. The copy loads as a library of its own, with its
+own energy cache and thread pool, so neither package reads the other's
+results. Both are compiled from csrc's sources with the Makefile's flags, so
 batched rewards, energies and gradients agree within 1e-10 relative, and
 minimized positions within 1e-6 Angstrom. float32 rewards of the env step
 agree within 1e-6 relative (one float32 rounding of equal float64 values).
@@ -37,6 +41,22 @@ from molgym_tpu_torch.spaces import ObservationSpace
 
 RTOL = 1e-10
 METHODS = ('lj', 'morse', 'eht', 'pm6')
+
+
+@pytest.fixture(scope='module', autouse=True)
+def jax_library_over_the_port_build(tmp_path_factory):
+    """molgym_tpu.calculators.native's library, for the tests of a module,
+    loaded by its own `load_library` (its signatures) from a copy of the
+    port's build in a directory without a Makefile, so that it builds
+    nothing; the module's previous library is restored after."""
+    copy = tmp_path_factory.mktemp('jax_native') / 'libmolgym_host.so'
+    shutil.copy(host_build.build(), copy)
+    with pytest.MonkeyPatch.context() as patch:
+        patch.setattr(jnative, '_lib', None)
+        patch.setattr(jnative, '_CSRC_DIR', str(copy.parent))
+        patch.setattr(jnative, '_LIB_PATH', str(copy))
+        jnative.load_library()
+        yield
 
 
 @pytest.fixture(autouse=True)
@@ -152,19 +172,6 @@ def test_orbitals_and_density_match_jax():
     assert e == pytest.approx(ref_e, rel=RTOL)
     np.testing.assert_allclose(pa, ref_pa, atol=1e-10)
     np.testing.assert_allclose(pb, ref_pb, atol=1e-10)
-
-
-def test_a_copy_of_the_library_loads_with_its_own_pool(tmp_path):
-    """open_library on another file: a library of its own, whose pool has
-    counted nothing yet, and which computes the same rewards."""
-    copy = tmp_path / 'libmolgym_host.so'
-    shutil.copy(host_build.build(), copy)
-    calc = native.NativeBatchCalculator(native.METHOD_PM6)
-    shared = calc.batch_reward(**PM6_BATCH)
-    calc.lib = native.open_library(copy)
-    assert calc.pool_stats() == (0, 0)
-    np.testing.assert_array_equal(calc.batch_reward(**PM6_BATCH), shared)
-    assert calc.pool_stats() == (3 * int(PM6_BATCH['valid'].sum()), 1)
 
 
 # -- the build --------------------------------------------------------------
@@ -289,9 +296,9 @@ def test_make_host_reward_and_solvation_penalty_match_jax():
 
 @pytest.mark.parametrize('backend', ['device_lj', 'lj', 'pm6'])
 def test_driver_reward_fn_matches_jax(backend):
-    """tools.driver.make_reward_fn: the reward function, the host
-    calculator (a timed one for a host reward) and the solvation penalty,
-    as the JAX driver's."""
+    """tools.driver.make_reward_fn: the reward function and the host
+    calculator (a timed one for a host reward), as the JAX driver's
+    without its solvation penalty."""
     from molgym_tpu.tools.driver import make_reward_fn as jax_make_reward_fn
     from molgym_tpu_torch.tools.driver import make_reward_fn
     config = {'reward': backend, 'distance_penalty': 0.02}
@@ -300,21 +307,20 @@ def test_driver_reward_fn_matches_jax(backend):
     zs = np.array([[8, 1, 0], [8, 1, 0]])
     new_pos = np.array([[-0.24, 0.93, 0], [0.2, -1.1, 0.3]], np.float32)
     new_z, valid = np.array([1, 1]), np.array([True, True])
-    for solvation in (False, True):
-        fn, calc, penalty = make_reward_fn(config, solvation=solvation)
-        jfn, jcalc, jpenalty = jax_make_reward_fn(config, solvation=solvation)
-        assert penalty == jpenalty == (0.02 if solvation else 0.0)
-        assert (calc is None) == (jcalc is None) == backend.startswith('device')
-        if calc is not None:
-            assert isinstance(calc, reward_host.TimedBatchCalculator)
-        got = fn(torch.from_numpy(positions), torch.from_numpy(zs),
-                 torch.from_numpy(new_pos), torch.from_numpy(new_z),
-                 torch.from_numpy(valid))
-        want = jfn(jnp.asarray(positions), jnp.asarray(zs, jnp.int32),
-                   jnp.asarray(new_pos), jnp.asarray(new_z, jnp.int32),
-                   jnp.asarray(valid))
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
-                                   atol=1e-6)
+    fn, calc = make_reward_fn(config)
+    jfn, jcalc, jpenalty = jax_make_reward_fn(config)
+    assert jpenalty == 0.0
+    assert (calc is None) == (jcalc is None) == backend.startswith('device')
+    if calc is not None:
+        assert isinstance(calc, reward_host.TimedBatchCalculator)
+    got = fn(torch.from_numpy(positions), torch.from_numpy(zs),
+             torch.from_numpy(new_pos), torch.from_numpy(new_z),
+             torch.from_numpy(valid))
+    want = jfn(jnp.asarray(positions), jnp.asarray(zs, jnp.int32),
+               jnp.asarray(new_pos), jnp.asarray(new_z, jnp.int32),
+               jnp.asarray(valid))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-6)
 
 
 # -- minimizer --------------------------------------------------------------

@@ -1,18 +1,18 @@
-"""The port's three host-reward transports on the CPU: in step (the env's
-reward function calls the host), serial and pipelined give the same
-trajectory, bit for bit, and leave the generator in the same state, on a
-fixed-bag env, a stochastic-bag env and an LJ epsilon large enough that the
-pipelined transport's low-reward fix-up fires; the measured choice between
-transports; and the trained SF6 PM6 checkpoint evaluated greedily with the
-PM6 reward in both packages.
+"""The port's two host-reward transports on the CPU: in step (the env's
+reward function calls the host, which is also the JAX package's serial
+host loop) and pipelined give the same trajectory, bit for bit, and leave
+the generator in the same state, sampling and greedy, on a fixed-bag env, a
+stochastic-bag env, an LJ epsilon large enough that the pipelined
+transport's low-reward fix-up fires, and a min_reward above 0, where the
+fix-up must follow the real dones rather than guess them; and the trained
+SF6 PM6 checkpoint evaluated greedily with the PM6 reward in both
+packages.
 
 The checkpoint's gate: the two packages' means over 8 envs within 5e-4 of
 each other and of the run's last recorded eval (0.68257), where the envs'
 returns spread over 5e-4 to 7e-4 (measured on the CPU: port 0.68292, JAX
 0.68284); the greedy distance is the best of 128 draws, which the two
 packages make from different generators."""
-import time
-
 import jax
 import numpy as np
 import pytest
@@ -34,15 +34,14 @@ from molgym_tpu_torch.calculators.reward_host import (TimedBatchCalculator,
 from molgym_tpu_torch.convert import covariant_params_from_jax
 from molgym_tpu_torch.envs.environment import MolecularEnv
 from molgym_tpu_torch.formula import string_to_formula
-from molgym_tpu_torch.rl.rollout import (AutoTransportRollout,
-                                         make_auto_host_rollout_fn,
-                                         make_host_loop_rollout_fn,
-                                         make_pipelined_host_rollout_fn,
+from molgym_tpu_torch.rl.rollout import (make_pipelined_host_rollout_fn,
                                          make_rollout_fn)
 from molgym_tpu_torch.spaces import ObservationSpace
 
 from .test_torch_checkpoint import (NUM_ENVS, _agent_kwargs, _first_returns,
                                     _restore)
+from .test_torch_host_reward import \
+    jax_library_over_the_port_build  # noqa: F401  (module fixture)
 
 ZS = (0, 1, 8)
 FIELDS = ('rewards', 'terminals', 'actions', 'logps', 'values',
@@ -61,11 +60,18 @@ def one_torch_thread():
     torch.set_num_threads(threads)
 
 
-def _setup(method, epsilon, stochastic, distance=(0.9, 1.5)):
+def _setup(method, epsilon, stochastic, distance=(0.9, 1.5),
+           min_reward=-0.6, seeded=False):
+    """A host-reward env of H2O (of H2 on a canvas seeded with an O at the
+    origin) and a small covariant agent."""
     space = ObservationSpace(canvas_size=4, zs=list(ZS))
-    bag = space.bag_from_formula(string_to_formula('H2O'))
+    bag = space.bag_from_formula(string_to_formula('H2' if seeded else 'H2O'))
+    seed = (dict(initial_elements=np.array([ZS.index(8), 0, 0, 0]),
+                 initial_positions=np.zeros((4, 3), np.float32))
+            if seeded else {})
     calc = TimedBatchCalculator(NativeBatchCalculator(method, epsilon))
     env = MolecularEnv(make_host_reward(calc), space, bag[None], device='cpu',
+                       min_reward=min_reward, **seed,
                        stochastic_size_range=(2, 4) if stochastic else None)
     torch.manual_seed(0)
     agent = CovariantAC(zs=ZS, canvas_size=4, network_width=16, maxl=2,
@@ -95,80 +101,55 @@ def _assert_identical(a, b, what):
     assert torch.equal(g_a, g_b), (what, 'generator state')
 
 
+@pytest.mark.parametrize('deterministic', [False, True],
+                         ids=['sampled', 'greedy'])
 @pytest.mark.parametrize('case', ['fixed_bag_lj', 'stochastic_pm6',
-                                  'fixup_lj'])
-def test_transports_give_the_same_trajectory(case):
-    method, epsilon, stochastic, distance = {
-        'fixed_bag_lj': (METHOD_LJ, 0.15, False, (0.9, 1.5)),
-        'stochastic_pm6': (METHOD_PM6, 0.0, True, (0.9, 1.5)),
+                                  'fixup_lj', 'min_reward_above_zero_lj'])
+def test_transports_give_the_same_trajectory(case, deterministic):
+    method, epsilon, stochastic, distance, min_reward, seeded = {
+        'fixed_bag_lj': (METHOD_LJ, 0.15, False, (0.9, 1.5), -0.6, False),
+        'stochastic_pm6': (METHOD_PM6, 0.0, True, (0.9, 1.5), -0.6, False),
         # close placements at a deep well: rewards below min_reward
-        'fixup_lj': (METHOD_LJ, 40.0, True, (0.7, 1.0))}[case]
-    env, agent, calc = _setup(method, epsilon, stochastic, distance)
+        'fixup_lj': (METHOD_LJ, 40.0, True, (0.7, 1.0), -0.6, False),
+        # H next to a seeded O: rewards of 0 would end every episode at its
+        # first atom, the real rewards (above min_reward) end none
+        'min_reward_above_zero_lj': (METHOD_LJ, 0.15, False, (0.9, 1.5),
+                                     1e-3, True)}[case]
+    env, agent, calc = _setup(method, epsilon, stochastic, distance,
+                              min_reward, seeded)
     steps = 6
-    pipelined = make_pipelined_host_rollout_fn(env, agent, calc, steps)
-    runs = {'in_step': _run(make_rollout_fn(env, agent, steps), env, agent),
-            'serial': _run(make_host_loop_rollout_fn(env, agent, calc, steps),
-                           env, agent),
+    pipelined = make_pipelined_host_rollout_fn(env, agent, calc, steps,
+                                               deterministic)
+    runs = {'in_step': _run(make_rollout_fn(env, agent, steps, deterministic),
+                            env, agent),
             'pipelined': _run(pipelined, env, agent)}
-    for name in ('serial', 'pipelined'):
-        _assert_identical(runs['in_step'], runs[name], name)
+    _assert_identical(runs['in_step'], runs['pipelined'], 'pipelined')
     traj = runs['in_step'][1]
     assert torch.isfinite(traj.rewards).all() and traj.terminals.any()
     if stochastic:
         assert len({tuple(b) for b in traj.obs.bag.reshape(-1, 3).tolist()}) > 1
-    if case == 'fixup_lj':
-        # the fixture exercises the recompute: some env went low before
-        # the last step
+    if case == 'min_reward_above_zero_lj' or (case == 'fixup_lj'
+                                              and not deterministic):
+        # the fixture exercises the recompute: some env's real done differed
+        # from the speculative one before the last step (the greedy policy's
+        # one distance misses fixup_lj's placements inside the well)
         assert pipelined.recomputes >= 1
-    assert calc.total_calls == 3 * steps
+    if case == 'min_reward_above_zero_lj':
+        assert (traj.rewards > min_reward).any()
+    assert calc.total_calls == 2 * steps
 
 
 def test_distance_penalty_is_applied_alike():
     env, agent, calc = _setup(METHOD_LJ, 0.15, False)
     env.reward_fn = make_host_reward(calc, distance_penalty=0.05)
-    runs = {name: _run(fn, env, agent) for name, fn in (
-        ('in_step', make_rollout_fn(env, agent, 4)),
-        ('serial', make_host_loop_rollout_fn(env, agent, calc, 4,
-                                             distance_penalty=0.05)),
-        ('pipelined', make_pipelined_host_rollout_fn(env, agent, calc, 4,
-                                                     distance_penalty=0.05)))}
-    for name in ('serial', 'pipelined'):
-        _assert_identical(runs['in_step'], runs[name], name)
-    plain = _run(make_host_loop_rollout_fn(env, agent, calc, 4), env, agent)
-    assert (runs['serial'][1].rewards <= plain[1].rewards).all()
-    assert (runs['serial'][1].rewards < plain[1].rewards).any()
-
-
-def test_auto_transport_selects_the_faster_and_keeps_it():
-    calls = []
-
-    def make_stub(name, delay):
-        def fn(params, states, generator):
-            calls.append(name)
-            time.sleep(delay)
-            return states, {'rewards': np.zeros(3)}
-        return fn
-
-    auto = AutoTransportRollout({'pipelined': make_stub('pipelined', 0.08),
-                                 'serial': make_stub('serial', 0.002)})
-    for _ in range(6):
-        auto(None, None, None)
-    # a warm-up and a timed call for each, then the winner
-    assert calls[:4] == ['pipelined', 'serial', 'pipelined', 'serial']
-    assert auto.choice == 'serial'
-    assert calls[4:] == ['serial', 'serial']
-    assert auto.current_transport() == 'serial'
-    assert auto.recomputes == 0
-
-
-def test_auto_transport_trajectories_match_serial():
-    env, agent, calc = _setup(METHOD_LJ, 0.15, False)
-    auto = make_auto_host_rollout_fn(env, agent, calc, 5)
-    serial = make_host_loop_rollout_fn(env, agent, calc, 5)
-    for i in range(5):
-        _assert_identical(_run(auto, env, agent, seed=100 + i),
-                          _run(serial, env, agent, seed=100 + i), i)
-    assert auto.choice in ('pipelined', 'serial')
+    in_step = _run(make_rollout_fn(env, agent, 4), env, agent)
+    penalised = _run(make_pipelined_host_rollout_fn(
+        env, agent, calc, 4, distance_penalty=0.05), env, agent)
+    _assert_identical(in_step, penalised, 'pipelined')
+    plain = _run(make_pipelined_host_rollout_fn(env, agent, calc, 4), env,
+                 agent)
+    assert (penalised[1].rewards <= plain[1].rewards).all()
+    assert (penalised[1].rewards < plain[1].rewards).any()
 
 
 SF6_PM6 = dict(model='sf6_pm6/models/sf6pm6_run-1_steps-15120.model',
