@@ -26,9 +26,16 @@ Phases, each of which fails the run (non-zero exit) if it fails:
          the same bits on a second run, and its resources (rows per tile,
          chunks, threads, shared bytes, blocks per SM) at 560, 40 and 4
          rows are logged;
-       - the masked softmax of the focus and element heads at [140,7],
-         [140,3], [140,10], [140,4], [8192,128] and [33,200], some rows
-         fully masked (library: torch.softmax of the masked_fill-ed logits);
+       - the fused masked categorical head of the focus and element heads
+         (masked softmax, index, log-prob and entropy in one kernel, and one
+         backward) at [140,7], [140,3], [140,10], [140,4], [8192,128] and
+         [33,200], every 7th row fully masked, in each of its four modes
+         (probs only, given, greedy, sample): probs, logp and ent within
+         1e-6 absolute and relative, indices equal but where the best two
+         Gumbel scores (greedy: probabilities) are within 1e-5 (counted and
+         logged), the backward within 1e-5 of max |ref| for six sets of
+         incoming gradients, the same bits twice, and through autograd
+         (library: torch.softmax of the masked_fill-ed logits);
        - the bf16 versions of the aggregate, the square and their
          backwards at the SF6 and stochastic shapes, B = 140 (the forwards
          also at 10 and 1), each within one bf16 ulp of its plain version
@@ -505,52 +512,130 @@ def check_contract(dev, lead, n1, n2, maxl):
     return fwd, bwd
 
 
-def check_softmax(dev, rows, n):
-    """The masked softmax's forward and backward kernels against their plain
-    versions, every 7th row fully masked; (forward, backward) results."""
-    from molgym_tpu_torch.ops import fused_softmax
+HEAD_TOL = 1e-6       # probs, logp, ent: f32, another summation order
+HEAD_BWD_TOL = 1e-5   # dlogits, relative to max |ref|
+# Gumbel scores (greedy: probabilities) this close may order either way:
+# logf and torch.log, and two sums of a row, may differ by an ulp
+HEAD_TIE = 1e-5
+HEAD_MODES = ('probs', 'given', 'greedy', 'sample')
+
+
+def check_head(dev, rows, n):
+    """The fused masked categorical head's forward kernel in each of its
+    four modes and its backward kernel against their plain versions on the
+    card, every 7th row fully masked; (forward, backward) results. The
+    row's ms: the forward in sample mode (the rollout's), the backward with
+    the gradients of logp and ent (the training's); the plain ms: the plain
+    head chain and the plain backward formula on the card."""
+    from molgym_tpu_torch.ops import fused_softmax as fs
     gen = torch.Generator(device=dev).manual_seed(SEED + rows + n)
     logits = 3.0 * torch.randn((rows, n), generator=gen, device=dev)
     mask = torch.rand((rows, n), generator=gen, device=dev) > 0.4
     mask[::7] = False
-    grad = torch.randn((rows, n), generator=gen, device=dev)
+    u = torch.rand((rows, n), generator=gen, device=dev)
+    given = torch.randint(0, n, (rows, ), generator=gen, device=dev)
+    g_probs = torch.randn((rows, n), generator=gen, device=dev)
+    g_logp = torch.randn(rows, generator=gen, device=dev)
+    g_ent = torch.randn(rows, generator=gen, device=dev)
     shape = f'rows={rows} N={n}'
+    kwargs = dict(probs={}, given=dict(index=given), greedy=dict(greedy=True),
+                  sample=dict(u=u))
 
-    probs = fused_softmax.masked_softmax(logits, mask)
-    torch.cuda.synchronize()
-    ref = fused_softmax.masked_softmax_plain(logits, mask)
-    abs_err, rel_err = max_err([probs], [ref])
-    if (not rel_err <= KERNEL_TOL or probs[~mask].any()
-            or not torch.isfinite(probs).all()):
-        raise AssertionError(f'softmax {shape}: rel err {rel_err}, or a '
-                             'masked entry is not zero')
-    fwd = dict(shape=shape, max_abs_err=abs_err, max_rel_err=rel_err)
-    fwd['ms'] = time_ms(lambda: fused_softmax.masked_softmax(logits, mask))
-    fwd['plain_ms'] = time_ms(
-        lambda: fused_softmax.masked_softmax_plain(logits, mask))
+    fwd = dict(shape=shape, max_abs_err=0.0, ties={}, ms_modes={},
+               plain_ms_modes={}, bound_ms_modes={})
+    for mode in HEAD_MODES:
+        kw = kwargs[mode]
+        got = fs.masked_categorical(logits, mask, **kw)
+        torch.cuda.synchronize()
+        ref = fs.masked_categorical_plain(logits, mask, **kw)
+        for what, g, r in zip(('probs', 'logp', 'ent'), got[::2] + got[3:],
+                              ref[::2] + ref[3:]):
+            if r is None:
+                continue
+            err = (g - r).abs()
+            if (not torch.isfinite(g).all()
+                    or (err > HEAD_TOL + HEAD_TOL * r.abs()).any()):
+                raise AssertionError(f'head {shape} {mode}: {what} off by '
+                                     f'{float(err.max())}')
+            fwd['max_abs_err'] = max(fwd['max_abs_err'], float(err.max()))
+        if got[0][~mask].any() or got[0][::7].any():
+            raise AssertionError(f'head {shape} {mode}: a masked entry is '
+                                 'not zero')
+        if mode == 'given' and not torch.equal(got[1], given):
+            raise AssertionError(f'head {shape}: the given index changed')
+        if mode in ('greedy', 'sample'):
+            scores = ref[0] if mode == 'greedy' else (
+                torch.log(ref[0].clamp(min=1e-10)) +
+                torch.where(ref[0] > 0, 0.0, -1e9) + fs.gumbel_from_uniform(u))
+            top2 = scores.topk(2, dim=-1).values
+            tie = top2[:, 0] - top2[:, 1] <= HEAD_TIE
+            differ = got[1] != ref[1]
+            if (differ & ~tie).any():
+                raise AssertionError(f'head {shape} {mode}: '
+                                     f'{int((differ & ~tie).sum())} indices '
+                                     'differ from the plain version\'s')
+            fwd['ties'][mode] = int((differ & tie).sum())
+        fwd['ms_modes'][mode] = time_ms(
+            lambda kw=kw: fs.masked_categorical(logits, mask, **kw))
+        fwd['plain_ms_modes'][mode] = time_ms(
+            lambda kw=kw: fs.masked_categorical_plain(logits, mask, **kw))
+        # bytes: logits, mask, u or the given index, probs and 16 a row
+        # (index, logp, ent) unless probs only; operations: ~20 an entry
+        # sampling, ~10 else
+        ins = [t for t in (logits, mask, kw.get('u'), kw.get('index'))
+               if t is not None]
+        fwd['bound_ms_modes'][mode] = bound_ms(
+            nbytes(*ins, *(t for t in got if t is not None)),
+            rows * n * (20 if mode == 'sample' else 10))[0]
+    if any(fwd['ties'].values()):
+        log(f'head {shape}: index ties taken the other way', fwd['ties'])
+    fwd['ms'] = fwd['ms_modes']['sample']
+    fwd['plain_ms'] = fwd['plain_ms_modes']['sample']
     # library yardstick: torch.softmax of the masked_fill-ed logits
     fwd['library_ms'] = time_ms(
         lambda: torch.softmax(logits.masked_fill(~mask, -1e9), dim=-1))
-    fwd['bound_ms'], fwd['bound_by'] = bound_ms(nbytes(logits, mask, probs),
-                                                rows * n * 5)
+    fwd['bound_ms'], fwd['bound_by'] = bound_ms(
+        nbytes(logits, mask, u) + nbytes(*fs.masked_categorical(
+            logits, mask, u=u)), rows * n * 20)
 
-    got = fused_softmax._bwd_kernel(probs, grad)
-    torch.cuda.synchronize()
-    ref = fused_softmax.masked_softmax_bwd_plain(probs, grad)
-    abs_err, rel_err = max_err([got], [ref])
-    if (not rel_err <= KERNEL_TOL or got[~mask].any()
-            or not torch.isfinite(got).all()):
-        raise AssertionError(f'softmax bwd {shape}: rel err {rel_err}, or a '
-                             'masked entry is not zero')
-    bwd = dict(shape=shape, max_abs_err=abs_err, max_rel_err=rel_err)
-    bwd['ms'] = time_ms(lambda: fused_softmax._bwd_kernel(probs, grad))
-    bwd['plain_ms'] = time_ms(
-        lambda: fused_softmax.masked_softmax_bwd_plain(probs, grad))
+    probs, index, _logp, _ent = fs.masked_categorical(logits, mask, u=u)
+    bwd = dict(shape=shape, max_abs_err=0.0, max_rel_err=0.0)
+    variants = dict(logp_ent=(None, g_logp, g_ent),
+                    all=(g_probs, g_logp, g_ent), probs=(g_probs, None, None),
+                    logp=(None, g_logp, None), ent=(None, None, g_ent),
+                    broadcast=(None, g_logp[:1].expand(rows),
+                               g_ent[:1].expand(rows)))
+    for name, grads in variants.items():
+        got = fs._bwd_kernel(probs, index, *grads)
+        again = fs._bwd_kernel(probs, index, *grads)
+        torch.cuda.synchronize()
+        ref = fs.masked_categorical_bwd_plain(probs, index, *grads)
+        abs_err, rel_err = max_err([got], [ref])
+        if (not rel_err <= HEAD_BWD_TOL or got[~mask].any()
+                or not torch.isfinite(got).all()):
+            raise AssertionError(f'head bwd {shape} {name}: rel err '
+                                 f'{rel_err}, or a masked entry not zero')
+        check_same_bits(f'head bwd {shape} {name}', [got], [again])
+        bwd['max_abs_err'] = max(bwd['max_abs_err'], abs_err)
+        bwd['max_rel_err'] = max(bwd['max_rel_err'], rel_err)
+    # autograd through the head's Function reaches the backward kernel
+    x = logits.clone().requires_grad_()
+    _p, i, lp, en = fs.masked_categorical(x, mask, index=index)
+    (got, ) = torch.autograd.grad((lp, en), x, (g_logp, g_ent))
+    ref = fs.masked_categorical_bwd_plain(probs, index, None, g_logp, g_ent)
+    if not max_err([got], [ref])[1] <= HEAD_BWD_TOL:
+        raise AssertionError(f'head bwd {shape}: autograd off the plain '
+                             'formula')
+    bwd['ms'] = time_ms(lambda: fs._bwd_kernel(probs, index, None, g_logp,
+                                               g_ent))
+    bwd['plain_ms'] = time_ms(lambda: fs.masked_categorical_bwd_plain(
+        probs, index, None, g_logp, g_ent))
     bwd['library_ms'] = _library_grad_ms(
         lambda x: torch.softmax(x.masked_fill(~mask, -1e9), dim=-1),
-        (logits.clone().requires_grad_(), ), grad)
-    bwd['bound_ms'], bwd['bound_by'] = bound_ms(nbytes(probs, grad, got),
-                                                rows * n * 4)
+        (logits.clone().requires_grad_(), ), g_probs)
+    # bytes: probs, index, g_logp, g_ent, dlogits; ~10 operations an entry
+    bwd['bound_ms'], bwd['bound_by'] = bound_ms(
+        nbytes(probs, index, g_logp, g_ent, got), rows * n * 10)
     return fwd, bwd
 
 
@@ -748,7 +833,8 @@ def expected_launches(levels, forwards, passes, encoder_dtype='float32'):
     """The launch counts a run implies, of every counter. A policy forward
     launches one aggregate and one square per CG level (their bf16 versions
     with the bf16 encoder, and then no f32 one) and, on the heads, two CG
-    products (the mixer) and two masked softmaxes (focus, element), in f32
+    products (the mixer) and two fused categorical heads (focus, element,
+    counted as masked_softmax), in f32
     either way; a gradient pass is one forward and as many backward
     launches."""
     from molgym_tpu_torch.ops.kernel_common import launch_counts
@@ -1165,7 +1251,7 @@ def main() -> int:
         ((140, 4), 5, 5, 4), ((140, 4), 1, 5, 4), ((10, 4), 5, 5, 4),
         ((1, 4), 5, 5, 4), ((1, 4), 1, 5, 4), ((140, 4), 4, 4, 3),
         ((140, 4), 1, 4, 3), ((37, 3), 5, 5, 4))}
-    softmax = {case: check_softmax(dev, *case) for case in (
+    softmax = {case: check_head(dev, *case) for case in (
         (140, 7), (140, 3), (140, 10), (140, 4), (8192, 128), (33, 200))}
     for k, v in (list(agg.items()) + list(sq.items()) +
                  list(agg_bwd.items()) + list(sq_bwd.items()) +
@@ -1193,7 +1279,9 @@ def main() -> int:
     agent_grads = check_agent_grads(dev, SF6_AGENT)
     log('agent gradients:', json.dumps(agent_grads))
     log(f'fwd+bwd of the SF6 agent, minibatch 140: '
-        f'{agent_grads["fwd_bwd_ms_median"]:.3f} ms (median of 20) on {card}')
+        f'{agent_grads["fwd_bwd_ms_median"]:.3f} ms (median of 20), '
+        f'{agent_grads["launches_per_fwd_bwd"]} launches (before the fused '
+        f'head: 2,756) on {card}')
 
     training = run_training(dev, run, build_default_argparser, CANONICAL,
                             iterations=3)

@@ -21,11 +21,7 @@ from molgym_tpu_torch.agents.cormorant import CormorantEncoder, CormorantMixer
 from molgym_tpu_torch.agents.modules import MLP
 from molgym_tpu_torch.device import DeviceLike, resolve_device
 from molgym_tpu_torch.distributions import spherical
-from molgym_tpu_torch.distributions.discrete import (categorical_argmax,
-                                                     categorical_entropy,
-                                                     categorical_log_prob,
-                                                     categorical_sample,
-                                                     masked_categorical_probs)
+from molgym_tpu_torch.distributions.discrete import categorical_head
 from molgym_tpu_torch.distributions.gmm import (gmm_argmax, gmm_log_prob,
                                                 gmm_sample)
 from molgym_tpu_torch.ops.masked import to_one_hot
@@ -110,26 +106,20 @@ class CovariantAC(nn.Module):
                                  self.zs_array)
         invariats = self.inv_norm(atomic_scalars(covariats))
 
-        focus_probs = masked_categorical_probs(
-            self.phi_focus(invariats)[..., 0], focus_mask)
-        if actions is not None:
-            focus = torch.round(actions[:, 0]).long()
-        elif deterministic:
-            focus = categorical_argmax(focus_probs)
-        else:
-            focus = categorical_sample(generator, focus_probs)
+        focus_probs, focus, focus_logp, focus_ent = categorical_head(
+            self.phi_focus(invariats)[..., 0], focus_mask, generator,
+            index=(None if actions is None
+                   else torch.round(actions[:, 0]).long()),
+            deterministic=deterministic)
         focus_oh = to_one_hot(focus, self.canvas_size)
         focused_cov = select_atomic_covariats(covariats, focus_oh)
         focused_inv = select_atomic_invariats(invariats, focus_oh)
 
-        element_probs = masked_categorical_probs(
-            self.phi_element(focused_inv), obs.bag > 0)
-        if actions is not None:
-            element = torch.round(actions[:, 1]).long()
-        elif deterministic:
-            element = categorical_argmax(element_probs)
-        else:
-            element = categorical_sample(generator, element_probs)
+        element_probs, element, element_logp, element_ent = categorical_head(
+            self.phi_element(focused_inv), obs.bag > 0, generator,
+            index=(None if actions is None
+                   else torch.round(actions[:, 1]).long()),
+            deterministic=deterministic)
 
         cpe = self.num_channels_per_element
         offsets = torch.arange(cpe, device=device)[None, :]
@@ -163,11 +153,10 @@ class CovariantAC(nn.Module):
         else:
             orientation = spherical.sample(so3_dist, generator)
 
-        logp = (categorical_log_prob(focus_probs, focus) +
-                categorical_log_prob(element_probs, element) +
+        logp = (focus_logp + element_logp +
                 gmm_log_prob(gmm_log_w, d_means, d_stds, distance) +
                 spherical.log_prob(so3_dist, orientation))
-        ent = categorical_entropy(focus_probs) + categorical_entropy(element_probs)
+        ent = focus_ent + element_ent
 
         trans = self.phi_trans(invariats)
         value_feats = torch.einsum('bn,bnf->bf', atom_mask.to(trans.dtype), trans)

@@ -1,20 +1,29 @@
 """Masked categorical distribution as plain functions (counterpart of
 molgym_tpu/distributions/discrete.py). Sampling draws from an explicit
-torch.Generator."""
+torch.Generator. `categorical_head` is one whole head of the policy
+(probabilities, the chosen index, its log-probability and the entropy) in
+one fused kernel on the card; the other functions are its parts."""
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
-from molgym_tpu_torch.ops.fused_softmax import masked_softmax
+from molgym_tpu_torch.ops.fused_softmax import (Head, categorical_entropy,
+                                                categorical_log_prob,
+                                                gumbel_from_uniform,
+                                                gumbel_max, masked_categorical,
+                                                masked_softmax)
 
-_EPS = 1e-10
+__all__ = ['gumbel', 'masked_categorical_probs', 'categorical_sample',
+           'categorical_log_prob', 'categorical_entropy', 'categorical_argmax',
+           'categorical_head']
 
 
 def gumbel(shape, generator: torch.Generator, device) -> torch.Tensor:
     """Standard Gumbel noise -log(-log U) from `generator`."""
-    u = torch.rand(shape, generator=generator, device=device)
-    tiny = torch.finfo(torch.float32).tiny
-    return -torch.log(-torch.log(u.clamp(min=tiny, max=1.0 - 1e-7)))
+    return gumbel_from_uniform(
+        torch.rand(shape, generator=generator, device=device))
 
 
 def masked_categorical_probs(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -26,22 +35,26 @@ def masked_categorical_probs(logits: torch.Tensor, mask: torch.Tensor) -> torch.
 
 def categorical_sample(generator: torch.Generator, probs: torch.Tensor) -> torch.Tensor:
     """Gumbel-max sampling over the last axis; zero-prob entries never win."""
-    logits = (torch.log(probs.clamp(min=_EPS)) +
-              torch.where(probs > 0, 0.0, -1e9))
-    g = gumbel(probs.shape, generator, probs.device)
-    return torch.argmax(logits + g, dim=-1)
-
-
-def categorical_log_prob(probs: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
-    p = torch.gather(probs, -1, index[..., None].long())[..., 0]
-    return torch.log(p.clamp(min=_EPS))
-
-
-def categorical_entropy(probs: torch.Tensor) -> torch.Tensor:
-    plogp = torch.where(probs > 0, probs * torch.log(probs.clamp(min=_EPS)),
-                        torch.zeros_like(probs))
-    return -plogp.sum(dim=-1)
+    return gumbel_max(probs, gumbel(probs.shape, generator, probs.device))
 
 
 def categorical_argmax(probs: torch.Tensor) -> torch.Tensor:
     return torch.argmax(probs, dim=-1)
+
+
+def categorical_head(logits: torch.Tensor, mask: torch.Tensor,
+                     generator: Optional[torch.Generator],
+                     index: Optional[torch.Tensor] = None,
+                     deterministic: bool = False) -> Head:
+    """One masked categorical head: (probs, index, logp, ent) over the last
+    axis, the same values as masked_categorical_probs followed by
+    categorical_sample (or categorical_argmax, or the given `index`),
+    categorical_log_prob and categorical_entropy. The index is `index` where
+    given, else the greedy choice where `deterministic`, else a sample from
+    one torch.rand draw of `generator`, the draw categorical_sample makes."""
+    if index is not None:
+        return masked_categorical(logits, mask, index=index)
+    if deterministic:
+        return masked_categorical(logits, mask, greedy=True)
+    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    return masked_categorical(logits, mask, u=u)

@@ -483,6 +483,49 @@ def test_softmax_leading_dims_and_refusals(cuda_device):
         fused_softmax.masked_softmax(logits, mask.cpu())
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize('mode', ['given', 'greedy', 'sample'])
+@pytest.mark.parametrize('rows,n', [(140, 7), (140, 3), (33, 200)])
+def test_categorical_head_kernels_match_plain(cuda_device, rows, n, mode):
+    """The fused head (softmax, index, logp, ent in one launch, one launch
+    backward) against its plain chain: probs, logp, ent within 1e-6,
+    indices equal but at a near-tie of the best two scores (1e-5), the
+    backward through autograd within 1e-5 of max |ref|."""
+    logits, mask, gen = _softmax_args(cuda_device, rows, n, rows + n + 1)
+    kw = dict(given=dict(index=torch.randint(0, n, (rows, ), generator=gen,
+                                             device=cuda_device)),
+              greedy=dict(greedy=True),
+              sample=dict(u=torch.rand((rows, n), generator=gen,
+                                       device=cuda_device)))[mode]
+    g_logp, g_ent = (torch.randn(rows, generator=gen, device=cuda_device)
+                     for _ in range(2))
+    x = logits.requires_grad_()
+    before = dict(fused_agg.launch_counts)
+    probs, index, logp, ent = fused_softmax.masked_categorical(x, mask, **kw)
+    (got, ) = torch.autograd.grad((logp, ent), x, (g_logp, g_ent))
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in fused_agg.launch_counts.items()}
+    assert launched['masked_softmax'] == 1
+    assert launched['masked_softmax_bwd'] == 1
+    ref = fused_softmax.masked_categorical_plain(logits.detach(), mask, **kw)
+    for o, r in ((probs, ref[0]), (logp, ref[2]), (ent, ref[3])):
+        torch.testing.assert_close(o.detach(), r, rtol=1e-6, atol=1e-6)
+    if mode == 'given':
+        assert torch.equal(index, kw['index'])
+    else:
+        scores = ref[0] if mode == 'greedy' else (
+            torch.log(ref[0].clamp(min=1e-10)) +
+            torch.where(ref[0] > 0, 0.0, -1e9) +
+            fused_softmax.gumbel_from_uniform(kw['u']))
+        top2 = scores.topk(2, dim=-1).values
+        assert ((index == ref[1]) | (top2[:, 0] - top2[:, 1] <= 1e-5)).all()
+    plain = fused_softmax.masked_categorical_bwd_plain(
+        probs.detach(), index, None, g_logp, g_ent)
+    torch.testing.assert_close(got, plain, rtol=0,
+                               atol=1e-5 * float(plain.abs().max()))
+    assert not got[~mask].any()
+
+
 def _batch(cfg, batch, seed):
     """Random canvases (the bench.py recipe) and actions."""
     rng = np.random.RandomState(seed)

@@ -129,16 +129,17 @@ def test_wrappers_raise_off_cpu_without_a_kernel():
 
 def test_heads_take_the_kernel_route_off_the_cpu(monkeypatch):
     """Off the CPU neither the packed CG product nor the heads' softmax
-    reaches its plain version: both go to the kernel wrapper, which refuses
-    a device it has no kernel for."""
-    from molgym_tpu_torch.distributions.discrete import \
-        masked_categorical_probs
+    nor the fused categorical head reaches its plain version: each goes to
+    the kernel wrapper, which refuses a device it has no kernel for."""
+    from molgym_tpu_torch.distributions.discrete import (
+        categorical_head, masked_categorical_probs)
     from molgym_tpu_torch.ops import cg, fused_cg, fused_softmax
 
     def fail(*args, **kwargs):
         raise AssertionError('the plain version was called')
     monkeypatch.setattr(fused_cg, 'cg_contract_ri_plain', fail)
     monkeypatch.setattr(fused_softmax, 'masked_softmax_plain', fail)
+    monkeypatch.setattr(fused_softmax, 'masked_categorical_plain', fail)
     a = torch.zeros(3, 2, 4, device='meta')
     with pytest.raises(ValueError, match='cg_contract_ri: no kernel'):
         cg.cg_product_packed_ri(a, a, a, a, 2, 2, 1)
@@ -148,6 +149,11 @@ def test_heads_take_the_kernel_route_off_the_cpu(monkeypatch):
     logits = torch.zeros(3, 5, device='meta')
     with pytest.raises(ValueError, match='masked_softmax: no kernel'):
         masked_categorical_probs(logits, logits > 0)
+    # the fused head, in each of its modes
+    index = torch.zeros(3, dtype=torch.int64, device='meta')
+    for kwargs in (dict(index=index), dict(deterministic=True), {}):
+        with pytest.raises(ValueError, match='masked_softmax: no kernel'):
+            categorical_head(logits, logits > 0, None, **kwargs)
 
 
 def test_one_registry_counts_every_kernel():
