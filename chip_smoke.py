@@ -28,8 +28,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
          rows are logged;
        - the fused masked categorical head of the focus and element heads
          (masked softmax, index, log-prob and entropy in one kernel, and one
-         backward) at [140,7], [140,3], [140,10], [140,4], [8192,128] and
-         [33,200], every 7th row fully masked, in each of its four modes
+         backward) at [140,7], [140,3], [140,10], [140,4], the internal
+         agent's kappa head's [140,2] and [10,2], [8192,128] and [33,200],
+         every 7th row fully masked, in each of its four modes
          (probs only, given, greedy, sample): probs, logp and ent within
          1e-6 absolute and relative, indices equal but where the best two
          Gumbel scores (greedy: probabilities) are within 1e-5 (counted and
@@ -94,7 +95,22 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      fix-up must fire; then 2 PPO iterations of the recorded run through
      molgym_tpu_torch.run with --host_reward_mode=loop and the checks of
      phase 7, recomputes included in the launch counts, and reward_time
-     and transport in every train record.
+     and transport in every train record;
+ 11. the fifth path, the internal (SchNet) agent at SF6 full width
+     (experiments/sf6_internal/logs/sf6int_run-1.json: X,S,F; canvas 7;
+     width 128; 3 interactions; 64 atom features): a 140-env x 14-step
+     rollout with the device LJ reward through make_rollout_fn with phase
+     5's checks and exact launch counts (3 fused heads an `act`: focus,
+     element, kappa; no other kernel), the host ms of one `act` and one
+     profiled rollout (launches a step, idle share); bench.py's loss on a
+     minibatch of 140 with every gradient on the card within 1e-3 of that
+     leaf's max |g| on the CPU, none missing, its median ms, device ms,
+     launches and idle share, and one counted pass of 3 head forwards and 3
+     head backwards, kappa's without an entropy gradient; 2 PPO iterations
+     of the recorded run through molgym_tpu_torch.run with the checks of
+     phase 7; then 2 iterations of the mlp model at its recorded width
+     (experiments/host_loop/logs/hostloop_run-1.json: O2, canvas 3, width
+     32, the host LJ reward) the same way.
 
 The line before the last two is {"kernels": [...]}, then the card's name and
 power limit, and the last line is {"ok": true, "device": {...}}.
@@ -658,24 +674,30 @@ def _bench_batch(seed, agent_kwargs, batch=140):
     return elements, positions, bag
 
 
-def check_agent_grads(dev, agent_kwargs, encoder_dtype=None):
+def check_agent_grads(dev, agent_kwargs, encoder_dtype=None, build=None):
     """bench.py's loss on a minibatch of 140 at the width of `agent_kwargs`:
     every gradient on the card (through the kernels) against the same
     agent's on the CPU (plain versions), within MODEL_TOL of the leaf's max
     |g| (BF16_MODEL_TOL with the bf16 encoder), then the time of one
     fwd+bwd and, under torch.profiler, its launches and the device's idle
-    share."""
+    share. `build(device)` makes the agent (default: the covariant agent of
+    `agent_kwargs`). One more fwd+bwd counts its kernels' launches and
+    records which gradients each head's backward received."""
     from torch.profiler import ProfilerActivity, profile
 
     from molgym_tpu_torch.agents.covariant import CovariantAC
+    from molgym_tpu_torch.ops import fused_agg, fused_softmax
     from molgym_tpu_torch.profile_rollout import device_us
     from molgym_tpu_torch.spaces import Observation
 
     tol = MODEL_TOL if encoder_dtype is None else BF16_MODEL_TOL
-    agent_kwargs = dict(agent_kwargs, encoder_dtype=encoder_dtype)
+    if build is None:
+        def build(device):
+            return CovariantAC(**agent_kwargs, encoder_dtype=encoder_dtype,
+                               device=device)
     torch.manual_seed(SEED)
-    agents = {'cuda': CovariantAC(**agent_kwargs, device=dev)}
-    agents['cpu'] = CovariantAC(**agent_kwargs, device='cpu')
+    agents = {'cuda': build(dev)}
+    agents['cpu'] = build('cpu')
     agents['cpu'].load_state_dict(agents['cuda'].state_dict())
     arrays = _bench_batch(SEED, agent_kwargs)
     obs = {name: Observation(*(torch.from_numpy(x).to(d) for x in arrays))
@@ -710,6 +732,24 @@ def check_agent_grads(dev, agent_kwargs, encoder_dtype=None):
         if not ratio <= tol:
             raise AssertionError(f'gradient of {k}: card vs CPU differ by '
                                  f'{ratio} of the leaf\'s max |g|')
+
+    # one counted pass; each head's backward: its rows, its N and the
+    # gradients it received (probs, logp, ent)
+    head_bwd, bwd_kernel = [], fused_softmax._bwd_kernel
+
+    def recorded(probs, index, g_probs, g_logp, g_ent):
+        head_bwd.append([list(probs.shape)] + [
+            g is not None for g in (g_probs, g_logp, g_ent)])
+        return bwd_kernel(probs, index, g_probs, g_logp, g_ent)
+    torch.cuda.synchronize()
+    fused_agg.reset_launch_counts()
+    fused_softmax._bwd_kernel = recorded
+    try:
+        fwd_bwd('cuda')
+    finally:
+        fused_softmax._bwd_kernel = bwd_kernel
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in fused_agg.launch_counts.items() if v}
 
     times = []
     for _ in range(3):
@@ -751,6 +791,7 @@ def check_agent_grads(dev, agent_kwargs, encoder_dtype=None):
                 device_idle_share_profiled=1.0 - device_ms / wall_ms,
                 device_idle_share_vs_median=1.0 - device_ms / median,
                 launches_per_fwd_bwd=sum(e.count for e in kernels),
+                kernel_counts_per_fwd_bwd=counts, head_backwards=head_bwd,
                 optimizer_step_ms_median=float(np.median(step_times)))
 
 
@@ -829,19 +870,30 @@ SF6_PM6 = ['--name=sf6pm6', '--formulas=SF6', '--canvas_size=7',
 PM6_ENVS = 10   # the recorded run's --num_envs
 
 
-def expected_launches(levels, forwards, passes, encoder_dtype='float32'):
-    """The launch counts a run implies, of every counter. A policy forward
-    launches one aggregate and one square per CG level (their bf16 versions
-    with the bf16 encoder, and then no f32 one) and, on the heads, two CG
-    products (the mixer) and two fused categorical heads (focus, element,
-    counted as masked_softmax), in f32
-    either way; a gradient pass is one forward and as many backward
-    launches."""
-    from molgym_tpu_torch.ops.kernel_common import launch_counts
+def per_forward_launches(agent, encoder_dtype='float32'):
+    """{(counter, suffix): launches} of one policy forward of `agent`. A
+    covariant forward launches one aggregate and one square per CG level
+    (their bf16 versions with the bf16 encoder, and then no f32 one) and,
+    on the heads, two CG products (the mixer) and two fused categorical
+    heads (focus, element, counted as masked_softmax), in f32 either way;
+    an internal forward (SchNet or mlp) three fused heads (focus, element,
+    kappa) and no CG kernel."""
+    from molgym_tpu_torch.agents.internal import InternalAC
+    if isinstance(agent, InternalAC):
+        return {('masked_softmax', ''): 3}
     encoder = '_bf16' if encoder_dtype == 'bfloat16' else ''
-    per_forward = {('cg_aggregate_edge_fused_ri', encoder): levels,
-                   ('cg_square_fused_ri', encoder): levels,
-                   ('cg_contract_ri', ''): 2, ('masked_softmax', ''): 2}
+    levels = agent.encoder.num_cg_levels
+    return {('cg_aggregate_edge_fused_ri', encoder): levels,
+            ('cg_square_fused_ri', encoder): levels,
+            ('cg_contract_ri', ''): 2, ('masked_softmax', ''): 2}
+
+
+def expected_launches(per_forward, forwards, passes):
+    """The launch counts, of every counter, of `forwards` policy forwards
+    and `passes` gradient passes with `per_forward` (per_forward_launches)
+    launches a forward; a gradient pass is one forward and as many
+    backward launches."""
+    from molgym_tpu_torch.ops.kernel_common import launch_counts
     out = dict.fromkeys(launch_counts, 0)
     for (name, suffix), n in per_forward.items():
         out[name + suffix] = n * (forwards + passes)
@@ -923,16 +975,21 @@ def run_training(dev, entry, build_parser, argv, iterations,
                 if not torch.equal(v, getattr(optimizer, key)[k]):
                     raise AssertionError(f'checkpoint {key} differs in {k}')
 
-    # forwards: a rollout of 14 steps per env makes 15 (the bootstrap), an
+    # forwards: a rollout of T steps per env makes T + 1 (the bootstrap), an
     # eval rollout of one episode canvas_size + 1 steps and the bootstrap;
-    # every gradient pass makes one forward and one backward
-    # a pipelined rollout computes a forward again after a low reward
-    passes = sum(r['num_grad_passes'] for r in opt)
+    # every gradient pass (an epoch's minibatch) makes one forward and one
+    # backward; a pipelined rollout computes a forward again after a low
+    # reward
+    samples = config['num_steps_per_iter']
+    minibatches = -(-samples // min(config['mini_batch_size'], samples))
+    passes = minibatches * sum(r['num_grad_passes'] for r in opt)
     recomputes = sum(r.get('recomputes', 0) for r in train + evals)
-    forwards = (len(train) * (NUM_STEPS + 1)
+    steps_per_env = config['num_steps_per_iter'] // config['num_envs']
+    forwards = (len(train) * (steps_per_env + 1)
                 + len(evals) * (config['canvas_size'] + 2) + recomputes)
-    expected = expected_launches(agent.encoder.num_cg_levels, forwards, passes,
-                                 config['encoder_dtype'])
+    expected = expected_launches(
+        per_forward_launches(agent, config['encoder_dtype']), forwards,
+        passes)
     if counts != expected:
         raise AssertionError(f'launches {counts}, expected {expected}')
     return dict(seconds=seconds, counts=counts, grad_passes=passes,
@@ -948,13 +1005,13 @@ def run_training(dev, entry, build_parser, argv, iterations,
                 reward_time_s=[r.get('reward_time') for r in train])
 
 
-def run_rollout(dev, env, agent, agent_kwargs, max_episode_len):
+def run_rollout(dev, env, agent, build, max_episode_len):
     """A NUM_ENVS x NUM_STEPS rollout of `agent` in `env` through
     make_rollout_fn, with the launch counts zeroed just before and read just
     after: exact forward-only launch counts, finite outputs, no episode
     longer than `max_episode_len`, and the agent on the card against itself
-    on the CPU (plain versions) on the rollout's data."""
-    from molgym_tpu_torch.agents.covariant import CovariantAC
+    on the CPU (plain versions; `build(device)` makes an agent of its
+    kind) on the rollout's data."""
     from molgym_tpu_torch.ops import fused_agg
     from molgym_tpu_torch.rl.rollout import make_rollout_fn
 
@@ -974,7 +1031,7 @@ def run_rollout(dev, env, agent, agent_kwargs, max_episode_len):
     counts = dict(fused_agg.launch_counts)
 
     # the rollout runs forwards only: no backward kernel may launch
-    expected = expected_launches(agent.encoder.num_cg_levels, NUM_STEPS + 1, 0)
+    expected = expected_launches(per_forward_launches(agent), NUM_STEPS + 1, 0)
     if counts != expected:
         raise AssertionError(f'launches {counts}, expected {expected}')
     for name in ('rewards', 'logps', 'values', 'actions', 'bootstrap_value'):
@@ -993,7 +1050,7 @@ def run_rollout(dev, env, agent, agent_kwargs, max_episode_len):
             raise AssertionError(f'env {b}: episode longer than '
                                  f'{max_episode_len} steps')
 
-    cpu_agent = CovariantAC(**agent_kwargs, device='cpu')
+    cpu_agent = build('cpu')
     cpu_agent.load_state_dict(agent.state_dict())
     idx = slice(0, 16)
     obs = traj.obs.map(lambda x: x[3, idx])
@@ -1028,7 +1085,9 @@ def run_main_path(dev):
     env = MolecularEnv(make_lennard_jones_reward(), space, bag[None],
                        device=dev)
     agent = CovariantAC(**SF6_AGENT, device=dev)
-    _traj, res = run_rollout(dev, env, agent, SF6_AGENT, max_episode_len=7)
+    _traj, res = run_rollout(dev, env, agent,
+                             lambda d: CovariantAC(**SF6_AGENT, device=d),
+                             max_episode_len=7)
     return res
 
 
@@ -1050,7 +1109,9 @@ def run_stochastic_rollout(dev):
         config, space, make_lennard_jones_reward(), dev)
     torch.manual_seed(SEED + 2)
     agent = CovariantAC(**STOCH_AGENT, device=dev)
-    traj, res = run_rollout(dev, env, agent, STOCH_AGENT, max_episode_len=8)
+    traj, res = run_rollout(dev, env, agent,
+                            lambda d: CovariantAC(**STOCH_AGENT, device=d),
+                            max_episode_len=8)
 
     # the bag an episode starts from: step 0, and the step after a terminal
     term = traj.terminals
@@ -1148,7 +1209,7 @@ def run_host_transports(dev, method, epsilon):
                    reward_calls=calc.total_calls - calls0,
                    recomputes=getattr(fn, 'recomputes', 0),
                    counts=dict(fused_agg.launch_counts))
-        expected = expected_launches(agent.encoder.num_cg_levels,
+        expected = expected_launches(per_forward_launches(agent),
                                      NUM_STEPS + 1 + res['recomputes'], 0)
         if res['counts'] != expected:
             raise AssertionError(f'{name}: launches {res["counts"]}, '
@@ -1190,6 +1251,68 @@ def run_host_transports(dev, method, epsilon):
                 pool_evals_batches=calc.pool_stats(),
                 transports={n: {k: v for k, v in r.items() if k != 'counts'}
                             for n, (r, _t) in runs.items()})
+
+
+# experiments/sf6_internal/logs/sf6int_run-1.json: the internal (SchNet)
+# agent, X,S,F, canvas 7, width 128, 3 interactions, 64 atom features
+INTERNAL_SF6 = dict(zs=(0, 16, 9), canvas_size=7)
+SF6_INTERNAL = ['--name=sf6int', '--formulas=SF6', '--canvas_size=7',
+                '--symbols=X,S,F', '--bag_scale=5', '--model=internal',
+                '--network_width=128', '--num_interactions=3',
+                '--min_mean_distance=1.1', '--max_mean_distance=2.1',
+                '--num_envs=10', '--num_steps_per_iter=140',
+                '--mini_batch_size=140', '--reward=device_lj',
+                '--num_eval_episodes=1', '--save_rollouts=eval', '--seed=1',
+                '--num_steps=280', '--log_level=WARNING']
+# experiments/host_loop/logs/hostloop_run-1.json: the mlp model, O2 on a
+# canvas of 3, width 32, the host LJ reward, cut to 2 iterations
+HOST_LOOP_MLP = ['--name=hostloop', '--formulas=O2', '--canvas_size=3',
+                 '--symbols=X,O', '--bag_scale=2', '--model=mlp',
+                 '--network_width=32', '--min_mean_distance=0.8',
+                 '--max_mean_distance=1.8', '--num_envs=8',
+                 '--num_steps_per_iter=128', '--mini_batch_size=64',
+                 '--reward=lj', '--eval_freq=4', '--num_eval_episodes=1',
+                 '--save_rollouts=none', '--seed=1', '--num_steps=256',
+                 '--log_level=WARNING']
+
+
+def make_internal_agent(device):
+    """The SF6 internal agent of SF6_INTERNAL, random weights."""
+    from molgym_tpu_torch.agents.schnet import make_schnet_agent
+    return make_schnet_agent(num_zs=len(INTERNAL_SF6['zs']),
+                             canvas_size=INTERNAL_SF6['canvas_size'],
+                             network_width=128, min_max_distance=(1.1, 2.1),
+                             n_interactions=3, device=device)
+
+
+def run_internal_rollout(dev):
+    """The fifth path's rollout: the SF6 internal agent at full width, 140
+    envs x 14 steps with the device LJ reward, through run_rollout's checks
+    (3 fused heads a forward, no other kernel); then the host ms of one
+    `act`, an env step and an auto-reset, and one profiled rollout (launches
+    a step, the device's idle share)."""
+    from molgym_tpu_torch import profile_rollout
+    from molgym_tpu_torch.envs.environment import MolecularEnv
+    from molgym_tpu_torch.envs.reward import make_lennard_jones_reward
+    from molgym_tpu_torch.formula import string_to_formula
+    from molgym_tpu_torch.rl.rollout import make_rollout_fn
+    from molgym_tpu_torch.spaces import ObservationSpace
+
+    space = ObservationSpace(canvas_size=INTERNAL_SF6['canvas_size'],
+                             zs=list(INTERNAL_SF6['zs']))
+    bag = space.bag_from_formula(string_to_formula('SF6'))
+    env = MolecularEnv(make_lennard_jones_reward(), space, bag[None],
+                       device=dev)
+    torch.manual_seed(SEED + 4)
+    agent = make_internal_agent(dev)
+    _traj, res = run_rollout(dev, env, agent, make_internal_agent,
+                             max_episode_len=7)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    phases = profile_rollout.phase_ms(env, agent, NUM_ENVS, gen)
+    prof = profile_rollout.profile_rollout(
+        make_rollout_fn(env, agent, NUM_STEPS), env, agent, NUM_ENVS,
+        NUM_STEPS, gen)
+    return dict(res, phases=phases, profile=prof)
 
 
 def main() -> int:
@@ -1251,8 +1374,13 @@ def main() -> int:
         ((140, 4), 5, 5, 4), ((140, 4), 1, 5, 4), ((10, 4), 5, 5, 4),
         ((1, 4), 5, 5, 4), ((1, 4), 1, 5, 4), ((140, 4), 4, 4, 3),
         ((140, 4), 1, 4, 3), ((37, 3), 5, 5, 4))}
+    # the heads' shapes: SF6 focus [140,7], element [140,3], the
+    # stochastic configuration's [140,10] and [140,4], the internal agent's
+    # kappa [140,2] and [10,2] (its element head is [140,3]), and two
+    # shapes past the policy's
     softmax = {case: check_head(dev, *case) for case in (
-        (140, 7), (140, 3), (140, 10), (140, 4), (8192, 128), (33, 200))}
+        (140, 7), (140, 3), (140, 10), (140, 4), (140, 2), (10, 2),
+        (8192, 128), (33, 200))}
     for k, v in (list(agg.items()) + list(sq.items()) +
                  list(agg_bwd.items()) + list(sq_bwd.items()) +
                  list(agg16.items()) + list(sq16.items()) +
@@ -1328,6 +1456,39 @@ def main() -> int:
                                 iterations=2, transport='pipelined')
     log('pm6 training:', json.dumps(pm6_training))
 
+    # the fifth path: the internal (SchNet) agent at SF6, and the mlp model
+    internal_rollout = run_internal_rollout(dev)
+    log('internal rollout:', json.dumps(internal_rollout))
+    internal_grads = check_agent_grads(dev, INTERNAL_SF6,
+                                       build=make_internal_agent)
+    log('internal agent gradients:', json.dumps(internal_grads))
+    # three heads a pass, each one forward and one backward; kappa's
+    # entropy enters no loss, so its backward gets no entropy gradient
+    rows = NUM_ENVS
+    want = dict(masked_softmax=3, masked_softmax_bwd=3)
+    want_bwd = [[[rows, 7], False, True, True], [[rows, 3], False, True, True],
+                [[rows, 2], False, True, False]]
+    if (internal_grads['kernel_counts_per_fwd_bwd'] != want
+            or sorted(internal_grads['head_backwards'], reverse=True)
+            != want_bwd):
+        raise AssertionError('internal fwd+bwd: launches '
+                             f'{internal_grads["kernel_counts_per_fwd_bwd"]}, '
+                             f'head backwards {internal_grads["head_backwards"]}')
+    log(f'SF6 internal agent: act {internal_rollout["phases"]["act_ms"]:.3f} '
+        f'ms at {NUM_ENVS} envs, rollout '
+        f'{internal_rollout["ms_per_step"]:.3f} ms/step, '
+        f'{internal_rollout["profile"]["kernel_launches_per_step"]:.1f} '
+        f'launches a step; fwd+bwd {internal_grads["fwd_bwd_ms_median"]:.3f} '
+        f'ms (median of 20), {internal_grads["device_busy_ms"]:.3f} ms of '
+        f'device time, {internal_grads["launches_per_fwd_bwd"]} launches on '
+        f'{card}')
+    internal_training = run_training(dev, run, build_default_argparser,
+                                     SF6_INTERNAL, iterations=2)
+    log('internal training:', json.dumps(internal_training))
+    mlp_training = run_training(dev, run, build_default_argparser,
+                                HOST_LOOP_MLP, iterations=2)
+    log('mlp training:', json.dumps(mlp_training))
+
     def entry(name, source, replaces, main, others, path=training, **extra):
         """A kernel's line: `launches` from the run of its main path (the
         SF6 training for the f32 kernels, the bf16 SF6 training for the
@@ -1345,6 +1506,10 @@ def main() -> int:
                     bf16_training_launches=bf16_training['counts'][name],
                     pm6_rollout_launches=pm6['counts'][name],
                     pm6_training_launches=pm6_training['counts'][name],
+                    internal_rollout_launches=internal_rollout['counts'][name],
+                    internal_training_launches=internal_training['counts'][
+                        name],
+                    mlp_training_launches=mlp_training['counts'][name],
                     **extra)
 
     def entry16(name, source, replaces, main, others, **extra):
@@ -1387,10 +1552,14 @@ def main() -> int:
               [b for _f, b in contract.values()]),
         entry('masked_softmax', csrc + 'masked_softmax.cu',
               pallas + 'pallas_softmax.py:29', softmax_main[0],
-              [f for f, _b in softmax.values()]),
+              [f for f, _b in softmax.values()],
+              kappa_ms=softmax[(140, 2)][0]['ms'],
+              kappa_ms_b10=softmax[(10, 2)][0]['ms']),
         entry('masked_softmax_bwd', csrc + 'masked_softmax.cu',
               pallas + 'pallas_softmax.py:29', softmax_main[1],
-              [b for _f, b in softmax.values()]),
+              [b for _f, b in softmax.values()],
+              kappa_ms=softmax[(140, 2)][1]['ms'],
+              kappa_ms_b10=softmax[(10, 2)][1]['ms']),
         entry16('cg_aggregate_edge_fused_ri', csrc + 'cg_aggregate.cu',
                 pallas + 'pallas_agg.py:334', agg16[('sf6', 5)],
                 [r for (_c, n), r in agg16.items() if n != 1],
@@ -1444,7 +1613,11 @@ def main() -> int:
                       'bf16_training': bf16_training,
                       'host_library': host_lib, 'pm6_transports': pm6,
                       'lj_fixup_transports': fixup,
-                      'pm6_training': pm6_training}))
+                      'pm6_training': pm6_training,
+                      'internal_rollout': internal_rollout,
+                      'internal_agent_grads': internal_grads,
+                      'internal_training': internal_training,
+                      'mlp_training': mlp_training}))
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

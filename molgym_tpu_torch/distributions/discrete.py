@@ -2,9 +2,11 @@
 molgym_tpu/distributions/discrete.py). Sampling draws from an explicit
 torch.Generator. `categorical_head` is one whole head of the policy
 (probabilities, the chosen index, its log-probability and the entropy) in
-one fused kernel on the card; the other functions are its parts."""
+one fused kernel on the card; the other functions are its parts. The
+normal helpers serve the internal agent's continuous heads."""
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -17,7 +19,8 @@ from molgym_tpu_torch.ops.fused_softmax import (Head, categorical_entropy,
 
 __all__ = ['gumbel', 'masked_categorical_probs', 'categorical_sample',
            'categorical_log_prob', 'categorical_entropy', 'categorical_argmax',
-           'categorical_head']
+           'categorical_head', 'normal_log_prob', 'normal_entropy',
+           'normal_sample']
 
 
 def gumbel(shape, generator: torch.Generator, device) -> torch.Tensor:
@@ -58,3 +61,20 @@ def categorical_head(logits: torch.Tensor, mask: torch.Tensor,
         return masked_categorical(logits, mask, greedy=True)
     u = torch.rand(logits.shape, generator=generator, device=logits.device)
     return masked_categorical(logits, mask, u=u)
+
+
+def normal_log_prob(x: torch.Tensor, mean: torch.Tensor,
+                    std: torch.Tensor) -> torch.Tensor:
+    var = std * std
+    return -0.5 * (torch.square(x - mean) / var + torch.log(2.0 * math.pi * var))
+
+
+def normal_entropy(std: torch.Tensor) -> torch.Tensor:
+    return 0.5 * torch.log(2.0 * math.pi * math.e * std * std)
+
+
+def normal_sample(generator: torch.Generator, mean: torch.Tensor,
+                  std: torch.Tensor) -> torch.Tensor:
+    """mean + std * one torch.randn draw of `generator`, of mean's shape."""
+    return mean + std * torch.randn(mean.shape, generator=generator,
+                                    device=mean.device, dtype=mean.dtype)

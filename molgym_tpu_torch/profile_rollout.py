@@ -5,7 +5,9 @@
 
 Runs the SF6 covariant rollout of chip_smoke.py, or its stochastic-bag
 rollout (bags of 4-8 atoms sampled around C2H6O, canvas 10, maxl 3, 2 CG
-levels), with random weights from a seed, and prints JSON lines:
+levels), with random weights from a seed, and prints JSON lines
+(chip_smoke.py's phase 11 calls phase_ms and profile_rollout for the
+internal agent's rollout):
   * phases: host-clock ms of one policy forward (`act`), one env step and
     one auto-reset at the rollout's shapes, each ended by a synchronize;
   * profile: over one whole rollout under torch.profiler, the wall time, the
@@ -50,6 +52,50 @@ def device_us(evt) -> float:
     return 0.0
 
 
+def phase_ms(env, agent, num_envs, gen) -> dict:
+    """Host-clock ms of one policy forward (sampled and greedy), one env
+    step and one auto-reset at num_envs envs, each ended by a
+    synchronize."""
+    states = env.init_states(num_envs, gen)
+    obs = states.observation()
+    with torch.no_grad():
+        out = agent.act(obs, gen)
+        result = env.step(states, out.element, out.position)
+        return dict(
+            act_ms=_host_ms(lambda: agent.act(obs, gen)),
+            act_greedy_ms=_host_ms(lambda: agent.act(obs, gen, True)),
+            env_step_ms=_host_ms(lambda: env.step(states, out.element,
+                                                  out.position)),
+            reset_if_terminal_ms=_host_ms(
+                lambda: env.reset_if_terminal(result.state, result.done,
+                                              gen)))
+
+
+def profile_rollout(rollout, env, agent, num_envs, steps, gen) -> dict:
+    """One whole `steps`-step rollout under torch.profiler: wall ms, the
+    device's busy ms and idle share, kernel launches per step, and the
+    kernels with the most device time."""
+    states = env.init_states(num_envs, gen)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rollout(agent, states, gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side events only (kernels, copies, memsets): host ops also carry
+    # their kernels' device time and would count it twice
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith('CUDA') and device_us(e) > 0]
+    device_ms = sum(device_us(e) for e in kernels) / 1e3
+    top = sorted(kernels, key=device_us, reverse=True)[:12]
+    return {'steps': steps, 'wall_ms_profiled': wall_ms,
+            'device_busy_ms': device_ms,
+            'device_idle_share': 1.0 - device_ms / wall_ms,
+            'kernel_launches_per_step': sum(e.count for e in kernels) / steps,
+            'top_kernels': [dict(name=e.key[:90], device_ms=device_us(e) / 1e3,
+                                 count=e.count) for e in top]}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--num_envs', type=int, default=140)
@@ -87,44 +133,11 @@ def main() -> int:
     rollout = make_rollout_fn(env, agent, args.steps)
     rollout(agent, env.init_states(args.num_envs, gen), gen)   # warm-up
 
-    states = env.init_states(args.num_envs, gen)
-    obs = states.observation()
-    with torch.no_grad():
-        out = agent.act(obs, gen)
-        result = env.step(states, out.element, out.position)
-        phases = dict(
-            act_ms=_host_ms(lambda: agent.act(obs, gen)),
-            act_greedy_ms=_host_ms(lambda: agent.act(obs, gen, True)),
-            env_step_ms=_host_ms(lambda: env.step(states, out.element,
-                                                  out.position)),
-            reset_if_terminal_ms=_host_ms(
-                lambda: env.reset_if_terminal(result.state, result.done,
-                                              gen)))
-    print(json.dumps({'card': card, 'config': args.config,
-                      'num_envs': args.num_envs, 'phases': phases}))
-
-    states = env.init_states(args.num_envs, gen)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        rollout(agent, states, gen)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side events only (kernels, copies, memsets): host ops also carry
-    # their kernels' device time and would count it twice
-    kernels = [e for e in prof.key_averages()
-               if str(e.device_type).endswith('CUDA') and device_us(e) > 0]
-    device_ms = sum(device_us(e) for e in kernels) / 1e3
-    launches = sum(e.count for e in kernels)
-    top = sorted(kernels, key=device_us, reverse=True)[:12]
-    print(json.dumps({
-        'card': card, 'config': args.config, 'num_envs': args.num_envs,
-        'steps': args.steps,
-        'wall_ms_profiled': wall_ms, 'device_busy_ms': device_ms,
-        'device_idle_share': 1.0 - device_ms / wall_ms,
-        'kernel_launches_per_step': launches / args.steps,
-        'top_kernels': [dict(name=e.key[:90], device_ms=device_us(e) / 1e3,
-                             count=e.count) for e in top]}))
+    head = {'card': card, 'config': args.config, 'num_envs': args.num_envs}
+    print(json.dumps(dict(head, phases=phase_ms(env, agent, args.num_envs,
+                                                gen))))
+    print(json.dumps(dict(head, **profile_rollout(
+        rollout, env, agent, args.num_envs, args.steps, gen))))
     return 0
 
 

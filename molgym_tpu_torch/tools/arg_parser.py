@@ -195,9 +195,6 @@ def check_supported(config: dict) -> None:
     """Raises NotImplementedError for every option value the port does not
     run yet, naming the ROADMAP.md item that will bring it."""
     refused = []
-    if config.get('model') in ('internal', 'mlp'):
-        refused.append(f"model '{config['model']}' "
-                       '(ROADMAP.md Queue 2 item 6)')
     if (config.get('num_devices') or 0) > 1 or config.get('multihost'):
         refused.append('data parallelism (num_devices > 1, multihost; '
                        'ROADMAP.md Queue 2 item 8)')
@@ -206,6 +203,11 @@ def check_supported(config: dict) -> None:
     if config.get('profile'):
         refused.append('profile (chip_smoke.py and '
                        'molgym_tpu_torch/profile_rollout.py profile the card)')
+    if (config.get('model') in ('internal', 'mlp')
+            and config.get('encoder_dtype', 'float32') != 'float32'):
+        refused.append(f"encoder_dtype '{config['encoder_dtype']}' with model "
+                       f"'{config['model']}' (the bf16 path is the covariant "
+                       'encoder\'s; the JAX package ignores the flag there)')
     if config.get('agg_backend', 'auto') != 'auto':
         refused.append(f"agg_backend '{config['agg_backend']}' (the port has "
                        'one aggregate: the CUDA kernel on the card)')

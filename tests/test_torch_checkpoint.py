@@ -2,15 +2,24 @@
 (a legacy layout migrated by migrate_legacy_covariant), carried over by
 convert.py, and evaluated greedily in both packages on their run's
 evaluation formula with the device LJ reward: the mean over 8 envs of each
-env's first greedy episode. The distance mode is the best of 128 draws, so
-an env's return varies with its draws (by 0.01 at the stochastic run, by up
-to 0.1 at SF6) and the two packages draw differently.
+env's first greedy episode. The covariant agent's distance mode is the best
+of 128 draws, so an env's return varies with its draws (by 0.01 at the
+stochastic run, by up to 0.1 at SF6) and the two packages draw
+differently.
 
 Tolerance on the two packages' means, measured on the CPU: 0.02 for the
 float32 stochastic-bag run (port 1.2443, JAX 1.2409; the run's last
 recorded eval 1.246); 0.05 for the bf16 SF6 run (port 1.5432, JAX 1.5519;
 recorded 1.544), where the envs' returns spread wider (1.51-1.61) and the
-two packages also round to bf16 at other places. The file reads
+two packages also round to bf16 at other places; 1e-4 for the internal
+(SchNet) SF6 run, whose greedy act draws nothing (the continuous
+sub-actions are the means, kappa the argmax): port 0.973328, JAX
+0.973331. Its envs differ by 5e-7 in the port: on a canvas of at most 3
+atoms kappa's two candidates are mirror images whose logits tie up to
+rounding, and either sign places an episode of the same energies. The
+run's last recorded eval, 0.967779 at 14,000 steps
+(results/sf6int_run-1_eval.txt), came from the TPU, whose matmuls round
+otherwise: the port is held within 0.01 of it. The file reads
 experiments/ and writes nothing there."""
 from pathlib import Path
 
@@ -21,6 +30,7 @@ import torch
 from flax.traverse_util import flatten_dict
 
 from molgym_tpu.agents.covariant import CovariantAC as JaxCovariantAC
+from molgym_tpu.agents.schnet import make_schnet_agent as jax_schnet_agent
 from molgym_tpu.envs.environment import MolecularEnv as JaxMolecularEnv
 from molgym_tpu.envs.reward import make_lennard_jones_reward as jax_lj
 from molgym_tpu.rl.rollout import make_rollout_fn as jax_rollout_fn
@@ -28,7 +38,9 @@ from molgym_tpu.spaces import ObservationSpace as JaxObservationSpace
 from molgym_tpu.tools.model_io import (ModelIO, is_legacy_covariant_tree,
                                        migrate_legacy_covariant)
 from molgym_tpu_torch.agents.covariant import CovariantAC
-from molgym_tpu_torch.convert import covariant_params_from_jax
+from molgym_tpu_torch.agents.schnet import make_schnet_agent
+from molgym_tpu_torch.convert import (covariant_params_from_jax,
+                                      internal_params_from_jax)
 from molgym_tpu_torch.envs.environment import MolecularEnv
 from molgym_tpu_torch.envs.reward import make_lennard_jones_reward
 from molgym_tpu_torch.formula import string_to_formula
@@ -50,6 +62,10 @@ RUNS = {
         formula='SF6', zs=(0, 16, 9), canvas_size=7, maxl=4, num_cg_levels=3,
         bag_scale=5, min_max_distance=(1.1, 2.1), encoder_dtype='bfloat16',
         tol=0.05),
+    'sf6_internal': dict(
+        model='sf6_internal/models/sf6int_run-1_steps-14000.model',
+        agent='internal', formula='SF6', zs=(0, 16, 9), canvas_size=7,
+        min_max_distance=(1.1, 2.1), tol=1e-4, recorded=0.967779278755188),
 }
 
 
@@ -61,6 +77,23 @@ def _agent_kwargs(run):
                 bag_scale=run['bag_scale'],
                 min_max_distance=run['min_max_distance'], beta=-10.0,
                 encoder_dtype=run['encoder_dtype'])
+
+
+def agent_pair(run):
+    """(the JAX agent, the port's on the CPU, the map of its param tree)
+    of a recorded run: the covariant agent at width 128, or the internal
+    (SchNet) agent at width 128 with 3 interactions."""
+    if run.get('agent') == 'internal':
+        kwargs = dict(num_zs=len(run['zs']), canvas_size=run['canvas_size'],
+                      network_width=128,
+                      min_max_distance=run['min_max_distance'],
+                      n_interactions=3)
+        return (jax_schnet_agent(**kwargs),
+                make_schnet_agent(**kwargs, device='cpu'),
+                internal_params_from_jax)
+    kwargs = _agent_kwargs(run)
+    return (JaxCovariantAC(**kwargs), CovariantAC(**kwargs, device='cpu'),
+            covariant_params_from_jax)
 
 
 def _first_returns(rewards, terminals):
@@ -115,15 +148,13 @@ def _torch_eval(run, agent):
 @pytest.mark.parametrize('name', list(RUNS))
 def test_trained_checkpoint_evaluates_alike(name):
     run = RUNS[name]
-    kwargs = _agent_kwargs(run)
     jspace = JaxObservationSpace(run['canvas_size'], list(run['zs']))
-    jagent = JaxCovariantAC(**kwargs)
+    jagent, agent, params_from_jax = agent_pair(run)
     params = _restore(run, jagent, jspace)
     flat = {k: np.asarray(v)
             for k, v in flatten_dict(params, sep='/').items()}
-    agent = CovariantAC(**kwargs, device='cpu')
-    missing, unexpected = agent.load_state_dict(
-        covariant_params_from_jax(flat), strict=True)
+    missing, unexpected = agent.load_state_dict(params_from_jax(flat),
+                                                strict=True)
     assert not missing and not unexpected
 
     jret = _jax_eval(run, jagent, params, jspace)
@@ -131,3 +162,34 @@ def test_trained_checkpoint_evaluates_alike(name):
     assert np.isfinite(tret).all() and np.isfinite(jret).all()
     assert abs(float(tret.mean()) - float(jret.mean())) <= run['tol'], (
         tret, jret)
+    if 'recorded' in run:
+        assert abs(float(tret.mean()) - run['recorded']) <= 0.01, tret
+
+
+def test_internal_checkpoint_optimizer_state_carries_over():
+    """The internal checkpoint's optax state, restored without a template
+    (nested lists and dicts), carries over by the internal map into the
+    port's optimizer: its count, and each moment transposed as its
+    parameter is."""
+    from molgym_tpu_torch.convert import flatten_tree, optimizer_state_from_jax
+    from molgym_tpu_torch.rl.ppo import PPOConfig, make_optimizer
+    run = RUNS['sf6_internal']
+    path = EXPERIMENTS / run['model']
+    raw = ModelIO(str(path.parent), 'unused')._restore_raw(str(path))
+    _jagent, agent, params_from_jax = agent_pair(run)
+    agent.load_state_dict(params_from_jax(flatten_tree(raw['params'])),
+                          strict=True)
+    optimizer = make_optimizer(PPOConfig(), agent)
+    state = optimizer_state_from_jax(raw['opt_state'], params_from_jax)
+    assert set(state) == {'count', 'mu', 'nu'}
+    optimizer.load_state_dict(state)
+    assert optimizer.count == 373
+    adam = raw['opt_state'][1][0]
+    kernel = np.asarray(adam['mu']['params']['encoder'][
+        'SchNetInteraction_2']['Dense_2']['kernel'])
+    np.testing.assert_array_equal(
+        optimizer.mu['encoder.interactions.2.in2f.weight'].numpy(), kernel.T)
+    embedding = np.asarray(adam['nu']['params']['encoder']['Embed_0'][
+        'embedding'])
+    np.testing.assert_array_equal(
+        optimizer.nu['encoder.embedding.weight'].numpy(), embedding)

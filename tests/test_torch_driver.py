@@ -1,8 +1,8 @@
 """The port's experiment driver on the CPU: the CLI's flags, a tiny covariant
 run of two PPO iterations through `run_experiment` with its JSON-lines
-streams and checkpoint, a resume from that checkpoint, an iteration of each
-host reward and transport, and the refusal of every option the port does
-not run yet."""
+streams and checkpoint, a resume from that checkpoint, the same for the
+internal (SchNet) and the mlp models, an iteration of each host reward and
+transport, and the refusal of every option the port does not run yet."""
 import json
 import pickle
 
@@ -164,7 +164,6 @@ def test_run_stochastic_main_parses_the_cli(monkeypatch):
 
 
 @pytest.mark.parametrize('flag,match', [
-    ('--model=internal', 'Queue 2 item 6'),
     ('--num_devices=4', 'Queue 2 item 8'), ('--multihost', 'Queue 2 item 8'),
     ('--tensorboard', 'tensorboard'), ('--agg_backend=einsum', 'agg_backend'),
     ('--profile', 'profile')])
@@ -175,6 +174,54 @@ def test_unported_options_are_refused(tmp_path, flag, match):
     with pytest.raises(NotImplementedError, match=match):
         run_experiment(config, device='cpu')
     assert not (tmp_path / 'results').exists()
+
+
+@pytest.mark.parametrize('model', ['internal', 'mlp'])
+def test_internal_models_train_save_and_resume(tmp_path, model):
+    """--model=internal (2 SchNet interactions) and --model=mlp train two
+    iterations, keep a checkpoint of the final state, and resume from it
+    with the step count and optimizer state it holds."""
+    from molgym_tpu_torch.agents.internal import AtomMLPEncoder, InternalAC
+    from molgym_tpu_torch.agents.schnet import SchNetEncoder
+    flags = [f'--model={model}', '--num_interactions=2', '--save_rollouts=none']
+    agent, optimizer = run_experiment(_config(tmp_path, '--num_steps=16',
+                                              *flags), device='cpu')
+    assert isinstance(agent, InternalAC)
+    encoder = SchNetEncoder if model == 'internal' else AtomMLPEncoder
+    assert isinstance(agent.encoder, encoder)
+    if model == 'internal':
+        assert len(agent.encoder.interactions) == 2
+    results = tmp_path / 'results'
+    opt = _lines(results / 'tiny_run-1_opt.txt')
+    assert [r['total_num_steps'] for r in opt] == [0, 8]
+    for rec in opt:
+        assert rec['num_opt_steps'] >= 1
+        assert all(v == v for v in rec.values())   # no NaN
+    (train, _) = _lines(results / 'tiny_run-1_train.txt')
+    assert np.isfinite(train['return_mean'])
+    state, steps = ModelIO(tmp_path / 'model', 'tiny_run-1').load_latest()
+    assert steps == 16 and state['optimizer']['count'] == optimizer.count
+    for k, v in agent.state_dict().items():
+        torch.testing.assert_close(state['model'][k], v, rtol=0, atol=0)
+
+    resumed, opt2 = run_experiment(
+        _config(tmp_path, '--num_steps=24', '--load_latest', *flags),
+        device='cpu')
+    opt = _lines(results / 'tiny_run-1_opt.txt')
+    assert [r['total_num_steps'] for r in opt] == [0, 8, 16]
+    assert opt2.count == optimizer.count + opt[-1]['num_opt_steps']
+    assert any(not torch.equal(v, resumed.state_dict()[k])
+               for k, v in agent.state_dict().items())
+
+
+@pytest.mark.parametrize('model', ['internal', 'mlp'])
+def test_bf16_encoder_is_refused_for_the_internal_models(tmp_path, model):
+    """The bf16 path is the covariant encoder's: with an internal model
+    --encoder_dtype=bfloat16 is refused, never ignored."""
+    config = _config(tmp_path, f'--model={model}', '--encoder_dtype=bfloat16')
+    with pytest.raises(NotImplementedError, match='encoder_dtype'):
+        check_supported(config)
+    check_supported(_config(tmp_path, f'--model={model}'))
 
 
 def test_sparrow_reward_raises_through_its_gate(tmp_path):

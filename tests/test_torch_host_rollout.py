@@ -5,21 +5,21 @@ the generator in the same state, sampling and greedy, on a fixed-bag env, a
 stochastic-bag env, an LJ epsilon large enough that the pipelined
 transport's low-reward fix-up fires, and a min_reward above 0, where the
 fix-up must follow the real dones rather than guess them; and the trained
-SF6 PM6 checkpoint evaluated greedily with the PM6 reward in both
-packages.
+SF6 PM6 checkpoints, covariant and internal, evaluated greedily with the
+PM6 reward in both packages.
 
-The checkpoint's gate: the two packages' means over 8 envs within 5e-4 of
-each other and of the run's last recorded eval (0.68257), where the envs'
-returns spread over 5e-4 to 7e-4 (measured on the CPU: port 0.68292, JAX
-0.68284); the greedy distance is the best of 128 draws, which the two
-packages make from different generators."""
+The covariant checkpoint's gate: the two packages' means over 8 envs
+within 5e-4 of each other and of the run's last recorded eval (0.68257),
+where the envs' returns spread over 5e-4 to 7e-4 (measured on the CPU: port
+0.68292, JAX 0.68284); the greedy distance is the best of 128 draws, which
+the two packages make from different generators. The internal
+checkpoint's: see its test."""
 import jax
 import numpy as np
 import pytest
 import torch
 from flax.traverse_util import flatten_dict
 
-from molgym_tpu.agents.covariant import CovariantAC as JaxCovariantAC
 from molgym_tpu.calculators import native as jnative
 from molgym_tpu.calculators.reward_host import \
     make_host_reward as jax_host_reward
@@ -31,15 +31,14 @@ from molgym_tpu_torch.calculators.native import (METHOD_LJ, METHOD_PM6,
                                                  NativeBatchCalculator)
 from molgym_tpu_torch.calculators.reward_host import (TimedBatchCalculator,
                                                       make_host_reward)
-from molgym_tpu_torch.convert import covariant_params_from_jax
 from molgym_tpu_torch.envs.environment import MolecularEnv
 from molgym_tpu_torch.formula import string_to_formula
 from molgym_tpu_torch.rl.rollout import (make_pipelined_host_rollout_fn,
                                          make_rollout_fn)
 from molgym_tpu_torch.spaces import ObservationSpace
 
-from .test_torch_checkpoint import (NUM_ENVS, _agent_kwargs, _first_returns,
-                                    _restore)
+from .test_torch_checkpoint import (NUM_ENVS, _first_returns, _restore,
+                                    agent_pair)
 from .test_torch_host_reward import \
     jax_library_over_the_port_build  # noqa: F401  (module fixture)
 
@@ -158,16 +157,22 @@ SF6_PM6 = dict(model='sf6_pm6/models/sf6pm6_run-1_steps-15120.model',
                encoder_dtype=None)
 RECORDED_EVAL = 0.682570818811655  # results/sf6pm6_run-1_eval.txt, last line
 GATE = 5e-4
+SF6_INTERNAL_PM6 = dict(
+    model='sf6_internal_pm6/models/sf6int_pm6_run-1_steps-15120.model',
+    agent='internal', formula='SF6', zs=(0, 16, 9), canvas_size=7,
+    min_max_distance=(1.1, 2.1))
+# results/sf6int_pm6_run-1_eval.txt, last line
+RECORDED_INTERNAL_EVAL = 0.6665726378560066
+INTERNAL_GATE = 1e-4
 
 
-def test_trained_pm6_checkpoint_evaluates_alike():
-    run = SF6_PM6
-    kwargs = _agent_kwargs(run)
+def _pm6_returns(run):
+    """Each of NUM_ENVS envs' first greedy episode with the PM6 reward, in
+    the JAX package and in the port, from the run's checkpoint."""
     jspace = JaxObservationSpace(run['canvas_size'], list(run['zs']))
-    jagent = JaxCovariantAC(**kwargs)
+    jagent, agent, params_from_jax = agent_pair(run)
     params = _restore(run, jagent, jspace)
-    agent = CovariantAC(**kwargs, device='cpu')
-    agent.load_state_dict(covariant_params_from_jax(
+    agent.load_state_dict(params_from_jax(
         {k: np.asarray(v) for k, v in flatten_dict(params, sep='/').items()}),
         strict=True)
     bag = np.stack([jspace.bag_from_formula(string_to_formula('SF6'))])
@@ -188,7 +193,24 @@ def test_trained_pm6_checkpoint_evaluates_alike():
     _s, traj = make_rollout_fn(env, agent, steps, deterministic=True)(
         agent, env.init_states(NUM_ENVS, gen), gen)
     tret = _first_returns(traj.rewards.numpy(), traj.terminals.numpy())
-
     assert np.isfinite(tret).all() and np.isfinite(jret).all()
+    return tret, jret
+
+
+def test_trained_pm6_checkpoint_evaluates_alike():
+    tret, jret = _pm6_returns(SF6_PM6)
     assert abs(float(tret.mean()) - float(jret.mean())) <= GATE, (tret, jret)
     assert abs(float(tret.mean()) - RECORDED_EVAL) <= GATE, tret
+
+
+def test_trained_internal_pm6_checkpoint_evaluates_alike():
+    """The internal (SchNet) agent's PM6 SF6 run (sf6int_pm6_run-1),
+    greedy: its act draws nothing, so the two packages' means are held
+    within 1e-4 of each other (measured on the CPU: port 0.6664897, JAX
+    0.6664894; the port's envs differ by 1e-7, kappa's mirror-image tie on
+    canvases of at most 3 atoms taken either way) and within 5e-4 of the
+    run's last recorded eval (0.666573)."""
+    tret, jret = _pm6_returns(SF6_INTERNAL_PM6)
+    assert abs(float(tret.mean()) - float(jret.mean())) <= INTERNAL_GATE, (
+        tret, jret)
+    assert abs(float(tret.mean()) - RECORDED_INTERNAL_EVAL) <= GATE, tret

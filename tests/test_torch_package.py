@@ -78,7 +78,8 @@ def test_new_entry_points_are_scanned():
                    'tools/model_util.py', 'tools/arg_parser.py', 'run.py',
                    'run_stochastic.py', 'ops/fused_cg.py',
                    'ops/fused_softmax.py', 'ops/kernel_common.py',
-                   'ops/masked.py'):
+                   'ops/masked.py', 'ops/zmat.py', 'agents/internal.py',
+                   'agents/schnet.py', 'convert.py'):
         assert f'molgym_tpu_torch/{module}' in names
 
 
@@ -154,6 +155,44 @@ def test_heads_take_the_kernel_route_off_the_cpu(monkeypatch):
     for kwargs in (dict(index=index), dict(deterministic=True), {}):
         with pytest.raises(ValueError, match='masked_softmax: no kernel'):
             categorical_head(logits, logits > 0, None, **kwargs)
+
+
+@pytest.mark.parametrize('model', ['internal', 'mlp'])
+def test_internal_agents_refuse_cpu_without_device(monkeypatch, model):
+    from molgym_tpu_torch.agents.internal import make_mlp_internal_agent
+    from molgym_tpu_torch.agents.schnet import make_schnet_agent
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    build = make_schnet_agent if model == 'internal' else make_mlp_internal_agent
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        build(num_zs=3, canvas_size=4, network_width=8)
+
+
+@pytest.mark.parametrize('model', ['internal', 'mlp'])
+def test_internal_heads_take_the_kernel_route_off_the_cpu(monkeypatch, model):
+    """Off the CPU the internal agent's heads (focus, element, kappa) never
+    reach the plain head: act and evaluate go to the kernel wrapper, which
+    refuses a device it has no kernel for."""
+    from molgym_tpu_torch.agents.internal import make_mlp_internal_agent
+    from molgym_tpu_torch.agents.schnet import make_schnet_agent
+    from molgym_tpu_torch.ops import fused_softmax
+    from molgym_tpu_torch.spaces import Observation
+
+    def fail(*args, **kwargs):
+        raise AssertionError('the plain version was called')
+    monkeypatch.setattr(fused_softmax, 'masked_softmax_plain', fail)
+    monkeypatch.setattr(fused_softmax, 'masked_categorical_plain', fail)
+    build = make_schnet_agent if model == 'internal' else make_mlp_internal_agent
+    agent = build(num_zs=3, canvas_size=4, network_width=8, device='meta')
+    obs = Observation(
+        elements=torch.zeros(2, 4, dtype=torch.int64, device='meta'),
+        positions=torch.zeros(2, 4, 3, device='meta'),
+        bag=torch.ones(2, 3, dtype=torch.int64, device='meta'))
+    with pytest.raises(ValueError, match='masked_softmax: no kernel'):
+        agent.act(obs, None)
+    with pytest.raises(ValueError, match='masked_softmax: no kernel'):
+        agent.act(obs, None, deterministic=True)
+    with pytest.raises(ValueError, match='masked_softmax: no kernel'):
+        agent.evaluate(obs, torch.zeros(2, 7, device='meta'))
 
 
 def test_one_registry_counts_every_kernel():
