@@ -13,7 +13,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      yardstick the port never calls):
        - fused CG aggregate at SF6 levels 0 and 1-2, B = 140 and B = 9, and
          the tri-fold CG square at tau = 10 and 12; both again at the
-         stochastic configuration's M = 16, N = 10 (library: torch.einsum on
+         stochastic configuration's M = 16, N = 10, and the square at the
+         QM9 agent's tau = 24 (6 elements x 4 channels; its aggregates and
+         products have SF6's shapes) (library: torch.einsum on
          complex tensors, and its torch.autograd.grad). Both forwards are
          also timed at the rollout's batch (10) and an evaluation's (1),
          their resources (channels or rows per block, shared bytes, blocks
@@ -30,6 +32,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
          (masked softmax, index, log-prob and entropy in one kernel, and one
          backward) at [140,7], [140,3], [140,10], [140,4], the internal
          agent's kappa head's [140,2] and [10,2], [8192,128] and [33,200],
+         the internal agent's focus on a canvas of 12 at [140,12],
+         [10,12], [128,12] and [8,12] and its element head [128,4] and
+         [8,4] (the solvation and scaffold runs), and the QM9 agent's
+         element head [140,6] and [10,6],
          every 7th row fully masked, in each of its four modes
          (probs only, given, greedy, sample): probs, logp and ent within
          1e-6 absolute and relative, indices equal but where the best two
@@ -110,13 +116,43 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      of the recorded run through molgym_tpu_torch.run with the checks of
      phase 7; then 2 iterations of the mlp model at its recorded width
      (experiments/host_loop/logs/hostloop_run-1.json: O2, canvas 3, width
-     32, the host LJ reward) the same way.
+     32, the host LJ reward) the same way;
+ 12. the sixth to eighth paths, each from its recorded configuration at
+     full width, through its driver: the solvation run
+     (experiments/solvation/logs/solv_run-1.json: the internal agent,
+     width 64, X,H,C,O, canvas 12, CO pre-placed from solute.xyz, H2O
+     refilled twice, device LJ less 0.01 |x|), the scaffold run with PM6
+     (experiments/scaffold_pm6/logs/scafpm6_run-1.json: the internal
+     agent, width 128, X,H,O,Ar, the 8 Ar of cube.xyz pre-placed, 8 envs x
+     32 steps, minibatch 128, here with --host_reward_mode=loop) and the
+     QM9 run with PM6 (experiments/qm9_pm6/logs/qm9pm6_run-1.json: the
+     covariant agent at full width over X,H,C,N,O,F, canvas 7, its bag set
+     drawn from qm9_sample.tar.gz): for each, a rollout at the run's envs
+     and steps through the driver's env builder with exact launch counts,
+     finite outputs, the agent card vs CPU, the host ms of one `act` and
+     one profiled rollout (launches a step, idle share), every atom the
+     scaffold rollout placed inside the cube's hull; the gradients of the
+     QM9 agent, as the driver builds it, card vs CPU; 2 PPO iterations of
+     each through molgym_tpu_torch.run_solvation, run_scaffold and run_qm9
+     with the checks of phase 7 (every rollout of the solvation and scaffold runs
+     saved: some solvation episode refilled its bag; every scaffold canvas
+     keeps its Ar and every atom placed beside them satisfies A x + b <=
+     1e-5, with a logged gap when the greedy evaluations placed no atom;
+     the QM9 run drew the recorded CNH,COH2,CFH3,CO2H2); then the
+     covariant agent's covariance on the card
+     (molgym_tpu_torch/equivariance.py, the check of
+     tests/test_torch_covariance.py::test_agent_is_covariant_on_the_card):
+     the JAX test's agent on H2O, CH3 and CH4 and the SF6 agent at full
+     width on partial SF6 canvases, two random rotations each, the
+     coefficients of the rotated canvas within 1e-5 of apply_wigner of the
+     unrotated ones, and their invariants within 1e-5.
 
 The line before the last two is {"kernels": [...]}, then the card's name and
 power limit, and the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -126,6 +162,9 @@ import time
 import numpy as np
 import torch
 
+from molgym_tpu_torch.equivariance import (COVARIANCE_AGENT,
+                                           COVARIANCE_FORMULA, SF6_AGENT,
+                                           SF6_FORMULA)
 from molgym_tpu_torch.timing import time_ms
 
 SEED = 0
@@ -139,10 +178,6 @@ BF16_MODEL_TOL = 0.03
 BF16 = torch.bfloat16
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_F32_FLOP_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
-SF6_AGENT = dict(zs=(0, 9, 16), canvas_size=7, network_width=128, maxl=4,
-                 num_cg_levels=3, num_channels_hidden=10,
-                 num_channels_per_element=4, num_gaussians=3, bag_scale=5,
-                 min_max_distance=(1.10, 2.10), beta=-10.0)
 STOCH_AGENT = dict(zs=(0, 1, 6, 8), canvas_size=10, network_width=128, maxl=3,
                    num_cg_levels=2, num_channels_hidden=10,
                    num_channels_per_element=4, num_gaussians=3, bag_scale=6,
@@ -902,21 +937,23 @@ def expected_launches(per_forward, forwards, passes):
 
 
 def run_training(dev, entry, build_parser, argv, iterations,
-                 transport='in_step'):
+                 transport='in_step', inspect=None):
     """`iterations` PPO iterations of the run `argv` describes through the
     main of the module `entry` (`build_parser` makes its parser, for the
     configuration the checks read), from a checkpoint of random
     weights written first, so that the initial weights are known; the launch
     counts are zeroed just before and read just after. Every training
-    rollout must name `transport`, and a host reward's its reward_time."""
+    rollout must name `transport`, and a host reward's its reward_time.
+    `inspect(config, tag)`, called while the run's directories exist, adds
+    its dict to the result."""
     import tempfile
 
     from molgym_tpu_torch.ops import fused_agg
+    from molgym_tpu_torch.rl.ppo import eval_rollout_size
+    from molgym_tpu_torch.spaces import ObservationSpace, symbols_to_zs
     from molgym_tpu_torch.tools import util
-    from molgym_tpu_torch.tools.driver import symbols_to_zs
     from molgym_tpu_torch.tools.model_io import ModelIO
     from molgym_tpu_torch.tools.model_util import build_model
-    from molgym_tpu_torch.spaces import ObservationSpace
 
     with tempfile.TemporaryDirectory() as tmp:
         argv = argv + [f'--{d}_dir={tmp}/{d}' for d in
@@ -934,7 +971,10 @@ def run_training(dev, entry, build_parser, argv, iterations,
         torch.cuda.synchronize()
         fused_agg.reset_launch_counts()
         t0 = time.perf_counter()
-        agent, optimizer = entry.main(argv)
+        # stdout carries only the result lines: a driver's prints go to
+        # stderr
+        with contextlib.redirect_stdout(sys.stderr):
+            agent, optimizer = entry.main(argv)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = dict(fused_agg.launch_counts)
@@ -974,19 +1014,28 @@ def run_training(dev, entry, build_parser, argv, iterations,
             for k, v in state['optimizer'][key].items():
                 if not torch.equal(v, getattr(optimizer, key)[k]):
                     raise AssertionError(f'checkpoint {key} differs in {k}')
+        extra = inspect(config, tag) if inspect is not None else {}
+        # the formulas the run trained on (run_qm9 draws them)
+        with open(os.path.join(config['log_dir'], tag + '.json')) as f:
+            run_config = json.load(f)
 
     # forwards: a rollout of T steps per env makes T + 1 (the bootstrap), an
-    # eval rollout of one episode canvas_size + 1 steps and the bootstrap;
-    # every gradient pass (an epoch's minibatch) makes one forward and one
-    # backward; a pipelined rollout computes a forward again after a low
-    # reward
+    # eval rollout the steps batch_ppo sizes it to (eval_rollout_size; one
+    # episode per eval formula unless --num_eval_episodes says) and the
+    # bootstrap; every gradient pass (an epoch's minibatch) makes one
+    # forward and one backward; a pipelined rollout computes a forward
+    # again after a low reward
     samples = config['num_steps_per_iter']
     minibatches = -(-samples // min(config['mini_batch_size'], samples))
     passes = minibatches * sum(r['num_grad_passes'] for r in opt)
     recomputes = sum(r.get('recomputes', 0) for r in train + evals)
     steps_per_env = config['num_steps_per_iter'] // config['num_envs']
+    eval_formulas = run_config['eval_formulas'] or run_config['formulas']
+    _episodes, eval_steps = eval_rollout_size(
+        run_config['num_eval_episodes'] or len(eval_formulas.split(',')),
+        run_config['eval_sample_k'] or 0, config['canvas_size'])
     forwards = (len(train) * (steps_per_env + 1)
-                + len(evals) * (config['canvas_size'] + 2) + recomputes)
+                + len(evals) * (eval_steps + 1) + recomputes)
     expected = expected_launches(
         per_forward_launches(agent, config['encoder_dtype']), forwards,
         passes)
@@ -1002,7 +1051,7 @@ def run_training(dev, entry, build_parser, argv, iterations,
                 return_mean=[r['return_mean'] for r in train],
                 eval_return_mean=[r['return_mean'] for r in evals],
                 recomputes=recomputes,
-                reward_time_s=[r.get('reward_time') for r in train])
+                reward_time_s=[r.get('reward_time') for r in train], **extra)
 
 
 def run_rollout(dev, env, agent, build, max_episode_len):
@@ -1315,6 +1364,232 @@ def run_internal_rollout(dev):
     return dict(res, phases=phases, profile=prof)
 
 
+# the sixth to eighth paths, each from its recorded configuration, its
+# assets by absolute path, cut to 2 PPO iterations
+EXPERIMENTS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           'experiments')
+# experiments/solvation/logs/solv_run-1.json; every rollout is saved (the
+# run saved its evaluations') so that the refills can be counted
+SOLVATION = ['--name=solv', '--formulas=H2O',
+             '--initial_structure=' + os.path.join(EXPERIMENTS, 'solvation',
+                                                   'solute.xyz'),
+             '--num_refills=2', '--distance_penalty=0.01', '--canvas_size=12',
+             '--symbols=X,H,C,O', '--bag_scale=4', '--model=internal',
+             '--network_width=64', '--num_interactions=3', '--num_envs=10',
+             '--num_steps_per_iter=140', '--mini_batch_size=140',
+             '--reward=device_lj', '--num_eval_episodes=1',
+             '--save_rollouts=all', '--seed=1', '--num_steps=280',
+             '--log_level=WARNING']
+# experiments/scaffold_pm6/logs/scafpm6_run-1.json, with the pipelined host
+# loop; every rollout is saved (the run saved its evaluations') so that the
+# hull check sees the training's placements too
+SCAFFOLD_PM6 = ['--name=scafpm6', '--formulas=H2O',
+                '--scaffold=' + os.path.join(EXPERIMENTS, 'scaffold_pm6',
+                                             'cube.xyz'),
+                '--canvas_size=12', '--symbols=X,H,O,Ar', '--bag_scale=3',
+                '--model=internal', '--network_width=128',
+                '--num_interactions=3', '--num_envs=8',
+                '--num_steps_per_iter=256', '--mini_batch_size=128',
+                '--reward=pm6', '--host_reward_mode=loop', '--eval_freq=3',
+                '--save_rollouts=all', '--seed=1', '--num_steps=512',
+                '--log_level=WARNING']
+# experiments/qm9_pm6/logs/qm9pm6_run-1.json: its bag set is drawn from the
+# committed sample, and the recorded run drew QM9_FORMULAS
+QM9_PM6 = ['--name=qm9pm6',
+           '--qm9_dataset=' + os.path.join(EXPERIMENTS, 'qm9_pm6',
+                                           'qm9_sample.tar.gz'),
+           '--qm9_num_formulas=4', '--canvas_size=7', '--symbols=X,H,C,N,O,F',
+           '--reward=pm6', '--model=covariant', '--beta=-10', '--bag_scale=6',
+           '--num_envs=10', '--num_steps_per_iter=140',
+           '--mini_batch_size=140', '--save_rollouts=eval', '--seed=1',
+           '--num_steps=280', '--log_level=WARNING']
+QM9_FORMULAS = 'CNH,COH2,CFH3,CO2H2'
+COVARIANCE_TOL = 1e-5   # the JAX test's, float32
+
+
+def run_driver_rollout(dev, config, env_builder, solvation=False):
+    """The rollout of the run `config` describes, through the driver's env
+    builder and make_reward_fn, its agent at the recorded width with random
+    weights from a seed, at the run's num_envs and steps per env: exact
+    forward-only launch counts with the counters zeroed just before, finite
+    outputs, the agent on the card against itself on the CPU on the
+    rollout's data; then the host ms of one `act`, an env step and an
+    auto-reset, and one profiled rollout (launches a step, idle share)."""
+    from molgym_tpu_torch import profile_rollout
+    from molgym_tpu_torch.ops import fused_agg
+    from molgym_tpu_torch.rl.rollout import make_rollout_fn
+    from molgym_tpu_torch.spaces import ObservationSpace, symbols_to_zs
+    from molgym_tpu_torch.tools.driver import make_reward_fn
+    from molgym_tpu_torch.tools.model_util import build_model
+
+    space = ObservationSpace(config['canvas_size'],
+                             symbols_to_zs(config['symbols']))
+    reward_fn, _calc = make_reward_fn(config, solvation=solvation)
+    env, _eval_env = env_builder(config, space, reward_fn, dev)
+    torch.manual_seed(SEED + 6)
+    agent = build_model(config, space, device=dev)
+    num_envs = config['num_envs']
+    steps = config['num_steps_per_iter'] // num_envs
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    make_rollout_fn(env, agent, 2)(agent, env.init_states(num_envs, gen),
+                                   gen)   # warm-up: tables, allocator
+    rollout = make_rollout_fn(env, agent, steps)
+    states = env.init_states(num_envs, gen)
+    torch.cuda.synchronize()
+    fused_agg.reset_launch_counts()
+    t0 = time.perf_counter()
+    states, traj = rollout(agent, states, gen)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(fused_agg.launch_counts)
+    expected = expected_launches(per_forward_launches(agent), steps + 1, 0)
+    if counts != expected:
+        raise AssertionError(f'launches {counts}, expected {expected}')
+    for name in ('rewards', 'logps', 'values', 'actions', 'bootstrap_value'):
+        if not torch.isfinite(getattr(traj, name)).all():
+            raise AssertionError(f'non-finite {name}')
+
+    cpu_agent = build_model(config, space, device='cpu')
+    cpu_agent.load_state_dict(agent.state_dict())
+    obs = traj.obs.map(lambda x: x[steps // 2])
+    actions = traj.actions[steps // 2]
+    with torch.no_grad():
+        g_logp, _g_ent, g_v = agent.evaluate(obs, actions)
+        c_logp, _c_ent, c_v = cpu_agent.evaluate(obs.map(lambda x: x.cpu()),
+                                                 actions.cpu())
+    model_err = max(float((g_logp.cpu() - c_logp).abs().max()),
+                    float((g_v.cpu() - c_v).abs().max()))
+    if not model_err <= MODEL_TOL:
+        raise AssertionError(f'card vs CPU agent: max |d logp|, |d v| = '
+                             f'{model_err}')
+    extra = {}
+    if env.n_scaffold:
+        placed, worst = hull_violation(
+            traj.next_obs.elements.cpu().numpy(),
+            traj.next_obs.positions.cpu().numpy(), env.n_scaffold,
+            int(env.initial_elements[0]), env.hull_a.cpu().numpy(),
+            env.hull_b.cpu().numpy())
+        if worst > 1e-5:
+            raise AssertionError(f'an atom {worst} outside the hull')
+        extra = dict(atoms_in_hull=placed, max_halfspace_value=worst)
+    phases = profile_rollout.phase_ms(env, agent, num_envs, gen)
+    prof = profile_rollout.profile_rollout(rollout, env, agent, num_envs,
+                                           steps, gen)
+    return traj, env, dict(num_envs=num_envs, steps=steps, seconds=seconds,
+                           ms_per_step=seconds * 1e3 / steps, counts=counts,
+                           model_err=model_err,
+                           episodes=int(traj.terminals.sum()),
+                           mean_reward=float(traj.rewards.mean()),
+                           phases=phases, profile=prof, **extra)
+
+
+def _rollouts(config, tag):
+    """The rollouts the run saved, as RolloutSaver pickled them."""
+    import glob
+    import pickle
+    out = []
+    for path in sorted(glob.glob(os.path.join(config['data_dir'],
+                                              f'{tag}_steps-*.pkl'))):
+        with open(path, 'rb') as f:
+            out.append((os.path.basename(path), pickle.load(f)))
+    if not out:
+        raise AssertionError(f'no rollouts saved in {config["data_dir"]}')
+    return out
+
+
+def check_refills(config, tag):
+    """Some episode of the solvation run placed more atoms than its first
+    bag (H2O) holds: its bag was refilled."""
+    bag = 3
+    solute = 2
+    most = max(int(((r['next_obs']['elements'] != 0).sum(-1) - solute).max())
+               for _name, r in _rollouts(config, tag))
+    if most <= bag:
+        raise AssertionError(f'no episode refilled its bag (most atoms '
+                             f'placed: {most})')
+    return dict(most_atoms_placed=most)
+
+
+def hull_violation(elements, positions, n_scaffold, scaffold_z, a, b):
+    """Canvases [..., N] of a scaffold run: raises unless each holds the
+    scaffold in its first n_scaffold slots; (atoms placed beside it, the
+    largest value of A x + b over them, 0 when there are none)."""
+    n = elements.shape[-1]
+    elements = elements.reshape(-1, n)
+    positions = positions.reshape(-1, n, 3)
+    if not (elements[:, :n_scaffold] == scaffold_z).all():
+        raise AssertionError('a canvas lost its scaffold')
+    new = positions[:, n_scaffold:][elements[:, n_scaffold:] != 0]
+    return len(new), float((new @ a.T + b).max()) if len(new) else 0.0
+
+
+def check_hull(config, tag):
+    """Every canvas of the scaffold run's training and evaluation rollouts
+    holds the cube's 8 Ar in its first slots, and every atom placed beside
+    them satisfies A x + b <= 1e-5 for the cube's hull halfspaces; some atom
+    was placed. Greedy evaluations at random weights may place none: then
+    `gap` says that the evaluations' half of the check checked nothing."""
+    from molgym_tpu_torch.atoms import read_xyz
+    from molgym_tpu_torch.envs.environment import scaffold_halfspaces
+    cube = read_xyz(config['scaffold'])
+    a, b = scaffold_halfspaces(cube.positions)
+    ar = config['symbols'].split(',').index('Ar')
+    placed = {'train': 0, 'eval': 0}
+    worst = None
+    for name, r in _rollouts(config, tag):
+        n, w = hull_violation(r['next_obs']['elements'],
+                              r['next_obs']['positions'], len(cube), ar, a, b)
+        placed['eval' if name.endswith('_eval.pkl') else 'train'] += n
+        if n:
+            worst = w if worst is None else max(worst, w)
+    if worst is None or worst > 1e-5:
+        raise AssertionError(f'atoms placed {placed}, the largest A x + b '
+                             f'{worst}')
+    out = dict(atoms_in_hull=placed, max_halfspace_value=worst)
+    if not placed['eval']:
+        out['gap'] = ('the evaluations placed no atom: only training '
+                      'placements were checked against the hull')
+    return out
+
+
+def check_formulas(config, tag):
+    """The QM9 run drew the recorded bag set (its config snapshot)."""
+    with open(os.path.join(config['log_dir'], tag + '.json')) as f:
+        formulas = json.load(f)['formulas']
+    if formulas != QM9_FORMULAS:
+        raise AssertionError(f'QM9 formulas {formulas}, recorded '
+                             f'{QM9_FORMULAS}')
+    return dict(formulas=formulas)
+
+
+def run_covariance(dev):
+    """The covariant agent's placement density under rotation on the card:
+    for the JAX test's agent and molecules (H2O, CH3, CH4) and for the SF6
+    agent at full width on partial SF6 canvases, two random rotations each,
+    the coefficients of the rotated canvas against apply_wigner of the
+    unrotated ones, and their invariants, within COVARIANCE_TOL."""
+    from molgym_tpu_torch.agents.covariant import CovariantAC
+    from molgym_tpu_torch.equivariance import (MOLECULES, SF6_MOLECULES,
+                                               covariance_errors)
+    from molgym_tpu_torch.spaces import ObservationSpace
+    out = {}
+    for name, kwargs, molecules, formula in (
+            ('jax_test_agent', COVARIANCE_AGENT, MOLECULES,
+             COVARIANCE_FORMULA),
+            ('sf6_agent', SF6_AGENT, SF6_MOLECULES, SF6_FORMULA)):
+        torch.manual_seed(SEED + 7)
+        agent = CovariantAC(**kwargs, device=dev)
+        space = ObservationSpace(kwargs['canvas_size'], list(kwargs['zs']))
+        errors = [e for seed in (0, 1) for e in covariance_errors(
+            agent, space, molecules, formula, seed=seed)]
+        worst = max(max(e['covariance'], e['invariance']) for e in errors)
+        if not worst < COVARIANCE_TOL:
+            raise AssertionError(f'{name}: not covariant on the card: '
+                                 f'{errors}')
+        out[name] = dict(max_err=worst, errors=errors)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log('chip_smoke: no CUDA device is visible')
@@ -1353,6 +1628,11 @@ def main() -> int:
     for tau in (10, 16):
         sq[('stoch', tau)] = check_square(dev, tau, **stoch)
         sq_bwd[('stoch', tau)] = check_square_bwd(dev, tau, **stoch)
+    # the QM9 run's covariant agent has 6 elements: its last level's square
+    # (forward and backward) meets tau = 24; its aggregates and products
+    # have SF6's shapes (tau = 10 hidden channels, 4 channels an element)
+    sq[('qm9', 24)] = check_square(dev, 24)
+    sq_bwd[('qm9', 24)] = check_square_bwd(dev, 24)
     # the bf16 versions of the same four kernels at the same shapes, B = 140
     # (the forwards also at 10 and 1), within one bf16 ulp of their plain
     # versions on the same bf16 operands
@@ -1376,11 +1656,15 @@ def main() -> int:
         ((140, 4), 1, 4, 3), ((37, 3), 5, 5, 4))}
     # the heads' shapes: SF6 focus [140,7], element [140,3], the
     # stochastic configuration's [140,10] and [140,4], the internal agent's
-    # kappa [140,2] and [10,2] (its element head is [140,3]), and two
-    # shapes past the policy's
+    # kappa [140,2] and [10,2] (its element head is [140,3]), two shapes
+    # past the policy's; then the new paths': the internal agent's focus on
+    # a canvas of 12 at the solvation run's 140 and 10 rows and the
+    # scaffold run's 128 and 8, its element head there [128,4] and [8,4],
+    # and the QM9 agent's element head [140,6] and [10,6]
     softmax = {case: check_head(dev, *case) for case in (
         (140, 7), (140, 3), (140, 10), (140, 4), (140, 2), (10, 2),
-        (8192, 128), (33, 200))}
+        (8192, 128), (33, 200), (140, 12), (10, 12), (128, 12), (8, 12),
+        (128, 4), (8, 4), (140, 6), (10, 6))}
     for k, v in (list(agg.items()) + list(sq.items()) +
                  list(agg_bwd.items()) + list(sq_bwd.items()) +
                  list(agg16.items()) + list(sq16.items()) +
@@ -1489,6 +1773,61 @@ def main() -> int:
                                 HOST_LOOP_MLP, iterations=2)
     log('mlp training:', json.dumps(mlp_training))
 
+    # the sixth to eighth paths: the solvation, scaffold and QM9 drivers
+    from molgym_tpu_torch import run_qm9, run_scaffold, run_solvation
+    from molgym_tpu_torch.spaces import ObservationSpace, symbols_to_zs
+    from molgym_tpu_torch.tools.driver import standard_envs
+    from molgym_tpu_torch.tools.model_util import build_model
+    qm9_config = run_qm9.config_from(QM9_PM6)
+    new_paths = {}
+    for name, config, builder, solvation in (
+            ('solvation', vars(run_solvation.build_parser().parse_args(
+                SOLVATION)), run_solvation.solvation_envs, True),
+            ('scaffold', vars(run_scaffold.build_parser().parse_args(
+                SCAFFOLD_PM6)), run_scaffold.scaffold_envs, False),
+            ('qm9', qm9_config, standard_envs, False)):
+        _traj, _env, res = run_driver_rollout(dev, config, builder, solvation)
+        new_paths[name] = res
+        log(f'{name} rollout:', json.dumps(res))
+    # the QM9 run's covariant agent, as the driver builds it: 6 elements, so
+    # the last CG level's square meets tau = 24 (6 x 4 channels)
+    qm9_space = ObservationSpace(qm9_config['canvas_size'],
+                                 symbols_to_zs(qm9_config['symbols']))
+    qm9_grads = check_agent_grads(
+        dev, dict(zs=tuple(qm9_space.zs), canvas_size=qm9_space.canvas_size),
+        build=lambda d: build_model(qm9_config, qm9_space, device=d))
+    log('qm9 agent gradients:', json.dumps(qm9_grads))
+    solv_training = run_training(dev, run_solvation,
+                                 run_solvation.build_parser, SOLVATION,
+                                 iterations=2, inspect=check_refills)
+    log('solvation training:', json.dumps(solv_training))
+    scaf_training = run_training(dev, run_scaffold, run_scaffold.build_parser,
+                                 SCAFFOLD_PM6, iterations=2,
+                                 transport='pipelined', inspect=check_hull)
+    log('scaffold training:', json.dumps(scaf_training))
+    if 'gap' in scaf_training:
+        log('scaffold hull check: gap:', scaf_training['gap'])
+    qm9_training = run_training(dev, run_qm9, run_qm9.build_parser, QM9_PM6,
+                                iterations=2, inspect=check_formulas)
+    log('qm9 training:', json.dumps(qm9_training))
+    covariance = run_covariance(dev)
+    log('covariance on the card:', json.dumps(covariance))
+    for name, trained in (('solvation', solv_training),
+                          ('scaffold', scaf_training), ('qm9', qm9_training)):
+        res = new_paths[name]
+        log(f'{name} path: act {res["phases"]["act_ms"]:.3f} ms at '
+            f'{res["num_envs"]} envs, rollout {res["ms_per_step"]:.3f} ms a '
+            f'step, {res["profile"]["kernel_launches_per_step"]:.1f} launches '
+            f'a step, idle {res["profile"]["device_idle_share"]:.3f}; '
+            'iterations ' + ' / '.join(f'{t:.1f}'
+                                       for t in trained['iteration_ms'])
+            + f' ms on {card}')
+    log(f'QM9 fwd+bwd {qm9_grads["fwd_bwd_ms_median"]:.3f} ms (median of '
+        f'20), {qm9_grads["launches_per_fwd_bwd"]} launches; covariance on '
+        'the card: max err ' + ', '.join(
+            f'{k} {v["max_err"]:.3g}' for k, v in covariance.items())
+        + f' on {card}')
+
     def entry(name, source, replaces, main, others, path=training, **extra):
         """A kernel's line: `launches` from the run of its main path (the
         SF6 training for the f32 kernels, the bf16 SF6 training for the
@@ -1510,6 +1849,9 @@ def main() -> int:
                     internal_training_launches=internal_training['counts'][
                         name],
                     mlp_training_launches=mlp_training['counts'][name],
+                    solvation_training_launches=solv_training['counts'][name],
+                    scaffold_training_launches=scaf_training['counts'][name],
+                    qm9_training_launches=qm9_training['counts'][name],
                     **extra)
 
     def entry16(name, source, replaces, main, others, **extra):
@@ -1536,12 +1878,16 @@ def main() -> int:
               ms_b10=agg[(140, 1)]['ms_b10'], ms_b1=agg[(140, 1)]['ms_b1']),
         entry('cg_square_fused_ri', csrc + 'cg_square.cu',
               pallas + 'pallas_agg.py:91', sq[10], list(sq.values()),
-              ms_b10=sq[10]['ms_b10'], ms_b1=sq[10]['ms_b1']),
+              ms_b10=sq[10]['ms_b10'], ms_b1=sq[10]['ms_b1'],
+              qm9_tau24_ms=sq[('qm9', 24)]['ms'],
+              qm9_tau24_bound_ms=sq[('qm9', 24)]['bound_ms']),
         entry('cg_aggregate_edge_fused_ri_bwd', csrc + 'cg_aggregate_bwd.cu',
               pallas + 'pallas_agg.py:392', agg_bwd[(140, 5)],
               list(agg_bwd.values())),
         entry('cg_square_fused_ri_bwd', csrc + 'cg_square_bwd.cu',
-              pallas + 'pallas_agg.py:132', sq_bwd[10], list(sq_bwd.values())),
+              pallas + 'pallas_agg.py:132', sq_bwd[10], list(sq_bwd.values()),
+              qm9_tau24_ms=sq_bwd[('qm9', 24)]['ms'],
+              qm9_tau24_bound_ms=sq_bwd[('qm9', 24)]['bound_ms']),
         entry('cg_contract_ri', csrc + 'cg_product.cu',
               pallas + 'pallas_cg.py:40', contract_main[0],
               [f for f, _b in contract.values()],
@@ -1554,12 +1900,16 @@ def main() -> int:
               pallas + 'pallas_softmax.py:29', softmax_main[0],
               [f for f, _b in softmax.values()],
               kappa_ms=softmax[(140, 2)][0]['ms'],
-              kappa_ms_b10=softmax[(10, 2)][0]['ms']),
+              kappa_ms_b10=softmax[(10, 2)][0]['ms'],
+              canvas12_ms=softmax[(140, 12)][0]['ms'],
+              qm9_element_ms=softmax[(140, 6)][0]['ms']),
         entry('masked_softmax_bwd', csrc + 'masked_softmax.cu',
               pallas + 'pallas_softmax.py:29', softmax_main[1],
               [b for _f, b in softmax.values()],
               kappa_ms=softmax[(140, 2)][1]['ms'],
-              kappa_ms_b10=softmax[(10, 2)][1]['ms']),
+              kappa_ms_b10=softmax[(10, 2)][1]['ms'],
+              canvas12_ms=softmax[(140, 12)][1]['ms'],
+              qm9_element_ms=softmax[(140, 6)][1]['ms']),
         entry16('cg_aggregate_edge_fused_ri', csrc + 'cg_aggregate.cu',
                 pallas + 'pallas_agg.py:334', agg16[('sf6', 5)],
                 [r for (_c, n), r in agg16.items() if n != 1],
@@ -1617,7 +1967,15 @@ def main() -> int:
                       'internal_rollout': internal_rollout,
                       'internal_agent_grads': internal_grads,
                       'internal_training': internal_training,
-                      'mlp_training': mlp_training}))
+                      'mlp_training': mlp_training,
+                      'square_qm9_tau24': sq[('qm9', 24)],
+                      'square_bwd_qm9_tau24': sq_bwd[('qm9', 24)],
+                      'new_path_rollouts': new_paths,
+                      'qm9_agent_grads': qm9_grads,
+                      'solvation_training': solv_training,
+                      'scaffold_training': scaf_training,
+                      'qm9_training': qm9_training,
+                      'covariance': covariance}))
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

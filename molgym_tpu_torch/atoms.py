@@ -1,8 +1,9 @@
-"""Minimal host-side molecule container (the port's own copy of the parts of
-molgym_tpu/atoms.py that the observation space, the reward classes and the
-minimizer use)."""
+"""Minimal host-side molecule container and XYZ IO (the port's own copy of
+molgym_tpu/atoms.py)."""
 from __future__ import annotations
 
+import collections
+import os
 from typing import Iterable, List, Optional, Sequence, Union
 
 import numpy as np
@@ -52,6 +53,12 @@ class Atoms:
         for z, pos in zip(self._zs, self._positions):
             yield Atom(z, pos)
 
+    def __getitem__(self, index):
+        if isinstance(index, (int, np.integer)):
+            return Atom(self._zs[index], self._positions[index])
+        indices = np.arange(len(self))[index]
+        return Atoms([self._zs[i] for i in indices], self._positions[indices])
+
     def append(self, atom: Atom) -> None:
         self._zs.append(atom.z)
         self._positions = np.concatenate(
@@ -78,3 +85,53 @@ class Atoms:
         if len(value) != len(self._zs):
             raise ValueError(f'{len(value)} positions for {len(self._zs)} atoms')
         self._positions = value
+
+    def get_chemical_formula(self) -> str:
+        """Symbols in alphabetical order, each with its count above 1."""
+        counts = collections.Counter(self.symbols)
+        return ''.join(f'{s}{c if c > 1 else ""}'
+                       for s, c in sorted(counts.items()))
+
+    def __repr__(self) -> str:
+        return f'Atoms({self.get_chemical_formula()!r})'
+
+
+def write_xyz(path_or_file, atoms_or_list, comment: str = '') -> None:
+    """Write one molecule, or a list of them as a multi-frame XYZ file, to a
+    path or an open text file."""
+    frames = (atoms_or_list if isinstance(atoms_or_list, (list, tuple))
+              else [atoms_or_list])
+    close = isinstance(path_or_file, (str, bytes, os.PathLike))
+    f = open(path_or_file, 'w') if close else path_or_file
+    try:
+        for atoms in frames:
+            f.write(f'{len(atoms)}\n{comment}\n')
+            for atom in atoms:
+                x, y, z = atom.position
+                f.write(f'{atom.symbol} {x:.8f} {y:.8f} {z:.8f}\n')
+    finally:
+        if close:
+            f.close()
+
+
+def read_xyz(path, index: Union[int, slice] = 0):
+    """Read a (multi-frame) XYZ file: the frame at an int `index`, or the
+    list of frames a slice selects."""
+    frames: List[Atoms] = []
+    with open(path) as f:
+        lines = f.readlines()
+    i = 0
+    while i < len(lines):
+        line = lines[i].strip()
+        if not line:
+            i += 1
+            continue
+        n = int(line)
+        symbols, positions = [], []
+        for row in lines[i + 2:i + 2 + n]:
+            parts = row.split()
+            symbols.append(parts[0])
+            positions.append([float(v) for v in parts[1:4]])
+        frames.append(Atoms(symbols, positions))
+        i += 2 + n
+    return frames[index]

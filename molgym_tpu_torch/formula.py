@@ -1,13 +1,13 @@
-"""Chemical formula parsing (the port's own copy of the parser of
-molgym_tpu/formula.py). A formula (bag) is a
-tuple of (atomic_number, count) pairs."""
+"""Chemical formula parsing and bag arithmetic (the port's own copy of
+molgym_tpu/formula.py). A formula (bag) is a tuple of (atomic_number,
+count) pairs."""
 from __future__ import annotations
 
 import collections
 import re
-from typing import Dict, List, Tuple
+from typing import Dict, List, Sequence, Tuple
 
-from molgym_tpu_torch.periodic import ATOMIC_NUMBERS
+from molgym_tpu_torch.periodic import ATOMIC_NUMBERS, CHEMICAL_SYMBOLS
 
 FormulaType = Tuple[Tuple[int, int], ...]
 
@@ -48,6 +48,38 @@ def _parse_formula_counts(string: str) -> Dict[str, int]:
 def string_to_formula(string: str) -> FormulaType:
     counts = _parse_formula_counts(string)
     return tuple((ATOMIC_NUMBERS[symbol], count) for symbol, count in counts.items())
+
+
+def formula_to_string(formula: FormulaType) -> str:
+    return ''.join(f'{CHEMICAL_SYMBOLS[z]}{count if count != 1 else ""}'
+                   for z, count in formula if count > 0)
+
+
+def zs_to_formula(zs: Sequence[int]) -> FormulaType:
+    """Atomic numbers -> bag, the elements in the order they first occur."""
+    counter: Dict[int, int] = collections.Counter()
+    for z in zs:
+        counter[int(z)] += 1
+    return tuple(counter.items())
+
+
+def remove_atom_from_formula(formula: FormulaType,
+                             atomic_number: int) -> FormulaType:
+    out = list(formula)
+    for i, (z, count) in enumerate(formula):
+        if z == atomic_number and count >= 1:
+            out[i] = (z, count - 1)
+            return tuple(out)
+    raise RuntimeError(f'Could not remove atomic number {atomic_number} '
+                       f'from bag {formula}')
+
+
+def get_formula_size(formula: FormulaType) -> int:
+    return sum(count for _z, count in formula)
+
+
+def split_formula_strings(formulas: str) -> List[str]:
+    return formulas.split(',')
 
 
 def parse_size_range(size_range: str) -> Tuple[int, int]:

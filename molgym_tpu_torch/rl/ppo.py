@@ -243,13 +243,27 @@ def _episode_info(returns: list, lengths: list) -> dict:
     }
 
 
-def _make_rollout(env, agent, num_steps, deterministic, calculator):
+def _make_rollout(env, agent, num_steps, deterministic, calculator,
+                  distance_penalty):
     """(rollout fn, transport name): in step without a host-loop
-    calculator, else the pipelined host loop."""
+    calculator, else the pipelined host loop, whose rewards are less
+    distance_penalty * |new position|."""
     if calculator is None:
         return make_rollout_fn(env, agent, num_steps, deterministic), 'in_step'
     return make_pipelined_host_rollout_fn(
-        env, agent, calculator, num_steps, deterministic), 'pipelined'
+        env, agent, calculator, num_steps, deterministic,
+        distance_penalty), 'pipelined'
+
+
+def eval_rollout_size(num_eval_episodes: int, eval_sample_k: int,
+                      canvas_size: int) -> Tuple[int, int]:
+    """(episodes, steps) of batch_ppo's evaluation rollout: K =
+    eval_sample_k episodes per eval episode (one when greedy). Every episode
+    ends within canvas_size + 1 steps (each step places an atom or ends the
+    episode), so this many steps with auto-reset complete at least the
+    required episodes; the first are kept."""
+    episodes = num_eval_episodes * max(1, eval_sample_k)
+    return episodes, episodes * (canvas_size + 1)
 
 
 def batch_ppo(
@@ -274,6 +288,7 @@ def batch_ppo(
     info_saver=None,
     seed: int = 0,
     host_loop_calculator=None,
+    host_distance_penalty: float = 0.0,
     host_reward_timer=None,
     eval_sample_k: int = 0,
 ) -> Tuple[nn.Module, Optimizer]:
@@ -285,8 +300,9 @@ def batch_ppo(
     A host reward runs in the env's step (the env's reward function is a
     `make_host_reward`) unless `host_loop_calculator` is given: then the
     training and evaluation rollouts step in the pipelined host loop over
-    that batch calculator (the JAX loop's `host_distance_penalty` comes with
-    the solvation runner, ROADMAP.md Queue 2 item 7).
+    that batch calculator, less `host_distance_penalty` * |new position|
+    (the solvation penalty, which the env's reward function applies in the
+    in-step transport).
     The port has no serial host loop: a step can always reach the host, so
     the in-step transport does the serial loop's work in its order.
     `host_reward_timer` (a TimedBatchCalculator) adds `reward_time`, the
@@ -310,19 +326,17 @@ def batch_ppo(
     if optimizer is None:
         optimizer = make_optimizer(config, agent)
     rollout_fn, transport = _make_rollout(
-        envs, agent, steps_per_env, False, host_loop_calculator)
+        envs, agent, steps_per_env, False, host_loop_calculator,
+        host_distance_penalty)
     train_fn = make_train_fn(agent, optimizer, config, num_steps_per_iter)
 
     eval_rollout_fn = None
     if eval_envs is not None:
-        # every episode ends within canvas_size + 1 steps (each step places
-        # an atom or ends the episode), so this many steps with auto-reset
-        # complete at least the required episodes; the first are kept
-        total_eval_episodes = num_eval_episodes * max(1, eval_sample_k)
-        eval_steps = total_eval_episodes * (eval_envs.canvas_size + 1)
+        total_eval_episodes, eval_steps = eval_rollout_size(
+            num_eval_episodes, eval_sample_k, eval_envs.canvas_size)
         eval_rollout_fn = _make_rollout(
             eval_envs, agent, eval_steps, eval_sample_k == 0,
-            host_loop_calculator)[0]
+            host_loop_calculator, host_distance_penalty)[0]
 
     generator = torch.Generator(device=device).manual_seed(seed)
     states = envs.init_states(num_envs, generator)

@@ -16,6 +16,7 @@ import torch
 
 from molgym_tpu_torch.atoms import Atom, Atoms
 from molgym_tpu_torch.formula import FormulaType
+from molgym_tpu_torch.periodic import ATOMIC_NUMBERS
 
 
 @dataclasses.dataclass
@@ -99,3 +100,8 @@ class ObservationSpace:
             if element_index != 0:
                 atoms.append(Atom(self.zs[int(element_index)], position))
         return atoms
+
+
+def symbols_to_zs(symbols: str) -> List[int]:
+    """'X,H,C,N,O,F' -> [0, 1, 6, 7, 8, 9]."""
+    return [ATOMIC_NUMBERS[s.strip()] for s in symbols.split(',')]

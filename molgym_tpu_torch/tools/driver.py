@@ -12,36 +12,42 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from molgym_tpu_torch.atoms import Atoms
 from molgym_tpu_torch.device import DeviceLike, resolve_device
 from molgym_tpu_torch.envs import reward as device_reward
 from molgym_tpu_torch.envs.environment import MolecularEnv
 from molgym_tpu_torch.envs.reward import RewardFn
 from molgym_tpu_torch.formula import string_to_formula
-from molgym_tpu_torch.periodic import ATOMIC_NUMBERS
 from molgym_tpu_torch.rl.ppo import PPOConfig, batch_ppo, make_optimizer
-from molgym_tpu_torch.spaces import ObservationSpace
+from molgym_tpu_torch.spaces import ObservationSpace, symbols_to_zs
 from molgym_tpu_torch.tools import util
 from molgym_tpu_torch.tools.arg_parser import check_supported
 from molgym_tpu_torch.tools.model_io import ModelIO
 from molgym_tpu_torch.tools.model_util import build_model
 
 
-def symbols_to_zs(symbols: str):
-    """'X,H,C,N,O,F' -> [0, 1, 6, 7, 8, 9]."""
-    return [ATOMIC_NUMBERS[s.strip()] for s in symbols.split(',')]
+def distance_penalty(config: dict, solvation: bool) -> float:
+    """The solvation distance penalty of `config` (0.01 unless given), 0
+    without solvation: one number for the env's reward and the pipelined
+    transport alike."""
+    return config.get('distance_penalty', 0.01) if solvation else 0.0
 
 
-def make_reward_fn(config: dict) -> Tuple[RewardFn, Optional[object]]:
+def make_reward_fn(config: dict, solvation: bool = False
+                   ) -> Tuple[RewardFn, Optional[object]]:
     """(batched RewardFn, host batch calculator or None) of
     `config['reward']`. A host reward's calculator is a
     TimedBatchCalculator, and its RewardFn calls the host in the env's
-    step. The JAX driver's `solvation` penalty comes with the solvation
-    runner (ROADMAP.md Queue 2 item 7)."""
+    step. With `solvation` the reward is less distance_penalty(config) *
+    |new position|."""
     backend = config.get('reward', 'sparrow')
+    penalty = distance_penalty(config, solvation)
     device_fns = {'device_lj': device_reward.make_lennard_jones_reward,
                   'device_morse': device_reward.make_morse_reward}
     if backend in device_fns:
-        return device_fns[backend](), None
+        fn = device_fns[backend]()
+        return (device_reward.with_solvation_penalty(fn, penalty)
+                if solvation else fn), None
 
     from molgym_tpu_torch.calculators.reward_host import (
         TimedBatchCalculator, make_host_reward)
@@ -54,7 +60,7 @@ def make_reward_fn(config: dict) -> Tuple[RewardFn, Optional[object]]:
                                                          NativeBatchCalculator)
         calc = NativeBatchCalculator(method=METHODS[backend])
     calc = TimedBatchCalculator(calc)
-    return make_host_reward(calc), calc
+    return make_host_reward(calc, distance_penalty=penalty), calc
 
 
 def host_loop_calculator(mode: str, host_calc):
@@ -72,9 +78,11 @@ EnvBuilder = Callable[[dict, ObservationSpace, RewardFn, torch.device],
 
 
 def standard_envs(config: dict, observation_space: ObservationSpace,
-                  reward_fn: RewardFn, device: torch.device
+                  reward_fn: RewardFn, device: torch.device, **env_kwargs
                   ) -> Tuple[MolecularEnv, MolecularEnv]:
-    """Training and evaluation environments over comma-separated bags."""
+    """Training and evaluation environments over comma-separated bags;
+    `env_kwargs` (a pre-placed canvas, refills, a scaffold's hull) go to
+    both."""
 
     def env(strings: str) -> MolecularEnv:
         bags = np.stack([observation_space.bag_from_formula(string_to_formula(s))
@@ -83,10 +91,30 @@ def standard_envs(config: dict, observation_space: ObservationSpace,
             reward_fn=reward_fn, observation_space=observation_space,
             formulas=bags, min_atomic_distance=config['min_atomic_distance'],
             max_solo_distance=config['max_solo_distance'],
-            min_reward=config['min_reward'], device=device)
+            min_reward=config['min_reward'], device=device, **env_kwargs)
 
     return (env(config['formulas']),
             env(config.get('eval_formulas') or config['formulas']))
+
+
+def initial_canvas(observation_space: ObservationSpace, atoms: Atoms,
+                   what: str) -> Tuple[np.ndarray, np.ndarray]:
+    """`atoms` pre-placed on an empty canvas: (element indices int64[N],
+    positions float32[N, 3]). Raises ValueError when they leave no free
+    slot or hold an element the space lacks; `what` names them."""
+    n = observation_space.canvas_size
+    if len(atoms) >= n:
+        raise ValueError(f'{what} has {len(atoms)} atoms but the canvas '
+                         f'holds only {n}; raise --canvas_size')
+    elements = np.zeros(n, np.int64)
+    positions = np.zeros((n, 3), np.float32)
+    for i, atom in enumerate(atoms):
+        if atom.z not in observation_space.z_to_index:
+            raise ValueError(f'{what} element {atom.symbol} must be listed '
+                             f'in --symbols')
+        elements[i] = observation_space.z_to_index[atom.z]
+        positions[i] = atom.position
+    return elements, positions
 
 
 def ppo_config_from(config: dict) -> PPOConfig:
@@ -102,16 +130,17 @@ def ppo_config_from(config: dict) -> PPOConfig:
 
 
 def run_experiment(config: dict, env_builder: EnvBuilder = standard_envs,
-                   device: DeviceLike = None):
+                   device: DeviceLike = None, solvation: bool = False):
     """Trains as `config` says and returns (agent, optimizer). `device`
     (else config['device']) is cuda unless it names the CPU; without a
-    visible card, cuda raises."""
+    visible card, cuda raises. `solvation` subtracts the distance penalty
+    from every reward, in the env's step and in the pipelined transport."""
     check_supported(config)
     device = resolve_device(device if device is not None
                             else config.get('device'))
     # a host reward's calculator first: its library builds, or a missing
     # backend (scine) raises, before anything is written
-    reward_fn, host_calc = make_reward_fn(config)
+    reward_fn, host_calc = make_reward_fn(config, solvation=solvation)
     util.create_directories([config['log_dir'], config['model_dir'],
                              config['data_dir'], config['results_dir']])
     tag = util.get_tag(config)
@@ -173,6 +202,7 @@ def run_experiment(config: dict, env_builder: EnvBuilder = standard_envs,
         seed=config['seed'],
         host_loop_calculator=host_loop_calculator(
             config.get('host_reward_mode', 'auto'), host_calc),
+        host_distance_penalty=distance_penalty(config, solvation),
         host_reward_timer=host_calc,
     )
     if host_calc is not None:

@@ -4,7 +4,8 @@ host loop) and pipelined give the same trajectory, bit for bit, and leave
 the generator in the same state, sampling and greedy, on a fixed-bag env, a
 stochastic-bag env, an LJ epsilon large enough that the pipelined
 transport's low-reward fix-up fires, and a min_reward above 0, where the
-fix-up must follow the real dones rather than guess them; and the trained
+fix-up must follow the real dones rather than guess them, and the
+solvation run's envs with the distance penalty; and the trained
 SF6 PM6 checkpoints, covariant and internal, evaluated greedily with the
 PM6 reward in both packages.
 
@@ -26,7 +27,9 @@ from molgym_tpu.calculators.reward_host import \
 from molgym_tpu.envs.environment import MolecularEnv as JaxMolecularEnv
 from molgym_tpu.rl.rollout import make_rollout_fn as jax_rollout_fn
 from molgym_tpu.spaces import ObservationSpace as JaxObservationSpace
+from molgym_tpu_torch import run_solvation
 from molgym_tpu_torch.agents.covariant import CovariantAC
+from molgym_tpu_torch.agents.schnet import make_schnet_agent
 from molgym_tpu_torch.calculators.native import (METHOD_LJ, METHOD_PM6,
                                                  NativeBatchCalculator)
 from molgym_tpu_torch.calculators.reward_host import (TimedBatchCalculator,
@@ -36,9 +39,11 @@ from molgym_tpu_torch.formula import string_to_formula
 from molgym_tpu_torch.rl.rollout import (make_pipelined_host_rollout_fn,
                                          make_rollout_fn)
 from molgym_tpu_torch.spaces import ObservationSpace
+from molgym_tpu_torch.tools import driver
 
 from .test_torch_checkpoint import (NUM_ENVS, _first_returns, _restore,
                                     agent_pair)
+from .test_torch_driver_checkpoints import recorded_config
 from .test_torch_host_reward import \
     jax_library_over_the_port_build  # noqa: F401  (module fixture)
 
@@ -214,3 +219,38 @@ def test_trained_internal_pm6_checkpoint_evaluates_alike():
     assert abs(float(tret.mean()) - float(jret.mean())) <= INTERNAL_GATE, (
         tret, jret)
     assert abs(float(tret.mean()) - RECORDED_INTERNAL_EVAL) <= GATE, tret
+
+
+@pytest.mark.parametrize('method', [METHOD_LJ, METHOD_PM6], ids=['lj', 'pm6'])
+def test_solvation_transports_give_the_same_trajectory(method):
+    """The solvation run's envs (run_solvation.solvation_envs: CO
+    pre-placed on a canvas of 12, H2O refilled twice) with a host reward
+    less 0.01 |x|: the in-step transport (the env's reward function applies
+    the penalty) and the pipelined one (given the penalty by batch_ppo)
+    give the same trajectory, bit for bit, with some episode past its
+    first bag; without the penalty the pipelined rewards differ."""
+    config = recorded_config('solvation', 'solv_run-1')
+    config['reward'] = {METHOD_LJ: 'lj', METHOD_PM6: 'pm6'}[method]
+    fn, calc = driver.make_reward_fn(config, solvation=True)
+    penalty = driver.distance_penalty(config, True)
+    assert penalty == 0.01
+    space = ObservationSpace(config['canvas_size'], [0, 1, 6, 8])
+    env, _eval_env = run_solvation.solvation_envs(config, space, fn,
+                                                  torch.device('cpu'))
+    torch.manual_seed(0)
+    agent = make_schnet_agent(num_zs=4, canvas_size=12, network_width=16,
+                              min_max_distance=(0.8, 1.8), n_interactions=2,
+                              device='cpu')
+    steps = 10
+    runs = {'in_step': _run(make_rollout_fn(env, agent, steps), env, agent,
+                            num_envs=16),
+            'pipelined': _run(make_pipelined_host_rollout_fn(
+                env, agent, calc, steps, distance_penalty=penalty), env,
+                agent, num_envs=16)}
+    _assert_identical(runs['in_step'], runs['pipelined'], 'pipelined')
+    traj = runs['in_step'][1]
+    placed = (traj.next_obs.elements != 0).sum(-1) - 2   # less the solute
+    assert (placed > 3).any(), 'no episode refilled its bag'
+    unpenalised = _run(make_pipelined_host_rollout_fn(env, agent, calc, steps),
+                       env, agent, num_envs=16)[1]
+    assert not torch.equal(unpenalised.rewards, traj.rewards)

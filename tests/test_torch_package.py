@@ -79,7 +79,10 @@ def test_new_entry_points_are_scanned():
                    'run_stochastic.py', 'ops/fused_cg.py',
                    'ops/fused_softmax.py', 'ops/kernel_common.py',
                    'ops/masked.py', 'ops/zmat.py', 'agents/internal.py',
-                   'agents/schnet.py', 'convert.py'):
+                   'agents/schnet.py', 'convert.py', 'run_solvation.py',
+                   'run_scaffold.py', 'run_qm9.py', 'structures.py',
+                   'plot.py', 'equivariance.py', 'envs/vec_env.py',
+                   'tools/analysis.py', 'tools/qm9_parser.py'):
         assert f'molgym_tpu_torch/{module}' in names
 
 
@@ -218,4 +221,33 @@ def test_run_stochastic_refuses_cpu_without_device(monkeypatch, tmp_path):
             '--name=x', '--formulas=H2O', '--size_range=2,4', '--bag_scale=3',
             '--symbols=X,H,O', '--canvas_size=3', '--model=covariant',
             '--reward=device_lj', f'--results_dir={tmp_path / "results"}'])
+    assert not (tmp_path / 'results').exists()
+
+
+EXPERIMENTS = ROOT / 'experiments'
+
+
+@pytest.mark.parametrize('driver', ['run_solvation', 'run_scaffold',
+                                    'run_qm9'])
+def test_new_drivers_refuse_cpu_without_device(monkeypatch, tmp_path, driver):
+    """The solvation, scaffold and QM9 entry points, given no --device and
+    no card, raise before they write anything; --device=cpu is the way to
+    the CPU."""
+    import importlib
+    module = importlib.import_module(f'molgym_tpu_torch.{driver}')
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    argv = {
+        'run_solvation': ['--formulas=H2O', '--symbols=X,H,C,O',
+                          '--initial_structure='
+                          f'{EXPERIMENTS / "solvation" / "solute.xyz"}'],
+        'run_scaffold': ['--formulas=H2O', '--symbols=X,H,O,Ar',
+                         '--canvas_size=12', '--scaffold='
+                         f'{EXPERIMENTS / "scaffold_pm6" / "cube.xyz"}'],
+        'run_qm9': ['--qm9_dataset='
+                    f'{EXPERIMENTS / "qm9_pm6" / "qm9_sample.tar.gz"}',
+                    '--symbols=X,H,C,N,O,F', '--canvas_size=7'],
+    }[driver] + ['--name=x', '--bag_scale=3', '--model=internal',
+                 '--reward=device_lj', f'--results_dir={tmp_path / "results"}']
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        module.main(argv)
     assert not (tmp_path / 'results').exists()
