@@ -11,8 +11,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      against a second run of itself: the same bits), and time the kernel,
      the plain version and one library call computing the same function (a
      yardstick the port never calls):
-       - fused CG aggregate at SF6 levels 0 and 1-2, B = 140 and B = 9, and
-         the tri-fold CG square at tau = 10 and 12; both again at the
+       - fused CG aggregate at SF6 levels 0 and 1-2, B = 140, 70 and 9, and
+         the tri-fold CG square at tau = 10 and 12, B = 140 and 70 (70: a
+         data-parallel rank's half of the minibatch, phase 13; timed,
+         forward and backward, beside 140); both again at the
          stochastic configuration's M = 16, N = 10, and the square at the
          QM9 agent's tau = 24 (6 elements x 4 channels; its aggregates and
          products have SF6's shapes) (library: torch.einsum on
@@ -145,7 +147,33 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      the JAX test's agent on H2O, CH3 and CH4 and the SF6 agent at full
      width on partial SF6 canvases, two random rotations each, the
      coefficients of the rotated canvas within 1e-5 of apply_wigner of the
-     unrotated ones, and their invariants within 1e-5.
+     unrotated ones, and their invariants within 1e-5;
+ 13. data parallelism (molgym_tpu_torch/parallel/mesh.py) on the canonical
+     SF6 run at full width, random weights from SEED, cut to 2 iterations,
+     each case in ranks spawned for it: (a) one rank over NCCL on cuda:0,
+     batch_ppo(mesh=make_mesh(1, 'cuda')) against plain batch_ppo from the
+     same weights and seed in that process: the same bits in every
+     parameter and every train, opt and eval record but the times, and
+     exact launch counts; (b) two ranks on this one card over gloo:
+     finite records and a step
+     in every update on both ranks, the parameters the same bits on both
+     after each iteration, each rank's exact launch counts (rank 0, the
+     writer, also evaluates), and rank 0's first reduced gradient of
+     iteration 1 within 1e-5 of each leaf's max |g| of one process's
+     make_train_fn from the same gathered trajectory, parameters,
+     optimizer and generator state, with the same number of steps; then
+     (a) and (b) each time 2 more iterations alike, with no evaluation and
+     no writes on any rank: each rank's iteration ms and the env-steps/s
+     of both together beside (a)'s; (d) molgym_tpu_torch.run --multihost
+     as one process of one NCCL rank (MOLGYM_* variables), the driver's
+     spawn, writer and checkpoint path, against the same run in one
+     process from the same weights: phase 7's checks on each (the rank's
+     launch counts read from the rank), _rank-0 on the rank's rollouts,
+     and the two checkpoints the same bits; (c) with two cards, 2
+     iterations of molgym_tpu_torch.run --num_devices=2 over NCCL with
+     finite records, a step in every update and a checkpoint of the right
+     step count and optimizer count; with one card, a line saying it did
+     not run.
 
 The line before the last two is {"kernels": [...]}, then the card's name and
 power limit, and the last line is {"ok": true, "device": {...}}.
@@ -261,18 +289,22 @@ def check_aggregate(dev, B, atom_n_ells, maxl=4, N=7, tau=10,
     res = dict(shape=f'B={B} N={N} tau={tau} M1={m1} M2={m2} K={out[0].shape[-1]}'
                f' {"grouped" if grouped else "dense"}{_tag(dtype)}',
                **check_close(what, out, ref))
-    if B != 140:
+    # timed at the update's minibatch (140) and a data-parallel rank's half
+    # of it (70)
+    if B not in (140, 70):
         return res
     res['ms'] = time_ms(lambda: fused_agg.cg_aggregate_edge_fused_ri(
         *args, grouped=grouped))
-    # the same kernel at the rollout's batch (--num_envs=10) and at an
-    # evaluation's (one env): most of a run's launches
-    for small in (10, 1):
-        few = tuple(x[:small].contiguous() for x in args[:4]) + (table3, )
-        got = fused_agg.cg_aggregate_edge_fused_ri(*few, grouped=grouped)
-        check_close(f'{what} at B={small}', got, [r[:small] for r in ref])
-        res[f'ms_b{small}'] = time_ms(
-            lambda: fused_agg.cg_aggregate_edge_fused_ri(*few, grouped=grouped))
+    if B == 140:
+        # the same kernel at the rollout's batch (--num_envs=10) and at an
+        # evaluation's (one env): most of a run's launches
+        for small in (10, 1):
+            few = tuple(x[:small].contiguous() for x in args[:4]) + (table3, )
+            got = fused_agg.cg_aggregate_edge_fused_ri(*few, grouped=grouped)
+            check_close(f'{what} at B={small}', got, [r[:small] for r in ref])
+            res[f'ms_b{small}'] = time_ms(
+                lambda: fused_agg.cg_aggregate_edge_fused_ri(*few,
+                                                             grouped=grouped))
     res['resources'] = fused_agg.aggregate_kernel_resources(
         B, N, tau, n_ells, m2, table3, grouped, dev)
     res['plain_ms'] = time_ms(lambda: fused_agg.cg_aggregate_edge_fused_ri_plain(
@@ -299,9 +331,8 @@ def check_aggregate(dev, B, atom_n_ells, maxl=4, N=7, tau=10,
     return res
 
 
-def check_square(dev, tau, maxl=4, N=7, dtype=torch.float32):
+def check_square(dev, tau, maxl=4, N=7, dtype=torch.float32, B=140):
     from molgym_tpu_torch.ops import cg, fused_agg
-    B = 140
     n_ells = maxl + 1
     m = n_ells ** 2
     gen = torch.Generator(device=dev).manual_seed(SEED + tau + N)
@@ -321,7 +352,7 @@ def check_square(dev, tau, maxl=4, N=7, dtype=torch.float32):
                                                               tri=tri))
     # the same kernel at the rollout's batch (--num_envs=10) and at an
     # evaluation's (one env): most of a run's launches
-    for small in (10, 1):
+    for small in ((10, 1) if B == 140 else ()):
         few = (a_r[:small].contiguous(), a_i[:small].contiguous())
         got = fused_agg.cg_square_fused_ri(*few, table3, tri=tri)
         check_close(f'{what} at B={small}', got, [r[:small] for r in ref])
@@ -330,7 +361,7 @@ def check_square(dev, tau, maxl=4, N=7, dtype=torch.float32):
     res['resources'] = {
         f'B={b}': fused_agg.square_kernel_resources(b * N * tau, table3, None,
                                                     tri, dev)
-        for b in (140, 10, 1)}
+        for b in ((140, 10, 1) if B == 140 else (B, ))}
     res['plain_ms'] = time_ms(lambda: fused_agg.cg_square_fused_ri_plain(
         a_r, a_i, table3, tri=tri))
     a_c = torch.complex(a_r.float(), a_i.float())     # complex64, upcast
@@ -399,7 +430,7 @@ def check_aggregate_bwd(dev, B, atom_n_ells, maxl=4, N=7, tau=10,
                **check_close(what, out, ref))
     check_same_bits(what, out, again)
     res['same_bits'] = True
-    if B != 140:
+    if B not in (140, 70):
         return res
     res['ms'] = time_ms(lambda: fused_agg._aggregate_bwd_kernel(*args))
     res['plain_ms'] = time_ms(
@@ -441,11 +472,10 @@ def check_aggregate_bwd(dev, B, atom_n_ells, maxl=4, N=7, tau=10,
     return res
 
 
-def check_square_bwd(dev, tau, maxl=4, N=7, dtype=torch.float32):
+def check_square_bwd(dev, tau, maxl=4, N=7, dtype=torch.float32, B=140):
     """The square's backward kernel against its plain backward (tri pairs,
     the main path's table mode), and against a second run of itself."""
     from molgym_tpu_torch.ops import cg, fused_agg
-    B = 140
     n_ells = maxl + 1
     m = n_ells ** 2
     gen = torch.Generator(device=dev).manual_seed(SEED + 3 * tau + N)
@@ -936,16 +966,38 @@ def expected_launches(per_forward, forwards, passes):
     return out
 
 
+# a data-parallel rank that a driver spawns (start method spawn) imports
+# this module anew, as __mp_main__; during run_training it writes its launch
+# counts into the directory this variable names when it exits, and
+# run_training adds them to its own process's
+RANK_COUNTS_DIR = 'CHIP_SMOKE_RANK_COUNTS_DIR'
+
+
+def _write_rank_counts():
+    from molgym_tpu_torch.ops.kernel_common import launch_counts
+    with open(os.path.join(os.environ[RANK_COUNTS_DIR],
+                           f'{os.getpid()}.json'), 'w') as f:
+        json.dump(launch_counts, f)
+
+
+if __name__ == '__mp_main__' and os.environ.get(RANK_COUNTS_DIR):
+    import atexit
+    atexit.register(_write_rank_counts)
+
+
 def run_training(dev, entry, build_parser, argv, iterations,
-                 transport='in_step', inspect=None):
+                 transport='in_step', inspect=None, env=None):
     """`iterations` PPO iterations of the run `argv` describes through the
     main of the module `entry` (`build_parser` makes its parser, for the
     configuration the checks read), from a checkpoint of random
     weights written first, so that the initial weights are known; the launch
-    counts are zeroed just before and read just after. Every training
+    counts are zeroed just before and read just after, this process's and
+    those of the data-parallel ranks the run spawns, added. Every training
     rollout must name `transport`, and a host reward's its reward_time.
     `inspect(config, tag)`, called while the run's directories exist, adds
-    its dict to the result."""
+    its dict to the result. `env` holds environment variables set for the
+    run only. On the CPU (a rehearsal) the counts are not checked: only a
+    kernel launch counts."""
     import tempfile
 
     from molgym_tpu_torch.ops import fused_agg
@@ -968,16 +1020,32 @@ def run_training(dev, entry, build_parser, argv, iterations,
         ModelIO(config['model_dir'], tag).save(init, num_steps=0)
         before = {k: v.clone() for k, v in init.state_dict().items()}
 
-        torch.cuda.synchronize()
+        rank_counts = os.path.join(tmp, 'rank_counts')
+        os.makedirs(rank_counts)
+        env = dict(env or {}, **{RANK_COUNTS_DIR: rank_counts})
+        saved = {k: os.environ.get(k) for k in env}
+        _sync(dev)
         fused_agg.reset_launch_counts()
         t0 = time.perf_counter()
-        # stdout carries only the result lines: a driver's prints go to
-        # stderr
-        with contextlib.redirect_stdout(sys.stderr):
-            agent, optimizer = entry.main(argv)
-        torch.cuda.synchronize()
+        os.environ.update(env)
+        try:
+            # stdout carries only the result lines: a driver's prints go to
+            # stderr
+            with contextlib.redirect_stdout(sys.stderr):
+                agent, optimizer = entry.main(argv)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k)
+                else:
+                    os.environ[k] = v
+        _sync(dev)
         seconds = time.perf_counter() - t0
         counts = dict(fused_agg.launch_counts)
+        for name in sorted(os.listdir(rank_counts)):
+            with open(os.path.join(rank_counts, name)) as f:
+                for k, n in json.load(f).items():
+                    counts[k] += n
 
         def lines(name):
             path = f'{config["results_dir"]}/{tag}_{name}.txt'
@@ -1039,7 +1107,7 @@ def run_training(dev, entry, build_parser, argv, iterations,
     expected = expected_launches(
         per_forward_launches(agent, config['encoder_dtype']), forwards,
         passes)
-    if counts != expected:
+    if dev.type == 'cuda' and counts != expected:
         raise AssertionError(f'launches {counts}, expected {expected}')
     return dict(seconds=seconds, counts=counts, grad_passes=passes,
                 opt_steps=[r['num_opt_steps'] for r in opt],
@@ -1590,6 +1658,431 @@ def run_covariance(dev):
     return out
 
 
+# phase 13: the canonical SF6 run, cut to 2 iterations, in data-parallel
+# ranks; the ranks' functions are this module's, which each spawned rank
+# imports anew
+DP_RUN = [a for a in CANONICAL if not a.startswith('--num_steps=')] + [
+    '--num_steps=280']
+DP_GRAD_TOL = 1e-5   # rank 0's reduced gradient against one process's
+
+
+def _sync(dev):
+    if dev.type == 'cuda':
+        torch.cuda.synchronize(dev)
+
+
+def _dp_setup(dev, argv):
+    """The config, envs, PPO arguments and a fresh agent of random weights
+    from SEED on `dev` of the run `argv` describes, as the driver builds
+    them."""
+    from molgym_tpu_torch.spaces import ObservationSpace, symbols_to_zs
+    from molgym_tpu_torch.tools.arg_parser import build_default_argparser
+    from molgym_tpu_torch.tools.driver import (make_reward_fn,
+                                               ppo_config_from, standard_envs)
+    from molgym_tpu_torch.tools.model_util import build_model
+    config = vars(build_default_argparser().parse_args(argv))
+    space = ObservationSpace(config['canvas_size'],
+                             symbols_to_zs(config['symbols']))
+    envs, eval_envs = standard_envs(config, space, make_reward_fn(config)[0],
+                                    dev)
+    torch.manual_seed(SEED)
+    agent = build_model(config, space, device=dev)
+    kwargs = dict(num_envs=config['num_envs'],
+                  num_steps_per_iter=config['num_steps_per_iter'],
+                  max_num_steps=config['max_num_steps'],
+                  config=ppo_config_from(config),
+                  eval_freq=config['eval_freq'],
+                  num_eval_episodes=len(config['formulas'].split(',')),
+                  seed=config['seed'])
+    return config, envs, eval_envs, agent, kwargs
+
+
+def _cpu_params(agent):
+    return {k: v.detach().cpu().clone() for k, v in agent.named_parameters()}
+
+
+def _timed_iterations(mesh, envs, agent, kwargs):
+    """The iteration ms of the run's iterations through
+    batch_ppo(mesh=...) with no evaluation and no writes but the records
+    in memory, on every rank alike: the timing that W = 1 and W = 2 share
+    (an evaluation, or a snapshot to the host, on one rank would stall the
+    other in the next gather)."""
+    from molgym_tpu_torch.rl.ppo import batch_ppo
+    from molgym_tpu_torch.tools.util import MemoryInfoSaver
+    records = MemoryInfoSaver()
+    batch_ppo(envs, None, agent, info_saver=records, mesh=mesh, **kwargs)
+    return [r['iteration_time'] * 1e3 for n, r in records.lines if n == 'opt']
+
+
+def _dp_expected(config, agent, records, evaluates):
+    """The launch counts of a rank's 2 iterations, as phase 7 computes
+    them: each rollout of its envs makes T + 1 forwards, an evaluation (the
+    writer's) the steps batch_ppo sizes it to plus the bootstrap, and every
+    gradient pass one forward and one backward of the rank's chunk of each
+    minibatch."""
+    from molgym_tpu_torch.rl.ppo import eval_rollout_size
+    opt = [r for n, r in records if n == 'opt']
+    evals = [r for n, r in records if n == 'eval'] if evaluates else []
+    steps_per_env = config['num_steps_per_iter'] // config['num_envs']
+    _episodes, eval_steps = eval_rollout_size(
+        len(config['formulas'].split(',')), 0, config['canvas_size'])
+    samples = config['num_steps_per_iter']
+    minibatches = -(-samples // min(config['mini_batch_size'], samples))
+    return expected_launches(
+        per_forward_launches(agent),
+        len(opt) * (steps_per_env + 1) + len(evals) * (eval_steps + 1),
+        minibatches * sum(r['num_grad_passes'] for r in opt))
+
+
+def dp_w1_rank(device, argv):
+    """Phase 13a, in one spawned rank on `device` (cuda: cuda:0 over
+    NCCL): the iterations of `argv`'s run through plain batch_ppo, then
+    through batch_ppo(mesh=make_mesh(1, device)) from the same weights and
+    seed, with the launch counts of each; then the timed iterations."""
+    from molgym_tpu_torch.ops import fused_agg
+    from molgym_tpu_torch.parallel.mesh import make_mesh
+    from molgym_tpu_torch.rl.ppo import batch_ppo
+    from molgym_tpu_torch.tools.util import MemoryInfoSaver
+    with make_mesh(1, device) as mesh:
+        config, envs, eval_envs, agent, kwargs = _dp_setup(mesh.device, argv)
+        init = {k: v.clone() for k, v in agent.state_dict().items()}
+        out = dict(backend=mesh.backend, device=str(mesh.device))
+        for name, m in (('plain', None), ('mesh', mesh)):
+            agent.load_state_dict(init)
+            records = MemoryInfoSaver()
+            _sync(mesh.device)
+            fused_agg.reset_launch_counts()
+            t0 = time.perf_counter()
+            batch_ppo(envs, eval_envs, agent, info_saver=records, mesh=m,
+                      **kwargs)
+            _sync(mesh.device)
+            out[name] = dict(
+                seconds=time.perf_counter() - t0, records=records.lines,
+                counts=dict(fused_agg.launch_counts),
+                expected=_dp_expected(config, agent, records.lines, True),
+                params=_cpu_params(agent))
+        out['timed_ms'] = _timed_iterations(mesh, envs, agent, kwargs)
+        return out
+
+
+def _trajectory_from(arrays, dev):
+    from molgym_tpu_torch.rl.buffer import Trajectory
+    from molgym_tpu_torch.spaces import Observation
+
+    def obs(d):
+        return Observation(**{k: torch.from_numpy(v).to(dev)
+                              for k, v in d.items()})
+    return Trajectory(obs=obs(arrays['obs']), next_obs=obs(arrays['next_obs']),
+                      **{k: torch.from_numpy(arrays[k]).to(dev)
+                         for k in ('actions', 'rewards', 'terminals',
+                                   'values', 'logps', 'bootstrap_value')})
+
+
+def _grad_err(grads, ref):
+    """Max over leaves of |g - ref| over the leaf's max |ref| (a leaf below
+    1e-3 of the largest leaf's held against 1e-3 of that), as phase 6."""
+    floor = 1e-3 * max(float(g.abs().max()) for g in ref.values())
+    return max(float((grads[k] - g).abs().max()) /
+               max(float(g.abs().max()), floor) for k, g in ref.items())
+
+
+def dp_w2_rank(device, argv):
+    """Phase 13b, in each of two spawned ranks, both on `device` (cuda:0)
+    over gloo: the iterations of `argv`'s run through batch_ppo(mesh=...),
+    rank 0 the writer (it evaluates);
+    the parameters after each iteration, the records and launch counts,
+    then the timed iterations; on rank 0 also iteration 1's first reduced
+    gradient against one process's make_train_fn from the same gathered
+    trajectory, parameters, optimizer state and generator state (so the
+    same permutation)."""
+    from molgym_tpu_torch.ops import fused_agg
+    from molgym_tpu_torch.parallel.mesh import make_mesh
+    from molgym_tpu_torch.rl.buffer import compute_ppo_data
+    from molgym_tpu_torch.rl.ppo import (batch_ppo, make_loss_fn,
+                                         make_optimizer, make_train_fn)
+    from molgym_tpu_torch.tools.util import MemoryInfoSaver
+    with make_mesh(2, device, backend='gloo') as mesh:
+        config, envs, eval_envs, agent, kwargs = _dp_setup(mesh.device, argv)
+        ppo_config = kwargs['config']
+        optimizer = make_optimizer(ppo_config, agent)
+        steps, perm_states, snapshots, per_iteration = [], [], {}, []
+        optimizer_step, randperm = optimizer.step, torch.randperm
+
+        def step_spy(grads):
+            steps.append({k: g.detach().clone() for k, g in grads.items()})
+            optimizer_step(grads)
+
+        def randperm_spy(*args, generator=None, **kw):
+            perm_states.append(generator.get_state())
+            return randperm(*args, generator=generator, **kw)
+
+        class Saver:   # the global training rollout, just before the update
+            def save(self, obj, num_steps, info):
+                snapshots[num_steps] = (
+                    obj, {k: v.clone() for k, v in agent.state_dict().items()},
+                    {k: ({n: t.clone() for n, t in v.items()}
+                         if isinstance(v, dict) else v)
+                     for k, v in optimizer.state_dict().items()})
+
+        class Handler:   # the parameters after each iteration
+            def save(self, model, opt, num_steps):
+                per_iteration.append(_cpu_params(model))
+
+        optimizer.step = step_spy
+        torch.randperm = randperm_spy
+        records = MemoryInfoSaver()
+        writer = mesh.rank == 0
+        _sync(mesh.device)
+        fused_agg.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            batch_ppo(envs, eval_envs if writer else None, agent,
+                      optimizer=optimizer, info_saver=records,
+                      rollout_saver=Saver(), save_train_rollout=True,
+                      save_eval_rollout=False, model_handler=Handler(),
+                      save_freq=1, mesh=mesh, **kwargs)
+        finally:
+            torch.randperm = randperm
+        _sync(mesh.device)
+        out = dict(rank=mesh.rank, seconds=time.perf_counter() - t0,
+                   records=records.lines,
+                   counts=dict(fused_agg.launch_counts),
+                   expected=_dp_expected(config, agent, records.lines,
+                                         writer),
+                   per_iteration=per_iteration)
+        out['timed_ms'] = _timed_iterations(mesh, envs, agent, kwargs)
+        if not writer:
+            return out
+
+        # one process's update of iteration 1 from the same state
+        opt = [r for n, r in records.lines if n == 'opt']
+        arrays, state, opt_state = snapshots[config['num_steps_per_iter']]
+        data = compute_ppo_data(_trajectory_from(arrays, mesh.device),
+                                ppo_config.gamma, ppo_config.lam)
+        ref_agent = _dp_setup(mesh.device, argv)[3]
+        ref_agent.load_state_dict(state)
+        ref_opt = make_optimizer(ppo_config, ref_agent)
+        ref_opt.load_state_dict(opt_state)
+        ref_steps, ref_step = [], ref_opt.step
+
+        def ref_spy(grads):
+            ref_steps.append({k: g.detach().clone() for k, g in grads.items()})
+            ref_step(grads)
+        ref_opt.step = ref_spy
+        generator = torch.Generator(device=mesh.device)
+        first = opt[0]['num_grad_passes']   # iteration 1's first draw
+        generator.set_state(perm_states[first])
+        ref_info = make_train_fn(ref_agent, ref_opt, ppo_config,
+                                 config['num_steps_per_iter'])(data,
+                                                               generator)
+        dp_grads = steps[opt[0]['num_opt_steps']]
+        # the same epoch as two chunks of 70 in this process, summed in
+        # rank order: what only the data-parallel mechanics could change
+        generator.set_state(perm_states[first])
+        perm = randperm(config['num_steps_per_iter'], generator=generator,
+                        device=mesh.device)
+        ref_agent.load_state_dict(state)
+        loss_fn = make_loss_fn(ref_agent, ppo_config)
+        chunked = {k: torch.zeros_like(p)
+                   for k, p in ref_agent.named_parameters()}
+        for i in torch.tensor_split(perm, 2):
+            ref_agent.zero_grad(set_to_none=True)
+            w = torch.ones(len(i), device=mesh.device)
+            loss, _info = loss_fn(data['obs'].map(lambda x: x[i]),
+                                  data['act'][i], data['logp'][i],
+                                  data['adv'][i], data['ret'][i], w,
+                                  torch.tensor(float(len(perm)),
+                                               device=mesh.device))
+            loss.backward()
+            for k, p in ref_agent.named_parameters():
+                if p.grad is not None:
+                    chunked[k] += p.grad
+        out.update(grad_err=_grad_err(dp_grads, ref_steps[0]),
+                   grad_err_same_chunks=_grad_err(dp_grads, chunked),
+                   ref_num_opt_steps=ref_info['num_opt_steps'],
+                   num_opt_steps=opt[1]['num_opt_steps'])
+        return out
+
+
+def run_cli_data_parallel(device, argv):
+    """Phase 13d: the run `argv` describes through molgym_tpu_torch.run
+    (run_training's checks: the streams, the exact launch counts, the
+    checkpoint against the state the run returns, on the run's device),
+    once with --multihost as one process of one rank (the MOLGYM_*
+    variables: run_experiment spawns that rank, over NCCL on cuda:0) and
+    once as a single process without a process group, from the same
+    weights: the rank's rollouts carry _rank-0 and the single process's no
+    tag, and the two checkpoints hold the same bits, parameters and
+    optimizer state (W = 1 computes what one process does)."""
+    from molgym_tpu_torch import run
+    from molgym_tpu_torch.parallel.mesh import free_port
+    from molgym_tpu_torch.tools.arg_parser import build_default_argparser
+    from molgym_tpu_torch.tools.model_io import ModelIO
+    dev = torch.device(device)
+    argv = argv + ['--save_rollouts=train']
+    states = {}
+
+    def inspect(name, rank_tag):
+        def check(config, tag):
+            files = sorted(os.listdir(config['data_dir']))
+            want = sorted(f'{tag}_steps-{n}{rank_tag}_train.pkl' for n in
+                          range(0, config['max_num_steps'],
+                                config['num_steps_per_iter']))
+            if files != want:
+                raise AssertionError(f'13d {name}: rollouts {files}, '
+                                     f'expected {want}')
+            states[name] = ModelIO(config['model_dir'], tag).load_latest(
+                'cpu')[0]
+            return dict(rollouts=files)
+        return check
+
+    out = {}
+    env = dict(MOLGYM_COORDINATOR_ADDRESS=f'localhost:{free_port()}',
+               MOLGYM_NUM_PROCESSES='1', MOLGYM_PROCESS_ID='0')
+    for name, extra, rank_tag, env_ in (
+            ('multihost', ['--multihost'], '_rank-0', env),
+            ('single', [], '', None)):
+        out[name] = run_training(dev, run, build_default_argparser,
+                                 argv + extra, iterations=2,
+                                 inspect=inspect(name, rank_tag), env=env_)
+    one, other = states['multihost'], states['single']
+    differ = [k for k, v in one['model'].items()
+              if not torch.equal(v, other['model'][k])]
+    differ += [f'{key}/{k}' for key in ('mu', 'nu')
+               for k, v in one['optimizer'][key].items()
+               if not torch.equal(v, other['optimizer'][key][k])]
+    if differ or one['optimizer']['count'] != other['optimizer']['count']:
+        raise AssertionError(f'13d: the --multihost rank\'s checkpoint '
+                             f'differs from one process\'s in '
+                             f'{differ or "the count"}')
+    for key in ('opt_steps', 'total_loss', 'approx_kl', 'return_mean',
+                'eval_return_mean'):
+        if json.dumps(out['multihost'][key]) != json.dumps(out['single'][key]):
+            raise AssertionError(f'13d: {key} {out["multihost"][key]} '
+                                 f'against {out["single"][key]}')
+    return out
+
+
+def run_data_parallel(device='cuda', argv=DP_RUN):
+    """Phase 13: (a) W = 1 over NCCL against plain batch_ppo, the same
+    bits; (b) W = 2 over gloo, both ranks on this card; (d) --multihost
+    as one NCCL rank through molgym_tpu_torch.run against the same run
+    in one process; (c) W = 2 over NCCL through molgym_tpu_torch.run
+    when there are two cards. `device` cpu and a tiny `argv` with
+    --device=cpu rehearse (a), (b) and (d) on the CPU."""
+    from molgym_tpu_torch.parallel.mesh import Launch, free_port, spawn
+
+    from molgym_tpu_torch.tools.arg_parser import build_default_argparser
+
+    def launch(n):
+        return Launch(n, n, 0, 'localhost', free_port())
+    samples = build_default_argparser().parse_args(argv).num_steps_per_iter
+    res = {}
+    a = spawn(dp_w1_rank, launch(1), (device, argv), timeout=600)[0]
+    plain, dp = a['plain'], a['mesh']
+    # the launch counts where kernels launch (on the CPU: plain versions)
+    counted = device != 'cpu'
+    for name, run_ in (('plain', plain), ('mesh', dp)):
+        if counted and run_['counts'] != run_['expected']:
+            raise AssertionError(f'13a {name}: launches {run_["counts"]}, '
+                                 f'expected {run_["expected"]}')
+    differ = [k for k, v in plain['params'].items()
+              if not torch.equal(v, dp['params'][k])]
+    untimed = [[(n, {k: v for k, v in r.items()
+                     if k not in ('time', 'iteration_time')})
+                for n, r in x['records']] for x in (plain, dp)]
+    if differ or json.dumps(untimed[0]) != json.dumps(untimed[1]):
+        raise AssertionError(f'13a: W = 1 over NCCL differs from plain '
+                             f'batch_ppo in {differ or "the records"}')
+    res['w1'] = dict(backend=a['backend'], device=a['device'],
+                     same_bits=True, counts=dp['counts'],
+                     **{f'{n}_iteration_ms': [r['iteration_time'] * 1e3
+                                              for k, r in x['records']
+                                              if k == 'opt']
+                        for n, x in (('plain', plain), ('mesh', dp))},
+                     timed_ms=a['timed_ms'])
+
+    b = spawn(dp_w2_rank, launch(2),
+              ('cuda:0' if device == 'cuda' else device, argv), timeout=600)
+    for r in b:
+        opt = [x for n, x in r['records'] if n == 'opt']
+        if len(opt) != 2 or min(x['num_opt_steps'] for x in opt) < 1:
+            raise AssertionError(f'13b rank {r["rank"]}: updates {opt}')
+        for _n, rec in r['records']:
+            bad = [k for k, v in rec.items()
+                   if not isinstance(v, str) and not np.isfinite(v)]
+            if bad:
+                raise AssertionError(f'13b rank {r["rank"]}: non-finite '
+                                     f'{bad}')
+        if counted and r['counts'] != r['expected']:
+            raise AssertionError(f'13b rank {r["rank"]}: launches '
+                                 f'{r["counts"]}, expected {r["expected"]}')
+    for it, (p0, p1) in enumerate(zip(b[0]['per_iteration'],
+                                      b[1]['per_iteration'])):
+        if not all(torch.equal(v, p1[k]) for k, v in p0.items()):
+            raise AssertionError(f'13b: the replicas differ after iteration '
+                                 f'{it}')
+    r0 = b[0]
+    if len(r0['per_iteration']) != 2:
+        raise AssertionError('13b: 2 iterations expected')
+    if (r0['grad_err'] > DP_GRAD_TOL
+            or r0['num_opt_steps'] != r0['ref_num_opt_steps']):
+        raise AssertionError(
+            f'13b: rank 0\'s reduced gradient {r0["grad_err"]} of a leaf\'s '
+            f'max |g| from one process\'s (the same chunks in one process: '
+            f'{r0["grad_err_same_chunks"]}); {r0["num_opt_steps"]} steps, one '
+            f'process {r0["ref_num_opt_steps"]}')
+    # the checked run's times (rank 0 evaluates and both snapshot to the
+    # host) beside the timed run's (no evaluation, no writes, on every rank
+    # as at W = 1); the throughput from the timed runs, a W = 2 iteration
+    # lasting as long as its slower rank
+    ms = [[x['iteration_time'] * 1e3 for n, x in r['records'] if n == 'opt']
+          for r in b]
+    res['w2'] = dict(
+        backend='gloo', device='both ranks on one', same_bits=True,
+        grad_err=r0['grad_err'],
+        grad_err_same_chunks=r0['grad_err_same_chunks'],
+        num_opt_steps=r0['num_opt_steps'], checked_iteration_ms=ms,
+        timed_ms=[r['timed_ms'] for r in b],
+        env_steps_per_s=[samples * 1e3 / max(a_, b_)
+                         for a_, b_ in zip(*(r['timed_ms'] for r in b))],
+        counts=[r['counts'] for r in b])
+    res['w1']['env_steps_per_s'] = [samples * 1e3 / t
+                                    for t in res['w1']['timed_ms']]
+    res['w2']['ratio_to_w1'] = [w2 / w1 for w2, w1 in zip(
+        res['w2']['env_steps_per_s'], res['w1']['env_steps_per_s'])]
+    res['cli'] = run_cli_data_parallel(device, argv)
+
+    if device != 'cuda' or torch.cuda.device_count() < 2:
+        log('phase 13c not run: one card visible, NCCL across two cards '
+            'needs two')
+        res['w2_nccl'] = 'not run: one card'
+        return res
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = DP_RUN + [f'--{d}_dir={tmp}/{d}' for d in
+                         ('log', 'model', 'data', 'results')] + [
+                             '--num_devices=2']
+        proc = subprocess.run([sys.executable, '-m', 'molgym_tpu_torch.run']
+                              + argv, capture_output=True, text=True,
+                              timeout=600)
+        if proc.returncode:
+            raise AssertionError(f'13c failed:\n{proc.stdout}\n{proc.stderr}')
+        with open(f'{tmp}/results/sf6_run-0_opt.txt') as f:
+            opt = [json.loads(line) for line in f]
+        if (len(opt) != 2 or min(r['num_opt_steps'] for r in opt) < 1
+                or not all(np.isfinite(r['total_loss']) for r in opt)):
+            raise AssertionError(f'13c: updates {opt}')
+        from molgym_tpu_torch.tools.model_io import ModelIO
+        state, steps = ModelIO(f'{tmp}/model', 'sf6_run-0').load_latest()
+        if steps != 280 or state['optimizer']['count'] != sum(
+                r['num_opt_steps'] for r in opt):
+            raise AssertionError(f'13c: checkpoint at {steps} steps')
+        res['w2_nccl'] = dict(iteration_ms=[r['iteration_time'] * 1e3
+                                            for r in opt])
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log('chip_smoke: no CUDA device is visible')
@@ -1614,11 +2107,17 @@ def main() -> int:
         for line in info['ptxas']:
             log('    ' + line)
 
-    agg = {(B, n): check_aggregate(dev, B, n) for B in (140, 9) for n in (1, 5)}
+    # B = 70: a rank's half of the minibatch of 140 at two data-parallel
+    # ranks (phase 13)
+    agg = {(B, n): check_aggregate(dev, B, n) for B in (140, 70, 9)
+           for n in (1, 5)}
     sq = {tau: check_square(dev, tau) for tau in (10, 12)}
     agg_bwd = {(B, n): check_aggregate_bwd(dev, B, n)
-               for B in (140, 9) for n in (1, 5)}
+               for B in (140, 70, 9) for n in (1, 5)}
     sq_bwd = {tau: check_square_bwd(dev, tau) for tau in (10, 12)}
+    for tau in (10, 12):
+        sq[('b70', tau)] = check_square(dev, tau, B=70)
+        sq_bwd[('b70', tau)] = check_square_bwd(dev, tau, B=70)
     # the same four kernels at the stochastic configuration's shapes: maxl 3
     # (M = 16), canvas 10, levels 0 and 1, square at tau 10 and 16
     stoch = dict(maxl=3, N=10)
@@ -1675,6 +2174,19 @@ def main() -> int:
             log('aggregate resources', k, json.dumps(v['resources']))
     for k, v in sq.items():
         log('square resources', k, json.dumps(v['resources']))
+    b70 = {'aggregate levels 1-2': (agg[(140, 5)], agg[(70, 5)]),
+           'aggregate level 0': (agg[(140, 1)], agg[(70, 1)]),
+           'square tau 10': (sq[10], sq[('b70', 10)]),
+           'square tau 12': (sq[12], sq[('b70', 12)]),
+           'aggregate bwd levels 1-2': (agg_bwd[(140, 5)], agg_bwd[(70, 5)]),
+           'aggregate bwd level 0': (agg_bwd[(140, 1)], agg_bwd[(70, 1)]),
+           'square bwd tau 10': (sq_bwd[10], sq_bwd[('b70', 10)]),
+           'square bwd tau 12': (sq_bwd[12], sq_bwd[('b70', 12)])}
+    for k, (full, half) in b70.items():
+        log(f'{k}: B=140 {full["ms"]:.5f} ms (bound {full["bound_ms"]:.5f}), '
+            f'B=70 {half["ms"]:.5f} ms (bound {half["bound_ms"]:.5f}, plain '
+            f'{half["plain_ms"]:.5f}, library {half["library_ms"]:.5f}) on '
+            f'{card}')
     for k, (fwd, _bwd) in contract.items():
         if 'resources' in fwd:
             log('product resources', k, json.dumps(fwd['resources']))
@@ -1812,6 +2324,28 @@ def main() -> int:
     log('qm9 training:', json.dumps(qm9_training))
     covariance = run_covariance(dev)
     log('covariance on the card:', json.dumps(covariance))
+
+    # phase 13: data parallelism
+    data_parallel = run_data_parallel()
+    log('data parallel:', json.dumps(data_parallel))
+    w1, w2 = data_parallel['w1'], data_parallel['w2']
+    cli = data_parallel['cli']
+
+    def ms(values):
+        return ' / '.join(f'{t:.1f}' for t in values)
+    log(f'data parallel, 2 SF6 iterations: W=1 NCCL ms '
+        f'{ms(w1["mesh_iteration_ms"])} (plain batch_ppo '
+        f'{ms(w1["plain_iteration_ms"])}); timed without evaluation or '
+        f'writes: W=1 NCCL {ms(w1["timed_ms"])} ms, env-steps/s '
+        f'{ms(w1["env_steps_per_s"])}; W=2 gloo on one card: rank 0 '
+        f'{ms(w2["timed_ms"][0])} ms, rank 1 {ms(w2["timed_ms"][1])} ms, '
+        f'both ranks together {ms(w2["env_steps_per_s"])} env-steps/s, '
+        f'{" / ".join(f"{r:.3f}" for r in w2["ratio_to_w1"])} x W=1; '
+        f'reduced gradient {w2["grad_err"]:.3g} of a leaf\'s max |g| from '
+        f'one process ({w2["grad_err_same_chunks"]:.3g} from the same '
+        f'chunks); molgym_tpu_torch.run --multihost (one NCCL rank) '
+        f'{ms(cli["multihost"]["iteration_ms"])} ms, one process '
+        f'{ms(cli["single"]["iteration_ms"])} ms, the same bits, on {card}')
     for name, trained in (('solvation', solv_training),
                           ('scaffold', scaf_training), ('qm9', qm9_training)):
         res = new_paths[name]
@@ -1861,6 +2395,11 @@ def main() -> int:
                      max_ulp_share=max(r['max_ulp_share'] for r in others),
                      **extra)
 
+    def at_b70(res, prefix=''):
+        """A kernel's numbers at a data-parallel rank's B = 70."""
+        return {f'{prefix}{k}_b70': res[k] for k in ('ms', 'bound_ms',
+                                                     'plain_ms', 'library_ms')}
+
     csrc = 'molgym_tpu_torch/csrc/'
     pallas = 'molgym_tpu/ops/'
     contract_main, softmax_main = contract[((140, 4), 5, 5, 4)], softmax[(140, 7)]
@@ -1868,26 +2407,32 @@ def main() -> int:
         entry('cg_aggregate_edge_fused_ri', csrc + 'cg_aggregate.cu',
               pallas + 'pallas_agg.py:334', agg[(140, 5)],
               [r for (_b, n), r in agg.items() if n != 1],
-              ms_b10=agg[(140, 5)]['ms_b10'], ms_b1=agg[(140, 5)]['ms_b1']),
+              ms_b10=agg[(140, 5)]['ms_b10'], ms_b1=agg[(140, 5)]['ms_b1'],
+              **at_b70(agg[(70, 5)])),
         # the same kernel and launch counter on the dense (ungrouped) table
         # of level 0: what the TPU's row-fallback kernel computes
         entry('cg_aggregate_edge_fused_ri', csrc + 'cg_aggregate.cu',
               pallas + 'pallas_agg.py:91', agg[(140, 1)],
               [r for (_b, n), r in agg.items() if n == 1],
               counter_shared_with=pallas + 'pallas_agg.py:334',
-              ms_b10=agg[(140, 1)]['ms_b10'], ms_b1=agg[(140, 1)]['ms_b1']),
+              ms_b10=agg[(140, 1)]['ms_b10'], ms_b1=agg[(140, 1)]['ms_b1'],
+              **at_b70(agg[(70, 1)])),
         entry('cg_square_fused_ri', csrc + 'cg_square.cu',
               pallas + 'pallas_agg.py:91', sq[10], list(sq.values()),
               ms_b10=sq[10]['ms_b10'], ms_b1=sq[10]['ms_b1'],
               qm9_tau24_ms=sq[('qm9', 24)]['ms'],
-              qm9_tau24_bound_ms=sq[('qm9', 24)]['bound_ms']),
+              qm9_tau24_bound_ms=sq[('qm9', 24)]['bound_ms'],
+              **at_b70(sq[('b70', 10)])),
         entry('cg_aggregate_edge_fused_ri_bwd', csrc + 'cg_aggregate_bwd.cu',
               pallas + 'pallas_agg.py:392', agg_bwd[(140, 5)],
-              list(agg_bwd.values())),
+              list(agg_bwd.values()), **at_b70(agg_bwd[(70, 5)]),
+              level0_ms=agg_bwd[(140, 1)]['ms'],
+              **at_b70(agg_bwd[(70, 1)], 'level0_')),
         entry('cg_square_fused_ri_bwd', csrc + 'cg_square_bwd.cu',
               pallas + 'pallas_agg.py:132', sq_bwd[10], list(sq_bwd.values()),
               qm9_tau24_ms=sq_bwd[('qm9', 24)]['ms'],
-              qm9_tau24_bound_ms=sq_bwd[('qm9', 24)]['bound_ms']),
+              qm9_tau24_bound_ms=sq_bwd[('qm9', 24)]['bound_ms'],
+              **at_b70(sq_bwd[('b70', 10)])),
         entry('cg_contract_ri', csrc + 'cg_product.cu',
               pallas + 'pallas_cg.py:40', contract_main[0],
               [f for f, _b in contract.values()],
@@ -1975,7 +2520,10 @@ def main() -> int:
                       'solvation_training': solv_training,
                       'scaffold_training': scaf_training,
                       'qm9_training': qm9_training,
-                      'covariance': covariance}))
+                      'covariance': covariance,
+                      'b70_kernels': {k: dict(b140=v[0], b70=v[1])
+                                      for k, v in b70.items()},
+                      'data_parallel': data_parallel}))
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

@@ -21,6 +21,7 @@ clip_by_global_norm followed by adam or amsgrad, written out (see
 from __future__ import annotations
 
 import logging
+import os
 import time
 from typing import Callable, Dict, Iterable, NamedTuple, Optional, Tuple
 
@@ -137,12 +138,17 @@ def make_optimizer(config: PPOConfig, agent: nn.Module) -> Optimizer:
 
 
 def make_loss_fn(agent: nn.Module, config: PPOConfig) -> Callable:
-    """loss_fn(obs, act, old_logp, adv, ret, weights) -> (loss, info) at the
-    agent's current parameters; info values are detached."""
+    """loss_fn(obs, act, old_logp, adv, ret, weights, norm=None) ->
+    (loss, info) at the agent's current parameters; info values are
+    detached. The weights are divided by `norm`, by default
+    max(sum of weights, 1): a data-parallel rank's chunk of a minibatch
+    passes the whole minibatch's."""
 
-    def loss_fn(obs, act, old_logp, adv, ret, weights):
+    def loss_fn(obs, act, old_logp, adv, ret, weights, norm=None):
         logp, ent, v = agent.evaluate(obs, act)
-        w = weights / weights.sum().clamp(min=1.0)
+        if norm is None:
+            norm = weights.sum().clamp(min=1.0)
+        w = weights / norm
         ratio = torch.exp(logp - old_logp)
         obj = ratio * adv
         clipped_obj = ratio.clamp(1 - config.clip_ratio,
@@ -166,22 +172,39 @@ def make_loss_fn(agent: nn.Module, config: PPOConfig) -> Callable:
 
 
 def make_train_fn(agent: nn.Module, optimizer: Optimizer, config: PPOConfig,
-                  num_samples: int) -> Callable:
+                  num_samples: int, mesh=None) -> Callable:
     """Returns train(data, generator) -> info, which updates the agent's
     parameters and the optimizer state in place. num_samples = T * B.
 
     info holds the losses of the last epoch that stepped, its grad_norm,
     num_opt_steps, and num_grad_passes: the epochs whose gradients were
-    computed (the steps, plus one when the KL stop fired)."""
+    computed (the steps, plus one when the KL stop fired).
+
+    With a `mesh` (parallel/mesh.py) every rank holds the same global
+    `data`: rank 0 draws each epoch's permutation and broadcasts it, rank r
+    runs the r-th of W contiguous chunks of each minibatch (normalized by
+    the whole minibatch's weight sum), and the epoch's summed gradients and
+    loss sums are all-reduced (SUM) in one collective before the KL check,
+    so that every rank takes the same decision and the same step."""
     loss_fn = make_loss_fn(agent, config)
     params = optimizer.params
     mb = min(config.mini_batch_size, num_samples)
     num_batches = -(-num_samples // mb)
     pad = num_batches * mb - num_samples
 
+    def permutation(generator, device):
+        if mesh is not None and mesh.rank != 0:
+            perm = torch.empty(num_samples, dtype=torch.int64, device=device)
+        else:
+            perm = torch.randperm(num_samples, generator=generator,
+                                  device=device)
+        if mesh is not None:
+            mesh.broadcast_([perm])
+        return perm
+
     def epoch_grads(data, generator):
         device = data['adv'].device
-        perm = torch.randperm(num_samples, generator=generator, device=device)
+        perm = permutation(generator, device)
         # pad with arbitrary (weight-0) indices so every batch has size mb
         idx = (torch.cat([perm, perm[:pad]]) if pad else perm).reshape(
             num_batches, mb)
@@ -192,14 +215,27 @@ def make_train_fn(agent: nn.Module, optimizer: Optimizer, config: PPOConfig,
             p.grad = None
         info_sum = dict.fromkeys(INFO_KEYS, 0.0)
         for b in range(num_batches):
-            i = idx[b]
+            i, w = idx[b], weights[b]
+            norm = w.sum().clamp(min=1.0)
+            if mesh is not None:
+                i, w = (torch.tensor_split(x, mesh.world_size)[mesh.rank]
+                        for x in (i, w))
+                if not len(i):   # fewer samples in a minibatch than ranks
+                    continue
             loss, info = loss_fn(data['obs'].map(lambda x: x[i]),
                                  data['act'][i], data['logp'][i],
-                                 data['adv'][i], data['ret'][i], weights[b])
+                                 data['adv'][i], data['ret'][i], w, norm)
             loss.backward()   # sums into .grad over the epoch's minibatches
             info_sum = {k: info_sum[k] + info[k] for k in INFO_KEYS}
         grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
                  for k, p in params.items()}
+        if mesh is not None:
+            sums = torch.stack([torch.as_tensor(info_sum[k], device=device)
+                                for k in INFO_KEYS])
+            *reduced, sums = mesh.all_reduce_sum(list(grads.values())
+                                                 + [sums])
+            grads = dict(zip(grads, reduced))
+            info_sum = dict(zip(INFO_KEYS, sums))
         return grads, {k: v / num_batches for k, v in info_sum.items()}
 
     def train(data, generator: torch.Generator) -> Dict[str, float]:
@@ -266,6 +302,25 @@ def eval_rollout_size(num_eval_episodes: int, eval_sample_k: int,
     return episodes, episodes * (canvas_size + 1)
 
 
+def start_rollouts(envs: MolecularEnv, num_envs: int, optimizer: Optimizer,
+                   seed: int, mesh=None
+                   ) -> Tuple[object, torch.Generator]:
+    """(env states, generator) of the calling rank at the start of training:
+    its generator, seeded with `seed` (rank r > 0 of a mesh: with
+    mesh.rank_seed(seed)), and the initial states of its envs drawn from it
+    (all `num_envs`, or its shard of them); with a mesh, rank 0's parameters
+    and optimizer state then go to every replica. batch_ppo and
+    parallel.mesh.make_dp_ppo_iteration start here."""
+    device = next(iter(optimizer.params.values())).device
+    generator = torch.Generator(device=device).manual_seed(
+        seed if mesh is None else mesh.rank_seed(seed))
+    states = envs.init_states(
+        num_envs if mesh is None else mesh.shard(num_envs), generator)
+    if mesh is not None:
+        mesh.broadcast_optimizer_(optimizer)
+    return states, generator
+
+
 def batch_ppo(
     envs: MolecularEnv,
     eval_envs: Optional[MolecularEnv],
@@ -287,6 +342,8 @@ def batch_ppo(
     save_eval_rollout: bool = True,
     info_saver=None,
     seed: int = 0,
+    profile_dir: Optional[str] = None,
+    mesh=None,
     host_loop_calculator=None,
     host_distance_penalty: float = 0.0,
     host_reward_timer=None,
@@ -295,7 +352,20 @@ def batch_ppo(
     """Top-level PPO loop: alternate the rollout and the multi-epoch update
     on the agent's device, with JSONL metrics, periodic evaluation and
     checkpointing on the host. Returns the trained agent and its optimizer.
-    Data parallelism (the JAX loop's `mesh`) is ROADMAP.md Queue 2 item 8.
+
+    With a `mesh` (parallel/mesh.py) this runs in one data-parallel rank:
+    it steps envs [r * B / W, (r + 1) * B / W) from its own generator (rank
+    0's seeded with `seed`, so W = 1 computes what mesh=None does, bit for
+    bit), starts from rank 0's parameters and optimizer state, gathers every
+    rollout into the global trajectory, and runs the update of
+    make_train_fn(mesh=...). Only a writer rank evaluates and writes: the
+    caller passes eval_envs, the savers, the model handler and profile_dir
+    on writer ranks only. A writer's `reward_time` and `recomputes` are its
+    own rollout's.
+
+    `profile_dir` traces iteration 1 (the second, after the first's warm-up)
+    with torch.profiler, the host and (on a card) the device, into
+    `{profile_dir}/iteration-1.trace.json` (Chrome's trace format).
 
     A host reward runs in the env's step (the env's reward function is a
     `make_host_reward`) unless `host_loop_calculator` is given: then the
@@ -328,7 +398,8 @@ def batch_ppo(
     rollout_fn, transport = _make_rollout(
         envs, agent, steps_per_env, False, host_loop_calculator,
         host_distance_penalty)
-    train_fn = make_train_fn(agent, optimizer, config, num_steps_per_iter)
+    train_fn = make_train_fn(agent, optimizer, config, num_steps_per_iter,
+                             mesh=mesh)
 
     eval_rollout_fn = None
     if eval_envs is not None:
@@ -338,8 +409,7 @@ def batch_ppo(
             eval_envs, agent, eval_steps, eval_sample_k == 0,
             host_loop_calculator, host_distance_penalty)[0]
 
-    generator = torch.Generator(device=device).manual_seed(seed)
-    states = envs.init_states(num_envs, generator)
+    states, generator = start_rollouts(envs, num_envs, optimizer, seed, mesh)
     eval_states = (eval_envs.init_states(num_eval_envs, generator)
                    if eval_envs is not None else None)
 
@@ -350,6 +420,13 @@ def batch_ppo(
     for iteration in range(num_iterations):
         logging.info(f'Iteration: {iteration}/{num_iterations - 1}, '
                      f'steps: {total_num_steps}')
+        profiler = None
+        if profile_dir and iteration == 1:
+            profiler = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU] + (
+                    [torch.profiler.ProfilerActivity.CUDA]
+                    if device.type == 'cuda' else []))
+            profiler.start()
 
         # -- training rollout
         _sync(device)
@@ -358,6 +435,8 @@ def batch_ppo(
                      if host_reward_timer is not None else None)
         train_info = {'transport': transport}
         states, traj = rollout_fn(agent, states, generator)
+        if mesh is not None:
+            traj = mesh.gather_trajectory(traj)
         returns, lengths = _episodes(traj, config.gamma)
         train_info.update(time=time.perf_counter() - t0,
                           **_episode_info(returns, lengths))
@@ -393,6 +472,13 @@ def batch_ppo(
         if info_saver:
             opt_info['total_num_steps'] = total_num_steps
             info_saver.save(opt_info, name='opt')
+
+        if profiler is not None:
+            profiler.stop()
+            os.makedirs(profile_dir, exist_ok=True)
+            path = os.path.join(profile_dir, 'iteration-1.trace.json')
+            profiler.export_chrome_trace(path)
+            logging.info(f'Wrote profiler trace to {path}')
 
         total_num_steps += num_steps_per_iter
 

@@ -2,10 +2,9 @@
 the same names and defaults, so that a command of the JAX package means the
 same thing here. `--device` picks `cuda` (the default) or `cpu`.
 
-Choices the port does not run yet are still accepted by the parser, so that
+Choices the port does not run are still accepted by the parser, so that
 such a command is recognized, and then refused by `check_supported` with the
-ROADMAP.md item that will bring them; none is ever ignored or replaced by
-another."""
+reason; none is ever ignored or replaced by another."""
 from __future__ import annotations
 
 import argparse
@@ -33,8 +32,10 @@ def build_default_argparser() -> argparse.ArgumentParser:
     parser.add_argument('--device', help='select device', type=str,
                         choices=['cuda', 'cpu'], default='cuda')
     parser.add_argument('--num_devices',
-                        help='number of devices for data parallelism (not '
-                             'ported: 0 or 1)', type=int, default=0)
+                        help='data-parallel ranks over all processes, one '
+                             'card each (with --device=cpu: gloo processes '
+                             'on the CPU); 0 or 1: one process',
+                        type=int, default=0)
 
     # Spaces
     parser.add_argument('--canvas_size',
@@ -174,9 +175,9 @@ def build_default_argparser() -> argparse.ArgumentParser:
                         type=str, default='none',
                         choices=['none', 'train', 'eval', 'all'])
     parser.add_argument('--tensorboard', help='also write TensorBoard scalars '
-                        '(not ported)', action='store_true', default=False)
-    parser.add_argument('--profile', help='profiler trace of one training '
-                        'iteration (not ported)',
+                        '(to {log_dir}/tb)', action='store_true', default=False)
+    parser.add_argument('--profile', help='torch.profiler trace of the second '
+                        'training iteration (to {log_dir}/profile)',
                         action='store_true', default=False)
     parser.add_argument('--agg_backend',
                         help='backend of the covariant edge aggregation: '
@@ -185,7 +186,10 @@ def build_default_argparser() -> argparse.ArgumentParser:
                         type=str, default='auto',
                         choices=['auto', 'einsum', 'pallas'])
     parser.add_argument('--multihost',
-                        help='multi-host data parallelism (not ported)',
+                        help='data parallelism over several processes: '
+                             'MOLGYM_COORDINATOR_ADDRESS, '
+                             'MOLGYM_NUM_PROCESSES and MOLGYM_PROCESS_ID '
+                             'place this one (else torchrun\'s variables)',
                         action='store_true', default=False)
 
     return parser
@@ -193,16 +197,9 @@ def build_default_argparser() -> argparse.ArgumentParser:
 
 def check_supported(config: dict) -> None:
     """Raises NotImplementedError for every option value the port does not
-    run yet, naming the ROADMAP.md item that will bring it."""
+    run (the bf16 encoder with an internal model; an agg_backend other than
+    auto), with the reason."""
     refused = []
-    if (config.get('num_devices') or 0) > 1 or config.get('multihost'):
-        refused.append('data parallelism (num_devices > 1, multihost; '
-                       'ROADMAP.md Queue 2 item 8)')
-    if config.get('tensorboard'):
-        refused.append('tensorboard (the metrics are JSON lines)')
-    if config.get('profile'):
-        refused.append('profile (chip_smoke.py and '
-                       'molgym_tpu_torch/profile_rollout.py profile the card)')
     if (config.get('model') in ('internal', 'mlp')
             and config.get('encoder_dtype', 'float32') != 'float32'):
         refused.append(f"encoder_dtype '{config['encoder_dtype']}' with model "

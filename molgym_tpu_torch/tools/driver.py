@@ -1,12 +1,13 @@
 """Experiment driver (counterpart of molgym_tpu/tools/driver.py): directories,
 logger, config snapshot, seeds, device, spaces, reward, model build or
-resume, and the PPO launch.
+resume, and the PPO launch, in one process or in data-parallel ranks.
 
 `arg_parser.check_supported` refuses every option the port does not run
 yet before anything is built."""
 from __future__ import annotations
 
 import logging
+import os
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -18,6 +19,8 @@ from molgym_tpu_torch.envs import reward as device_reward
 from molgym_tpu_torch.envs.environment import MolecularEnv
 from molgym_tpu_torch.envs.reward import RewardFn
 from molgym_tpu_torch.formula import string_to_formula
+from molgym_tpu_torch.parallel.mesh import (Mesh, check_devices, launch_from,
+                                            make_mesh, shard_size, spawn)
 from molgym_tpu_torch.rl.ppo import PPOConfig, batch_ppo, make_optimizer
 from molgym_tpu_torch.spaces import ObservationSpace, symbols_to_zs
 from molgym_tpu_torch.tools import util
@@ -134,22 +137,85 @@ def run_experiment(config: dict, env_builder: EnvBuilder = standard_envs,
     """Trains as `config` says and returns (agent, optimizer). `device`
     (else config['device']) is cuda unless it names the CPU; without a
     visible card, cuda raises. `solvation` subtracts the distance penalty
-    from every reward, in the env's step and in the pipelined transport."""
+    from every reward, in the env's step and in the pipelined transport.
+
+    With --num_devices > 1 or --multihost the run is data-parallel
+    (parallel/mesh.py): this process spawns its ranks, one card each on
+    cuda (ValueError when there are too few), gloo processes on the CPU,
+    and returns the trained agent and optimizer of its first rank, rebuilt
+    on `device` (cuda: cuda:0, where that rank ran); a rank that torchrun
+    started runs here. Every entry point that calls this gets the
+    options."""
     check_supported(config)
-    device = resolve_device(device if device is not None
-                            else config.get('device'))
+    device = device if device is not None else config.get('device')
+    launch = launch_from(config.get('num_devices'), config.get('multihost'))
+    if launch is None:
+        return _train(config, env_builder, resolve_device(device), solvation)
+    shard_size(config['num_envs'], launch.world_size)
+    if launch.local_ranks == 0:
+        return _train_rank(config, env_builder, device, solvation,
+                           launch.world_size)
+    check_devices(launch.local_ranks, device)
+    state = spawn(_spawned_rank, launch,
+                  (config, env_builder, device, solvation, launch.world_size))
+    space = ObservationSpace(canvas_size=config['canvas_size'],
+                             zs=symbols_to_zs(config['symbols']))
+    agent = build_model(config, space, device=resolve_device(device))
+    agent.load_state_dict(state[0]['model'])
+    optimizer = make_optimizer(ppo_config_from(config), agent)
+    optimizer.load_state_dict(state[0]['optimizer'])
+    return agent, optimizer
+
+
+def _train_rank(config, env_builder, device, solvation, world_size):
+    with make_mesh(world_size, device) as mesh:
+        return _train(config, env_builder, mesh.device, solvation, mesh)
+
+
+def _cpu(obj):
+    if isinstance(obj, dict):
+        return {k: _cpu(v) for k, v in obj.items()}
+    return obj.detach().cpu() if isinstance(obj, torch.Tensor) else obj
+
+
+def _spawned_rank(config, env_builder, device, solvation, world_size):
+    """A spawned rank's run; the first local rank returns its trained
+    state on the CPU."""
+    agent, optimizer = _train_rank(config, env_builder, device, solvation,
+                                   world_size)
+    if int(os.environ['LOCAL_RANK']):
+        return None
+    return {'model': _cpu(agent.state_dict()),
+            'optimizer': _cpu(optimizer.state_dict())}
+
+
+def _train(config: dict, env_builder: EnvBuilder, device: torch.device,
+           solvation: bool, mesh: Optional[Mesh] = None):
+    """The run on `device`, in one process or in a data-parallel rank of
+    `mesh`, where only a writer rank makes directories, logs to a file,
+    evaluates and writes rollouts, metric streams, checkpoints and traces
+    (rank-tagged rollouts under --multihost) and every rank reads the
+    checkpoint it resumes from."""
+    writer = mesh is None or mesh.writer
     # a host reward's calculator first: its library builds, or a missing
     # backend (scine) raises, before anything is written
     reward_fn, host_calc = make_reward_fn(config, solvation=solvation)
-    util.create_directories([config['log_dir'], config['model_dir'],
-                             config['data_dir'], config['results_dir']])
     tag = util.get_tag(config)
-    util.setup_logger(config, directory=config['log_dir'], tag=tag)
-    util.save_config(config, directory=config['log_dir'], tag=tag)
+    if writer:
+        util.create_directories([config['log_dir'], config['model_dir'],
+                                 config['data_dir'], config['results_dir']])
+        util.setup_logger(config, directory=config['log_dir'], tag=tag)
+        util.save_config(config, directory=config['log_dir'], tag=tag)
+    else:
+        util.setup_logger(dict(config, log_level='WARNING'), directory=None,
+                          tag=tag)
     util.set_seeds(config['seed'])
     logging.info(f'Device: {device}' + (
         f' ({torch.cuda.get_device_name(device)})' if device.type == 'cuda'
         else ''))
+    if mesh is not None:
+        logging.info(f'Data-parallel rank {mesh.rank} of {mesh.world_size} '
+                     f'({mesh.backend}), process {mesh.process}')
 
     observation_space = ObservationSpace(canvas_size=config['canvas_size'],
                                          zs=symbols_to_zs(config['symbols']))
@@ -175,36 +241,49 @@ def run_experiment(config: dict, env_builder: EnvBuilder = standard_envs,
             optimizer.load_state_dict(state['optimizer'])
 
     save_mode = config.get('save_rollouts', 'none')
-    rollout_saver = (util.RolloutSaver(directory=config['data_dir'], tag=tag)
-                     if save_mode != 'none' else None)
-    info_saver = util.InfoSaver(directory=config['results_dir'], tag=tag)
+    rollout_saver = (util.RolloutSaver(
+        directory=config['data_dir'], tag=tag,
+        rank=mesh.process if mesh is not None and config.get('multihost')
+        else None) if writer and save_mode != 'none' else None)
+    info_saver = (util.InfoSaver(
+        directory=config['results_dir'], tag=tag,
+        tensorboard_dir=(os.path.join(config['log_dir'], 'tb')
+                         if config.get('tensorboard') else None))
+        if writer else None)
 
-    result = batch_ppo(
-        train_env, eval_env, agent,
-        optimizer=optimizer,
-        num_envs=config['num_envs'],
-        num_eval_envs=1,
-        config=ppo_config,
-        start_num_steps=start_num_steps,
-        max_num_steps=config['max_num_steps'],
-        num_steps_per_iter=config['num_steps_per_iter'],
-        save_freq=config['save_freq'],
-        eval_freq=config['eval_freq'],
-        # one greedy episode per eval formula by default
-        num_eval_episodes=(config.get('num_eval_episodes')
-                           or int(eval_env.formulas.shape[0])),
-        eval_sample_k=config.get('eval_sample_k', 0) or 0,
-        model_handler=model_handler,
-        rollout_saver=rollout_saver,
-        save_train_rollout=save_mode in ('train', 'all'),
-        save_eval_rollout=save_mode in ('eval', 'all'),
-        info_saver=info_saver,
-        seed=config['seed'],
-        host_loop_calculator=host_loop_calculator(
-            config.get('host_reward_mode', 'auto'), host_calc),
-        host_distance_penalty=distance_penalty(config, solvation),
-        host_reward_timer=host_calc,
-    )
+    try:
+        result = batch_ppo(
+            train_env, eval_env if writer else None, agent,
+            optimizer=optimizer,
+            num_envs=config['num_envs'],
+            num_eval_envs=1,
+            config=ppo_config,
+            start_num_steps=start_num_steps,
+            max_num_steps=config['max_num_steps'],
+            num_steps_per_iter=config['num_steps_per_iter'],
+            save_freq=config['save_freq'],
+            eval_freq=config['eval_freq'],
+            # one greedy episode per eval formula by default
+            num_eval_episodes=(config.get('num_eval_episodes')
+                               or int(eval_env.formulas.shape[0])),
+            eval_sample_k=config.get('eval_sample_k', 0) or 0,
+            model_handler=model_handler if writer else None,
+            rollout_saver=rollout_saver,
+            save_train_rollout=save_mode in ('train', 'all'),
+            save_eval_rollout=save_mode in ('eval', 'all'),
+            info_saver=info_saver,
+            seed=config['seed'],
+            profile_dir=(os.path.join(config['log_dir'], 'profile')
+                         if config.get('profile') and writer else None),
+            mesh=mesh,
+            host_loop_calculator=host_loop_calculator(
+                config.get('host_reward_mode', 'auto'), host_calc),
+            host_distance_penalty=distance_penalty(config, solvation),
+            host_reward_timer=host_calc,
+        )
+    finally:
+        if info_saver is not None:
+            info_saver.close()
     if host_calc is not None:
         logging.info(f'Host reward pool stats: {host_calc.pool_stats()}')
     return result

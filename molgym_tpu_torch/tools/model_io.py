@@ -2,7 +2,13 @@
 `{tag}_steps-{n}.model`, the previous one deleted unless `keep`, resume by
 the step count in the name. A checkpoint is one `torch.save` file holding the
 model's state_dict, the optimizer's state (rl.ppo.Optimizer.state_dict) and
-the step count."""
+the step count.
+
+Data-parallel runs save per process, as the JAX package's --multihost does:
+the replicas hold the same state, so only a writer rank saves a full copy
+(rank 0; under --multihost the first rank of each process, into that
+process's own --model_dir), and every rank reads the checkpoint it resumes
+from."""
 from __future__ import annotations
 
 import logging

@@ -1,8 +1,9 @@
 """Host-side utilities of the experiment driver (counterpart of
 molgym_tpu/tools/util.py), with the same artifact formats: JSON-lines metric
 streams `{tag}_{train|opt|eval}.txt`, pickled rollouts
-`{tag}_steps-{n}_{info}.pkl`, the run tag `{name}_run-{seed}`, a JSON config
-snapshot per run and a stream + file logger."""
+`{tag}_steps-{n}[_rank-{r}]_{info}.pkl`, the run tag `{name}_run-{seed}`, a
+JSON config snapshot per run, a stream + file logger and an optional
+TensorBoard mirror of the metric streams."""
 from __future__ import annotations
 
 import json
@@ -10,7 +11,7 @@ import logging
 import os
 import pickle
 import sys
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -33,7 +34,9 @@ def create_directories(directories: List[str]) -> None:
         os.makedirs(directory, exist_ok=True)
 
 
-def setup_logger(config: dict, directory: str, tag: str) -> None:
+def setup_logger(config: dict, directory: Optional[str], tag: str) -> None:
+    """Logs at config's level to stdout and to `{directory}/{tag}.log`
+    (stdout only without a directory)."""
     logger = logging.getLogger()
     logger.setLevel(config.get('log_level', 'INFO'))
     for handler in list(logger.handlers):
@@ -45,9 +48,10 @@ def setup_logger(config: dict, directory: str, tag: str) -> None:
     ch = logging.StreamHandler(stream=sys.stdout)
     ch.setFormatter(formatter)
     logger.addHandler(ch)
-    fh = logging.FileHandler(os.path.join(directory, tag + '.log'))
-    fh.setFormatter(formatter)
-    logger.addHandler(fh)
+    if directory is not None:
+        fh = logging.FileHandler(os.path.join(directory, tag + '.log'))
+        fh.setFormatter(formatter)
+        logger.addHandler(fh)
 
 
 def set_seeds(seed: int) -> None:
@@ -58,27 +62,44 @@ def set_seeds(seed: int) -> None:
 
 
 class RolloutSaver:
-    """Pickles rollouts (host numpy copies) as `{tag}_steps-{n}_{info}.pkl`."""
+    """Pickles rollouts (host numpy copies) as `{tag}_steps-{n}_{info}.pkl`,
+    `{tag}_steps-{n}_rank-{rank}_{info}.pkl` with a rank (each process of a
+    --multihost run; tools/analysis.py parses the tag)."""
 
-    def __init__(self, directory: str, tag: str) -> None:
+    def __init__(self, directory: str, tag: str,
+                 rank: Optional[int] = None) -> None:
         self.directory = directory
         self.tag = tag
+        self.rank = rank
 
     def save(self, obj: object, num_steps: int, info: str) -> None:
+        rank = '' if self.rank is None else f'_rank-{self.rank}'
         path = os.path.join(self.directory,
-                            f'{self.tag}_steps-{num_steps}_{info}.pkl')
+                            f'{self.tag}_steps-{num_steps}{rank}_{info}.pkl')
         logging.debug(f'Saving rollout: {path}')
         with open(path, mode='wb') as f:
             pickle.dump(obj, f)
 
 
 class InfoSaver:
-    """Appends JSON lines to `{tag}_{name}.txt` (the JAX package's optional
-    TensorBoard mirror is not ported)."""
+    """Appends JSON lines to `{tag}_{name}.txt`. With a `tensorboard_dir`
+    it also mirrors each record's finite numbers as scalars `{name}/{key}`
+    at step total_num_steps through torch.utils.tensorboard, into
+    `{tensorboard_dir}/{tag}`; without the tensorboard package it warns and
+    writes JSON lines only, as the JAX package does without tensorboardX."""
 
-    def __init__(self, directory: str, tag: str) -> None:
+    def __init__(self, directory: str, tag: str,
+                 tensorboard_dir: Optional[str] = None) -> None:
         self.directory = directory
         self.tag = tag
+        self._tb = None
+        if tensorboard_dir:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError:
+                logging.warning('tensorboard not available; JSONL only')
+            else:
+                self._tb = SummaryWriter(os.path.join(tensorboard_dir, tag))
 
     def save(self, obj: dict, name: str) -> None:
         path = os.path.join(self.directory, f'{self.tag}_{name}.txt')
@@ -88,6 +109,29 @@ class InfoSaver:
         with open(path, mode='a') as f:
             f.write(json.dumps(clean))
             f.write('\n')
+        if self._tb is not None:
+            step = clean.get('total_num_steps', 0)
+            for key, value in clean.items():
+                if (key != 'total_num_steps'
+                        and isinstance(value, (int, float))
+                        and np.isfinite(value)):
+                    self._tb.add_scalar(f'{name}/{key}', value, step)
+            self._tb.flush()
+
+    def close(self) -> None:
+        if self._tb is not None:
+            self._tb.close()
+
+
+class MemoryInfoSaver:
+    """An InfoSaver that keeps the records in memory, as (name, record)
+    pairs in `lines`, for a caller of batch_ppo that reads them back."""
+
+    def __init__(self) -> None:
+        self.lines: List[tuple] = []
+
+    def save(self, obj: dict, name: str) -> None:
+        self.lines.append((name, dict(obj)))
 
 
 def count_params(module: nn.Module) -> int:

@@ -2,9 +2,11 @@
 run of two PPO iterations through `run_experiment` with its JSON-lines
 streams and checkpoint, a resume from that checkpoint, the same for the
 internal (SchNet) and the mlp models, an iteration of each host reward and
-transport, and the refusal of every option the port does not run yet."""
+transport, the options of data parallelism, TensorBoard and the profiler,
+and the refusal of every option the port does not run."""
 import json
 import pickle
+import sys
 
 import numpy as np
 import pytest
@@ -13,9 +15,11 @@ import torch
 from molgym_tpu.tools.arg_parser import \
     build_default_argparser as jax_argparser
 from molgym_tpu_torch import run, run_stochastic
+from molgym_tpu_torch.parallel.mesh import free_port
 from molgym_tpu_torch.tools.arg_parser import (build_default_argparser,
                                                check_supported)
 from molgym_tpu_torch.tools.driver import run_experiment
+from molgym_tpu_torch.tools import util
 from molgym_tpu_torch.tools.model_io import ModelIO
 
 TINY = ['--name=tiny', '--formulas=H2O,OH2', '--canvas_size=3',
@@ -164,9 +168,7 @@ def test_run_stochastic_main_parses_the_cli(monkeypatch):
 
 
 @pytest.mark.parametrize('flag,match', [
-    ('--num_devices=4', 'Queue 2 item 8'), ('--multihost', 'Queue 2 item 8'),
-    ('--tensorboard', 'tensorboard'), ('--agg_backend=einsum', 'agg_backend'),
-    ('--profile', 'profile')])
+    ('--agg_backend=einsum', 'agg_backend')])
 def test_unported_options_are_refused(tmp_path, flag, match):
     config = _config(tmp_path, flag)
     with pytest.raises(NotImplementedError, match=match):
@@ -174,6 +176,64 @@ def test_unported_options_are_refused(tmp_path, flag, match):
     with pytest.raises(NotImplementedError, match=match):
         run_experiment(config, device='cpu')
     assert not (tmp_path / 'results').exists()
+
+
+@pytest.mark.parametrize('flag', ['--num_devices=4', '--multihost',
+                                  '--tensorboard', '--profile'])
+def test_options_once_refused_are_accepted_and_run(tmp_path, monkeypatch,
+                                                   flag):
+    """The four options the port refused before data parallelism run two
+    iterations of the tiny run: 4 gloo ranks of one env each; --multihost
+    as one process of one rank (the MOLGYM_* variables), its rollouts
+    tagged; the TensorBoard mirror; the profiler trace of iteration 1."""
+    if flag == '--multihost':
+        for key, value in (('COORDINATOR_ADDRESS',
+                            f'localhost:{free_port()}'),
+                           ('NUM_PROCESSES', '1'), ('PROCESS_ID', '0')):
+            monkeypatch.setenv(f'MOLGYM_{key}', value)
+    config = _config(tmp_path, '--num_steps=16', flag)
+    check_supported(config)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)   # spawned ranks divide this process's threads
+    try:
+        run_experiment(config, device='cpu')
+    finally:
+        torch.set_num_threads(threads)
+    opt = _lines(tmp_path / 'results' / 'tiny_run-1_opt.txt')
+    assert [r['total_num_steps'] for r in opt] == [0, 8]
+    assert all(r['num_opt_steps'] >= 1 for r in opt)
+    log = (tmp_path / 'log' / 'tiny_run-1.log').read_text()
+    rank = '_rank-0' if flag == '--multihost' else ''
+    assert {p.name for p in (tmp_path / 'data').iterdir()} == {
+        f'tiny_run-1_steps-{n}{rank}_{mode}.pkl'
+        for n, mode in ((0, 'train'), (8, 'train'), (8, 'eval'), (16, 'eval'))}
+    if flag == '--num_devices=4':
+        assert 'Data-parallel rank 0 of 4 (gloo), process 0' in log
+    elif flag == '--multihost':
+        assert 'Data-parallel rank 0 of 1 (gloo), process 0' in log
+    elif flag == '--tensorboard':
+        events = list((tmp_path / 'log' / 'tb' / 'tiny_run-1').iterdir())
+        assert len(events) == 1 and events[0].stat().st_size > 0
+        assert events[0].name.startswith('events.out.tfevents.')
+    else:
+        trace = json.loads((tmp_path / 'log' / 'profile' /
+                            'iteration-1.trace.json').read_text())
+        names = {e.get('name', '') for e in trace['traceEvents']}
+        assert any('aten::' in n for n in names)
+
+
+def test_tensorboard_falls_back_to_json_lines(tmp_path, monkeypatch, caplog):
+    """Without the tensorboard package the InfoSaver warns and writes JSON
+    lines only, as the JAX package does without tensorboardX."""
+    monkeypatch.setitem(sys.modules, 'torch.utils.tensorboard', None)
+    saver = util.InfoSaver(str(tmp_path), 'tag',
+                           tensorboard_dir=str(tmp_path / 'tb'))
+    assert 'tensorboard not available; JSONL only' in caplog.text
+    saver.save({'loss': np.float32(0.5), 'total_num_steps': 8}, name='opt')
+    saver.close()
+    assert _lines(tmp_path / 'tag_opt.txt') == [{'loss': 0.5,
+                                                  'total_num_steps': 8}]
+    assert not (tmp_path / 'tb').exists()
 
 
 @pytest.mark.parametrize('model', ['internal', 'mlp'])
