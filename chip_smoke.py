@@ -173,7 +173,31 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      iterations of molgym_tpu_torch.run --num_devices=2 over NCCL with
      finite records, a step in every update and a checkpoint of the right
      step count and optimizer count; with one card, a line saying it did
-     not run.
+     not run;
+ 14. the JAX package's trained checkpoints (the run-1 checkpoints of ten
+     experiments: stochastic, sf6_bf16, sf6_pm6, sf6_internal,
+     sf6_internal_pm6, solvation, scaffold_pm6, qm9_pm6, organics,
+     halides_pm6), each loaded through ModelIO.load from its experiments/
+     orbax path (the committed archive of molgym_tpu_torch/checkpoints,
+     its sha256 held against the directory's files, a round-1 layout
+     migrated): (a) its env, reward and agent built from the recorded
+     configuration at recorded width by the driver's builders, 8 envs
+     playing one greedy episode per formula on the card with exact launch
+     counts, the mean return within its test's gate of the CPU port's
+     value (TRAINED: 1e-4 for the internal agents, whose greedy act draws
+     nothing; a covariant agent's draw spread otherwise) and of the run's
+     last recorded eval, one gradient pass of log-prob, entropy and value
+     over the trajectory with exact launch counts and finite gradients,
+     and, with PM6, a sampled training rollout of the recorded envs and
+     steps through each transport, timed with the host reward's share;
+     over the ten, every f32 kernel's counters moved (#1-#7, forward and
+     backward), the encoder's bf16 ones for sf6_bf16 (and none of its f32
+     ones), only the fused head's for the internal agents; (b) the resume
+     of sf6pm6_run-1 (its archive keeps the optimizer state) through
+     molgym_tpu_torch.run --load_model at the recorded flags with
+     --num_steps=15400 and --host_reward_mode=loop: the checks of phase 7
+     (finite losses, exact launch counts, a checkpoint at 15,400 that loads
+     back equal) and the optimizer's count continued from the archive's.
 
 The line before the last two is {"kernels": [...]}, then the card's name and
 power limit, and the last line is {"ok": true, "device": {...}}.
@@ -986,11 +1010,14 @@ if __name__ == '__mp_main__' and os.environ.get(RANK_COUNTS_DIR):
 
 
 def run_training(dev, entry, build_parser, argv, iterations,
-                 transport='in_step', inspect=None, env=None):
+                 transport='in_step', inspect=None, env=None,
+                 load_model=None):
     """`iterations` PPO iterations of the run `argv` describes through the
     main of the module `entry` (`build_parser` makes its parser, for the
     configuration the checks read), from a checkpoint of random
-    weights written first, so that the initial weights are known; the launch
+    weights written first, so that the initial weights are known, or, with
+    `load_model`, resumed from that checkpoint (--load_model), whose
+    optimizer count the run must continue; the launch
     counts are zeroed just before and read just after, this process's and
     those of the data-parallel ranks the run spawns, added. Every training
     rollout must name `transport`, and a host reward's its reward_time.
@@ -1009,7 +1036,9 @@ def run_training(dev, entry, build_parser, argv, iterations,
 
     with tempfile.TemporaryDirectory() as tmp:
         argv = argv + [f'--{d}_dir={tmp}/{d}' for d in
-                       ('log', 'model', 'data', 'results')] + ['--load_latest']
+                       ('log', 'model', 'data', 'results')] + (
+            ['--load_latest'] if load_model is None
+            else [f'--load_model={load_model}'])
         config = vars(build_parser().parse_args(argv))
         util.create_directories([config['model_dir']])
         tag = util.get_tag(config)
@@ -1017,7 +1046,15 @@ def run_training(dev, entry, build_parser, argv, iterations,
                                  symbols_to_zs(config['symbols']))
         torch.manual_seed(SEED + 1)
         init = build_model(config, space, device=dev)
-        ModelIO(config['model_dir'], tag).save(init, num_steps=0)
+        start_count = 0
+        if load_model is None:
+            ModelIO(config['model_dir'], tag).save(init, num_steps=0)
+        else:
+            state, _steps = ModelIO(config['model_dir'], tag).load(
+                load_model, dev, family=config['model'],
+                template=init.state_dict())
+            init.load_state_dict(state['model'])
+            start_count = state['optimizer']['count']
         before = {k: v.clone() for k, v in init.state_dict().items()}
 
         rank_counts = os.path.join(tmp, 'rank_counts')
@@ -1066,6 +1103,10 @@ def run_training(dev, entry, build_parser, argv, iterations,
                                      f'{transport} transport')
         if min(r['num_opt_steps'] for r in opt) < 1:
             raise AssertionError(f'an update took no step: {opt}')
+        if optimizer.count != start_count + sum(r['num_opt_steps']
+                                                for r in opt):
+            raise AssertionError(f'optimizer count {optimizer.count} after '
+                                 f'{start_count} and the updates {opt}')
         after = agent.state_dict()
         if all(torch.equal(before[k], v) for k, v in after.items()):
             raise AssertionError('training changed no parameter')
@@ -1119,7 +1160,8 @@ def run_training(dev, entry, build_parser, argv, iterations,
                 return_mean=[r['return_mean'] for r in train],
                 eval_return_mean=[r['return_mean'] for r in evals],
                 recomputes=recomputes,
-                reward_time_s=[r.get('reward_time') for r in train], **extra)
+                reward_time_s=[r.get('reward_time') for r in train],
+                start_count=start_count, count=optimizer.count, **extra)
 
 
 def run_rollout(dev, env, agent, build, max_episode_len):
@@ -2083,6 +2125,275 @@ def run_data_parallel(device='cuda', argv=DP_RUN):
     return res
 
 
+# phase 14: the JAX package's trained run-1 checkpoints of ten experiments,
+# loaded through ModelIO.load from their experiments/ orbax paths (read from
+# the committed archives of molgym_tpu_torch/checkpoints): experiment ->
+# its run's tag, the CPU port's greedy mean over TRAINED_ENVS envs (the
+# protocol of tests/test_torch_driver_checkpoints.py, which gives the
+# value that `test` measures) and `gate`, that test's tolerance on it: an
+# internal agent's greedy act draws nothing; a covariant agent's greedy
+# distance is the best of 128 draws, which the card makes from another
+# generator than the CPU. `recorded_gate` bounds the distance to the run's
+# last recorded eval (the nearer formula's mean where that eval played one
+# formula's episode).
+_CKPT_TEST = 'tests/test_torch_checkpoint.py'
+_HOST_TEST = 'tests/test_torch_host_rollout.py'
+_DRIVER_TEST = 'tests/test_torch_driver_checkpoints.py'
+TRAINED = {
+    'stochastic': dict(tag='stoch_run-1', cpu=1.2443466, gate=0.02,
+                       recorded_gate=0.02, test=_CKPT_TEST),
+    'sf6_bf16': dict(tag='sf6bf16_run-1', cpu=1.5432367, gate=0.05,
+                     recorded_gate=0.05, test=_CKPT_TEST),
+    'sf6_pm6': dict(tag='sf6pm6_run-1', cpu=0.6829187, gate=5e-4,
+                    recorded_gate=5e-4, test=_HOST_TEST),
+    'sf6_internal': dict(tag='sf6int_run-1', cpu=0.9733276, gate=1e-4,
+                         recorded_gate=0.01, test=_CKPT_TEST),
+    'sf6_internal_pm6': dict(tag='sf6int_pm6_run-1', cpu=0.6664897,
+                             gate=1e-4, recorded_gate=5e-4, test=_HOST_TEST),
+    'solvation': dict(tag='solv_run-1', cpu=0.8467106, gate=1e-4,
+                      recorded_gate=0.01, test=_DRIVER_TEST),
+    'scaffold_pm6': dict(tag='scafpm6_run-1', cpu=0.5257388, gate=1e-4,
+                         recorded_gate=0.01, test=_DRIVER_TEST),
+    'qm9_pm6': dict(tag='qm9pm6_run-1', cpu=0.4011654, gate=0.005,
+                    recorded_gate=0.005, test=_DRIVER_TEST),
+    'organics': dict(tag='organics_run-1', cpu=1.0234561, gate=0.02,
+                     recorded_gate=0.02, test=_DRIVER_TEST),
+    'halides_pm6': dict(tag='halo_run-1', cpu=0.5729221, gate=1e-3,
+                        recorded_gate=1e-3, test=_DRIVER_TEST),
+}
+TRAINED_ENVS = 8
+TRAINED_SEED = 1
+# 14b: experiments/sf6_pm6/logs/sf6pm6_run-1.json resumed from its 15,120
+# steps for 2 iterations, with the pipelined host loop
+SF6_PM6_RESUME = [a for a in SF6_PM6 if not a.startswith('--num_steps=')] + [
+    '--num_steps=15400']
+
+
+def trained_checkpoint(experiment):
+    """The experiments/ orbax path of the run-1 checkpoint of
+    `experiment`."""
+    import glob
+    paths = glob.glob(os.path.join(EXPERIMENTS, experiment, 'models',
+                                   TRAINED[experiment]['tag']
+                                   + '_steps-*.model'))
+    if len(paths) != 1:
+        raise AssertionError(f'{experiment}: checkpoints {paths}')
+    return paths[0]
+
+
+def trained_config(experiment):
+    """The run's recorded configuration, its asset paths absolute."""
+    directory = os.path.join(EXPERIMENTS, experiment)
+    tag = TRAINED[experiment]['tag']
+    with open(os.path.join(directory, 'logs', tag + '.json')) as f:
+        config = json.load(f)
+    for key in ('initial_structure', 'scaffold'):
+        if config.get(key):
+            config[key] = os.path.join(directory, config[key])
+    return config
+
+
+def episode_returns(rewards, terminals, k):
+    """[B, k] returns of each env's first k episodes."""
+    episode = np.cumsum(terminals, axis=0) - terminals   # episode of a step
+    if not (terminals.sum(axis=0) >= k).all():
+        raise AssertionError(f'an env ended fewer than {k} episodes')
+    return np.stack([(rewards * (episode == i)).sum(axis=0)
+                     for i in range(k)], axis=1)
+
+
+def evaluate_trained(dev, experiment):
+    """14a for one run: its env (the driver's builder's evaluation env),
+    reward (make_reward_fn, the solvation penalty included) and agent from
+    the recorded configuration, the weights through ModelIO.load of the
+    orbax path; TRAINED_ENVS envs play as many greedy episodes as the run
+    has formulas, with the launch counts zeroed just before and read just
+    after (exact: the rollout's forwards); the mean return within `gate`
+    of the CPU port's and `recorded_gate` of the recorded eval; then one
+    gradient pass of log-prob, entropy and value over the trajectory, its
+    launch counts exact and its gradients finite; with a host reward, a
+    sampled rollout of the recorded run's envs and steps through each
+    transport, from generators of their own (other draws: the energy
+    cache meets new geometries), timed with the host reward's share."""
+    from molgym_tpu_torch import run_scaffold, run_solvation, run_stochastic
+    from molgym_tpu_torch.ops import fused_agg
+    from molgym_tpu_torch.rl import rollout as rl
+    from molgym_tpu_torch.spaces import ObservationSpace, symbols_to_zs
+    from molgym_tpu_torch.tools.driver import (distance_penalty,
+                                               make_reward_fn, standard_envs)
+    from molgym_tpu_torch.tools.model_io import ModelIO
+    from molgym_tpu_torch.tools.model_util import build_model
+
+    run = TRAINED[experiment]
+    config = trained_config(experiment)
+    solvation = experiment == 'solvation'
+    builder = {'stochastic': run_stochastic.stochastic_envs,
+               'solvation': run_solvation.solvation_envs,
+               'scaffold_pm6': run_scaffold.scaffold_envs}.get(experiment,
+                                                               standard_envs)
+    space = ObservationSpace(config['canvas_size'],
+                             symbols_to_zs(config['symbols']))
+    reward_fn, host_calc = make_reward_fn(config, solvation=solvation)
+    _train_env, env = builder(config, space, reward_fn, dev)
+    agent = build_model(config, space, device=dev)
+    path = trained_checkpoint(experiment)
+    t0 = time.perf_counter()
+    state, steps = ModelIO(os.path.dirname(path), run['tag']).load(
+        path, dev, family=config['model'], template=agent.state_dict())
+    agent.load_state_dict(state['model'])
+    load_ms = (time.perf_counter() - t0) * 1e3
+    encoder_dtype = config.get('encoder_dtype') or 'float32'
+    per_forward = per_forward_launches(agent, encoder_dtype)
+
+    formulas = (config.get('eval_formulas') or config['formulas']).split(',')
+    num_steps = len(formulas) * (config['canvas_size'] + 1)
+    gen = torch.Generator(device=dev).manual_seed(TRAINED_SEED)
+    states = env.init_states(TRAINED_ENVS, gen)
+    _sync(dev)
+    fused_agg.reset_launch_counts()
+    t0 = time.perf_counter()
+    _states, traj = rl.make_rollout_fn(env, agent, num_steps,
+                                       deterministic=True)(agent, states, gen)
+    _sync(dev)
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    counts = dict(fused_agg.launch_counts)
+    returns = episode_returns(traj.rewards.cpu().numpy(),
+                              traj.terminals.cpu().numpy(), len(formulas))
+    if not np.isfinite(returns).all():
+        raise AssertionError(f'{experiment}: non-finite returns')
+    mean = float(returns.mean())
+    per_formula = [float(m) for m in returns.mean(axis=0)]
+    with open(os.path.join(EXPERIMENTS, experiment, 'results',
+                           run['tag'] + '_eval.txt')) as f:
+        recorded = json.loads(f.readlines()[-1])['return_mean']
+    recorded_err = (min(abs(m - recorded) for m in per_formula)
+                    if config.get('num_eval_episodes') == 1
+                    and len(formulas) > 1 else abs(mean - recorded))
+    cpu_err = abs(mean - run['cpu']) if run['cpu'] is not None else None
+    if ((cpu_err is not None and not cpu_err <= run['gate'])
+            or not recorded_err <= run['recorded_gate']):
+        raise AssertionError(
+            f'{experiment}: greedy mean {mean} against the CPU port\'s '
+            f'{run["cpu"]} (gate {run["gate"]}) and the recorded {recorded} '
+            f'(gate {run["recorded_gate"]}, off by {recorded_err})')
+
+    # one gradient pass at the trained weights over the trajectory
+    obs = traj.obs.map(lambda x: x.flatten(0, 1))
+    actions = traj.actions.flatten(0, 1)
+    agent.zero_grad(set_to_none=True)
+    _sync(dev)
+    fused_agg.reset_launch_counts()
+    logp, ent, value = agent.evaluate(obs, actions)
+    (logp.sum() + ent.sum() + value.sum()).backward()
+    _sync(dev)
+    grad_counts = dict(fused_agg.launch_counts)
+    bad = [k for k, p in agent.named_parameters()
+           if p.grad is not None and not torch.isfinite(p.grad).all()]
+    if bad:
+        raise AssertionError(f'{experiment}: non-finite gradients {bad}')
+    if dev.type == 'cuda':
+        for what, got, want in (
+                ('greedy rollout', counts,
+                 expected_launches(per_forward, num_steps + 1, 0)),
+                ('gradient pass', grad_counts,
+                 expected_launches(per_forward, 0, 1))):
+            if got != want:
+                raise AssertionError(f'{experiment} {what}: launches {got}, '
+                                     f'expected {want}')
+    res = dict(steps=steps, model=config['model'],
+               encoder_dtype=encoder_dtype, formulas=formulas,
+               envs=TRAINED_ENVS, episodes_per_env=len(formulas),
+               mean=mean, per_formula=per_formula, cpu=run['cpu'],
+               cpu_err=cpu_err, gate=run['gate'], recorded=recorded,
+               recorded_err=recorded_err, load_ms=load_ms, eval_ms=eval_ms,
+               mean_episode_atoms=float(
+                   (traj.next_obs.elements != 0).sum(-1)[
+                       traj.terminals.bool()].float().mean()),
+               counts=counts, grad_rows=int(actions.shape[0]),
+               grad_counts=grad_counts)
+    if host_calc is None:
+        return res
+
+    # the recorded run's training rollout at the trained weights, sampled,
+    # through both transports
+    num_envs = config['num_envs']
+    steps_per_env = config['num_steps_per_iter'] // num_envs
+    res['transports'] = {}
+    for i, (name, fn) in enumerate((
+            ('in_step', rl.make_rollout_fn(env, agent, steps_per_env)),
+            ('pipelined', rl.make_pipelined_host_rollout_fn(
+                env, agent, host_calc, steps_per_env,
+                distance_penalty=distance_penalty(config, solvation))))):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 20 + i)
+        states = env.init_states(num_envs, gen)
+        reward_s0, evals0 = host_calc.total_time, host_calc.pool_stats()[0]
+        _sync(dev)
+        t0 = time.perf_counter()
+        _states, traj = fn(agent, states, gen)
+        _sync(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        if not torch.isfinite(traj.rewards).all():
+            raise AssertionError(f'{experiment} {name}: non-finite rewards')
+        reward_ms = (host_calc.total_time - reward_s0) * 1e3
+        placed = (traj.next_obs.elements != 0).sum(-1).float()
+        res['transports'][name] = dict(
+            envs=num_envs, steps=steps_per_env, ms=ms, reward_ms=reward_ms,
+            reward_share=reward_ms / ms,
+            energy_evaluations=host_calc.pool_stats()[0] - evals0,
+            recomputes=getattr(fn, 'recomputes', 0),
+            mean_canvas_atoms=float(placed.mean()),
+            episodes=int(traj.terminals.sum()))
+    return res
+
+
+def run_trained(dev='cuda', experiments=tuple(TRAINED)):
+    """Phase 14: (a) evaluate_trained for each run; then every f32
+    kernel's counters moved over the covariant f32 runs, the encoder's
+    bf16 ones (and no f32 one of the encoder) over sf6_bf16, and only the
+    fused head's over the internal agents; (b) the resume of sf6pm6_run-1
+    at 15,400 steps through molgym_tpu_torch.run with the checks of phase
+    7 and the optimizer's count continued from the archive's. `dev` cpu
+    (a rehearsal) runs (a) with the plain versions and prints each greedy
+    mean, the value that fills TRAINED's `cpu`."""
+    from molgym_tpu_torch import run
+    from molgym_tpu_torch.tools.arg_parser import build_default_argparser
+    dev = torch.device(dev)
+    t0 = time.perf_counter()
+    evals = {name: evaluate_trained(dev, name) for name in experiments}
+    seconds_a = time.perf_counter() - t0
+    moved = {}
+    for name, res in evals.items():
+        for k, n in list(res['counts'].items()) + list(
+                res['grad_counts'].items()):
+            group = (res['model'] if res['model'] != 'covariant'
+                     else res['encoder_dtype'])
+            moved.setdefault(group, dict.fromkeys(res['counts'], 0))[k] += n
+    if dev.type == 'cuda':
+        f32 = [k for k in moved['float32'] if not k.endswith('_bf16')]
+        idle = [k for k in f32 if not moved['float32'][k]]
+        bf16 = moved['bfloat16']
+        idle += [k + ' (bf16 run)' for k in bf16 if (bf16[k] == 0) ==
+                 (k.endswith('_bf16') or k.startswith(('cg_contract',
+                                                       'masked_softmax')))]
+        for family in ('internal', 'mlp'):
+            idle += [f'{k} ({family})'
+                     for k, n in moved.get(family, {}).items()
+                     if (n == 0) == k.startswith('masked_softmax')]
+        if idle:
+            raise AssertionError(f'phase 14: counters {idle} moved not as '
+                                 f'expected: {moved}')
+    out = dict(evaluations=evals, counts_by_family=moved,
+               seconds_evaluations=seconds_a)
+    if dev.type == 'cuda' and 'sf6_pm6' in experiments:
+        t0 = time.perf_counter()
+        out['resume'] = run_training(
+            dev, run, build_default_argparser, SF6_PM6_RESUME, iterations=2,
+            transport='pipelined',
+            load_model=trained_checkpoint('sf6_pm6'))
+        out['seconds_resume'] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log('chip_smoke: no CUDA device is visible')
@@ -2362,6 +2673,33 @@ def main() -> int:
             f'{k} {v["max_err"]:.3g}' for k, v in covariance.items())
         + f' on {card}')
 
+    # phase 14: the JAX package's trained checkpoints on the card
+    trained = run_trained()
+    log('trained checkpoints:', json.dumps(trained))
+    for name, res in trained['evaluations'].items():
+        log(f'{name} ({res["model"]}, {res["encoder_dtype"]}, '
+            f'{res["steps"]} steps): greedy mean {res["mean"]:.6f} over '
+            f'{res["envs"]} envs x {res["episodes_per_env"]} episodes (CPU '
+            f'port {res["cpu"]}, off by {res["cpu_err"]:.3g}, gate '
+            f'{res["gate"]}; recorded {res["recorded"]:.6f}, off by '
+            f'{res["recorded_err"]:.3g}), {res["mean_episode_atoms"]:.2f} '
+            f'atoms an episode, load {res["load_ms"]:.1f} ms, evaluation '
+            f'{res["eval_ms"]:.1f} ms on {card}')
+        for tname, t in res.get('transports', {}).items():
+            log(f'  {tname}, sampled, {t["envs"]} envs x {t["steps"]} steps: '
+                f'{t["ms"]:.1f} ms, host reward {t["reward_ms"]:.1f} ms '
+                f'({t["reward_share"]:.3f}), {t["energy_evaluations"]} '
+                f'energy evaluations, {t["mean_canvas_atoms"]:.2f} atoms a '
+                f'canvas, {t["recomputes"]} recomputes, on {card}, nproc '
+                f'{host_lib["nproc"]}')
+    resume = trained['resume']
+    log(f'sf6pm6_run-1 resumed at 15,120 steps for 2 iterations: optimizer '
+        f'count {resume["start_count"]} -> {resume["count"]}, losses '
+        f'{resume["total_loss"]}, iterations '
+        + ' / '.join(f'{t:.1f}' for t in resume['iteration_ms'])
+        + f' ms; phase 14: {trained["seconds_evaluations"]:.1f} s of '
+        f'evaluations, {trained["seconds_resume"]:.1f} s of resume on {card}')
+
     def entry(name, source, replaces, main, others, path=training, **extra):
         """A kernel's line: `launches` from the run of its main path (the
         SF6 training for the f32 kernels, the bf16 SF6 training for the
@@ -2386,6 +2724,10 @@ def main() -> int:
                     solvation_training_launches=solv_training['counts'][name],
                     scaffold_training_launches=scaf_training['counts'][name],
                     qm9_training_launches=qm9_training['counts'][name],
+                    trained_launches={
+                        family: counts[name] for family, counts in
+                        trained['counts_by_family'].items()},
+                    resume_launches=resume['counts'][name],
                     **extra)
 
     def entry16(name, source, replaces, main, others, **extra):
@@ -2523,7 +2865,8 @@ def main() -> int:
                       'covariance': covariance,
                       'b70_kernels': {k: dict(b140=v[0], b70=v[1])
                                       for k, v in b70.items()},
-                      'data_parallel': data_parallel}))
+                      'data_parallel': data_parallel,
+                      'trained': trained}))
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

@@ -98,16 +98,18 @@ def _adam_state(state: Any):
     """The ScaleByAdamState / ScaleByAmsgradState inside an optax chain's
     state (nested tuples), found by its fields; in a checkpoint restored
     without a template (ModelIO._restore_raw) the same state is nested
-    lists and dicts."""
+    lists and dicts, and in a portable archive nested dicts keyed '0',
+    '1', ..."""
     keys = ('count', 'mu', 'nu')
     if (all(k in state for k in keys) if isinstance(state, Mapping)
             else all(hasattr(state, k) for k in keys)):
         return state
-    if isinstance(state, (tuple, list)):
-        for part in state:
-            found = _adam_state(part)
-            if found is not None:
-                return found
+    parts = (state.values() if isinstance(state, Mapping)
+             else state if isinstance(state, (tuple, list)) else ())
+    for part in parts:
+        found = _adam_state(part)
+        if found is not None:
+            return found
     return None
 
 
@@ -126,4 +128,43 @@ def optimizer_state_from_jax(
     for key in ('mu', 'nu', 'nu_max'):
         if (key in adam if isinstance(adam, Mapping) else hasattr(adam, key)):
             out[key] = params_from_jax(flatten_tree(_field(adam, key)))
+    return out
+
+
+# the param map of each --model
+FAMILY_MAPS: Dict[str, ParamMap] = {'covariant': covariant_params_from_jax,
+                                    'internal': internal_params_from_jax,
+                                    'mlp': internal_params_from_jax}
+
+
+def _unflatten(flat: Mapping[str, np.ndarray]) -> dict:
+    """{'a/b/c': array} -> nested dicts."""
+    tree: dict = {}
+    for key, value in flat.items():
+        *parents, leaf = key.split('/')
+        node = tree
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = value
+    return tree
+
+
+def checkpoint_from_jax(flat: Mapping[str, np.ndarray], family: str) -> dict:
+    """A JAX checkpoint as a flat tree of '/'-joined keys ('params/params/
+    ...', and 'opt_state/1/0/mu/params/...' where it holds the optimizer
+    state; a portable archive's layout) of the `family` of agents
+    ('covariant', 'internal' or 'mlp') -> {'model': state_dict,
+    'optimizer': the state of rl.ppo.Optimizer}. Without optimizer state
+    there is no 'optimizer': the optimizer starts fresh, as the JAX
+    driver's does."""
+    params_map = FAMILY_MAPS[family]
+
+    def subtree(root: str) -> Dict[str, np.ndarray]:
+        return {k[len(root) + 1:]: v for k, v in flat.items()
+                if k.startswith(root + '/')}
+    out = {'model': params_map(subtree('params'))}
+    opt_state = subtree('opt_state')
+    if opt_state:
+        out['optimizer'] = optimizer_state_from_jax(_unflatten(opt_state),
+                                                    params_map)
     return out

@@ -189,6 +189,32 @@ def _spawned_rank(config, env_builder, device, solvation, world_size):
             'optimizer': _cpu(optimizer.state_dict())}
 
 
+def load_checkpoint(config: dict, model_handler: ModelIO, agent,
+                    optimizer, device: torch.device) -> int:
+    """--load_latest / --load_model: the checkpoint's weights into `agent`
+    and its optimizer state, where it has one, into `optimizer` (else the
+    optimizer starts fresh); returns the steps to resume from, those in the
+    checkpoint's name, or 0 when neither option is given. A checkpoint is
+    the port's own file or a JAX orbax directory (ModelIO.load), carried
+    over by the map of --model."""
+    if not (config.get('load_latest') or config.get('load_model')):
+        return 0
+    kwargs = dict(map_location=device, family=config['model'],
+                  template=agent.state_dict())
+    if config.get('load_latest'):
+        state, num_steps = model_handler.load_latest(**kwargs)
+    else:
+        state, num_steps = model_handler.load(config['load_model'], **kwargs)
+    agent.load_state_dict(state['model'])
+    if 'optimizer' in state:
+        optimizer.load_state_dict(state['optimizer'])
+    logging.info(f'Loaded a {state.get("format", "torch")} checkpoint at '
+                 f'{num_steps} steps'
+                 + ('' if 'optimizer' in state else
+                    '; no optimizer state: the optimizer starts fresh'))
+    return num_steps
+
+
 def _train(config: dict, env_builder: EnvBuilder, device: torch.device,
            solvation: bool, mesh: Optional[Mesh] = None):
     """The run on `device`, in one process or in a data-parallel rank of
@@ -229,16 +255,8 @@ def _train(config: dict, env_builder: EnvBuilder, device: torch.device,
 
     model_handler = ModelIO(directory=config['model_dir'], tag=tag,
                             keep=config.get('keep_models', False))
-    start_num_steps = 0
-    if config.get('load_latest') or config.get('load_model'):
-        if config.get('load_latest'):
-            state, start_num_steps = model_handler.load_latest(device)
-        else:
-            state, start_num_steps = model_handler.load(config['load_model'],
-                                                        device)
-        agent.load_state_dict(state['model'])
-        if 'optimizer' in state:
-            optimizer.load_state_dict(state['optimizer'])
+    start_num_steps = load_checkpoint(config, model_handler, agent,
+                                      optimizer, device)
 
     save_mode = config.get('save_rollouts', 'none')
     rollout_saver = (util.RolloutSaver(
