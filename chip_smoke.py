@@ -174,30 +174,36 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      finite records, a step in every update and a checkpoint of the right
      step count and optimizer count; with one card, a line saying it did
      not run;
- 14. the JAX package's trained checkpoints (the run-1 checkpoints of ten
-     experiments: stochastic, sf6_bf16, sf6_pm6, sf6_internal,
+ 14. the JAX package's trained checkpoints (fourteen: the run-1 checkpoints
+     of thirteen experiments, stochastic, sf6_bf16, sf6_pm6, sf6_internal,
      sf6_internal_pm6, solvation, scaffold_pm6, qm9_pm6, organics,
-     halides_pm6), each loaded through ModelIO.load from its experiments/
-     orbax path (the committed archive of molgym_tpu_torch/checkpoints,
-     its sha256 held against the directory's files, a round-1 layout
-     migrated): (a) its env, reward and agent built from the recorded
-     configuration at recorded width by the driver's builders, 8 envs
-     playing one greedy episode per formula on the card with exact launch
-     counts, the mean return within its test's gate of the CPU port's
-     value (TRAINED: 1e-4 for the internal agents, whose greedy act draws
-     nothing; a covariant agent's draw spread otherwise) and of the run's
-     last recorded eval, one gradient pass of log-prob, entropy and value
-     over the trajectory with exact launch counts and finite gradients,
-     and, with PM6, a sampled training rollout of the recorded envs and
-     steps through each transport, timed with the host reward's share;
-     over the ten, every f32 kernel's counters moved (#1-#7, forward and
-     backward), the encoder's bf16 ones for sf6_bf16 (and none of its f32
-     ones), only the fused head's for the internal agents; (b) the resume
-     of sf6pm6_run-1 (its archive keeps the optimizer state) through
-     molgym_tpu_torch.run --load_model at the recorded flags with
-     --num_steps=15400 and --host_reward_mode=loop: the checks of phase 7
-     (finite losses, exact launch counts, a checkpoint at 15,400 that loads
-     back equal) and the optimizer's count continued from the archive's.
+     halides_pm6, organics_pm6, solvation_pm6 and stochastic_pm6, and
+     stochastic_pm6's run-2), each loaded through ModelIO.load from its
+     experiments/ orbax path (the committed archive of
+     molgym_tpu_torch/checkpoints, its sha256 held against the directory's
+     files, a round-1 layout migrated): (a) its env, reward and agent built
+     from the recorded configuration at recorded width by the driver's
+     builders, 8 envs playing one greedy episode per formula on the card
+     with exact launch counts, the mean return within its test's gate of
+     the CPU port's value (TRAINED: 1e-4 for the internal agents, whose
+     greedy act draws nothing; a covariant agent's draw spread otherwise)
+     and of the run's last recorded eval, one gradient pass of log-prob,
+     entropy and value over the trajectory with exact launch counts and
+     finite gradients, and, with PM6, a sampled training rollout of the
+     recorded envs and steps through each transport, timed with the host
+     reward's share; over the fourteen, every f32 kernel's counters moved
+     (#1-#7, forward and backward), the encoder's bf16 ones for sf6_bf16
+     (and none of its f32 ones), only the fused head's for the internal
+     agents; (b) the resume of sf6pm6_run-1 (its archive keeps the
+     optimizer state) through molgym_tpu_torch.run --load_model at the
+     recorded flags with --num_steps=15400 and --host_reward_mode=loop: the
+     checks of phase 7 (finite losses, exact launch counts, a checkpoint at
+     15,400 that loads back equal) and the optimizer's count continued from
+     the archive's; (c) molgym_tpu_torch.tools.diagnose_greedy of
+     stochpm6_run-2 (8 greedy envs, 16 sampled): every greedy episode ends
+     at its third action, an O refused within 0.1 A of another atom, as on
+     the CPU and in the reference's probe, the greedy mean within its gate
+     of the CPU port's, and some sampled episode places every atom.
 
 The line before the last two is {"kernels": [...]}, then the card's name and
 power limit, and the last line is {"ok": true, "device": {...}}.
@@ -2125,12 +2131,13 @@ def run_data_parallel(device='cuda', argv=DP_RUN):
     return res
 
 
-# phase 14: the JAX package's trained run-1 checkpoints of ten experiments,
+# phase 14: the JAX package's trained checkpoints of thirteen experiments,
 # loaded through ModelIO.load from their experiments/ orbax paths (read from
 # the committed archives of molgym_tpu_torch/checkpoints): experiment ->
 # its run's tag, the CPU port's greedy mean over TRAINED_ENVS envs (the
 # protocol of tests/test_torch_driver_checkpoints.py, which gives the
-# value that `test` measures) and `gate`, that test's tolerance on it: an
+# value that `test` measures; `experiment` where the name is not the
+# experiment's) and `gate`, that test's tolerance on it: an
 # internal agent's greedy act draws nothing; a covariant agent's greedy
 # distance is the best of 128 draws, which the card makes from another
 # generator than the CPU. `recorded_gate` bounds the distance to the run's
@@ -2160,7 +2167,39 @@ TRAINED = {
                      recorded_gate=0.02, test=_DRIVER_TEST),
     'halides_pm6': dict(tag='halo_run-1', cpu=0.5729221, gate=1e-3,
                         recorded_gate=1e-3, test=_DRIVER_TEST),
+    # the PM6 families' recorded evals of solvation_pm6 and stochastic_pm6
+    # came from the round-3 PM6 constants, which csrc/ no longer builds:
+    # `recorded_gate` is their measured distance, rounded up. organics_pm6:
+    # C2H2O2's greedy episode ends in one of two modes as the best draw
+    # falls, each env's change of mode moving the mean by 0.0336, so the
+    # mean may move by all eight's (`gate`) and each episode is held within
+    # `modes_gate` of one of its formula's `modes` (the CPU port's; the
+    # good mode's episodes spread over 0.472-0.489 on the CPU and the
+    # card); its recorded eval played one episode of each formula, which
+    # some two of the card's episodes give (`recorded_pairs`)
+    'organics_pm6': dict(tag='orgpm6_run-1', cpu=0.5642886, gate=0.27,
+                         modes=((0.8556, ), (0.4746, -0.0630)),
+                         modes_gate=0.03, recorded_gate=0.005,
+                         recorded_pairs=True, test=_DRIVER_TEST),
+    'solvation_pm6': dict(tag='solvpm6_run-1', cpu=0.8247942, gate=1e-4,
+                          recorded_gate=0.15, test=_DRIVER_TEST),
+    'stochastic_pm6': dict(tag='stochpm6_run-1', cpu=0.656253, gate=0.015,
+                           recorded_gate=0.08, test=_DRIVER_TEST),
+    # every greedy episode ends at its third action (the reference's
+    # greedy-mode pathology): diagnosed below, DIAGNOSED
+    'stochastic_pm6-run-2': dict(experiment='stochastic_pm6',
+                                 tag='stochpm6_run-2', cpu=-0.2569615,
+                                 gate=0.005, recorded_gate=0.06,
+                                 test=_DRIVER_TEST),
 }
+# 14c: molgym_tpu_torch.tools.diagnose_greedy of stochpm6_run-2 on the card,
+# beside the CPU port's (tests/test_torch_diagnose_greedy.py,
+# tests/test_torch_driver_checkpoints.py): every greedy episode 3 steps
+# long, its last action an O within `contact` A of another atom (CPU
+# 0.0747-0.0784), refused; the sampled policy places every atom in some of
+# its episodes
+DIAGNOSED = dict(run='stochastic_pm6-run-2', length=3, contact=0.1,
+                 cpu_contacts=(0.0747, 0.0784), sampled=16)
 TRAINED_ENVS = 8
 TRAINED_SEED = 1
 # 14b: experiments/sf6_pm6/logs/sf6pm6_run-1.json resumed from its 15,120
@@ -2169,28 +2208,15 @@ SF6_PM6_RESUME = [a for a in SF6_PM6 if not a.startswith('--num_steps=')] + [
     '--num_steps=15400']
 
 
-def trained_checkpoint(experiment):
-    """The experiments/ orbax path of the run-1 checkpoint of
-    `experiment`."""
+def trained_checkpoint(name):
+    """The experiments/ orbax path of TRAINED[name]'s checkpoint."""
     import glob
-    paths = glob.glob(os.path.join(EXPERIMENTS, experiment, 'models',
-                                   TRAINED[experiment]['tag']
-                                   + '_steps-*.model'))
+    run = TRAINED[name]
+    paths = glob.glob(os.path.join(EXPERIMENTS, run.get('experiment', name),
+                                   'models', run['tag'] + '_steps-*.model'))
     if len(paths) != 1:
-        raise AssertionError(f'{experiment}: checkpoints {paths}')
+        raise AssertionError(f'{name}: checkpoints {paths}')
     return paths[0]
-
-
-def trained_config(experiment):
-    """The run's recorded configuration, its asset paths absolute."""
-    directory = os.path.join(EXPERIMENTS, experiment)
-    tag = TRAINED[experiment]['tag']
-    with open(os.path.join(directory, 'logs', tag + '.json')) as f:
-        config = json.load(f)
-    for key in ('initial_structure', 'scaffold'):
-        if config.get(key):
-            config[key] = os.path.join(directory, config[key])
-    return config
 
 
 def episode_returns(rewards, terminals, k):
@@ -2209,34 +2235,31 @@ def evaluate_trained(dev, experiment):
     orbax path; TRAINED_ENVS envs play as many greedy episodes as the run
     has formulas, with the launch counts zeroed just before and read just
     after (exact: the rollout's forwards); the mean return within `gate`
-    of the CPU port's and `recorded_gate` of the recorded eval; then one
-    gradient pass of log-prob, entropy and value over the trajectory, its
-    launch counts exact and its gradients finite; with a host reward, a
-    sampled rollout of the recorded run's envs and steps through each
-    transport, from generators of their own (other draws: the energy
-    cache meets new geometries), timed with the host reward's share."""
-    from molgym_tpu_torch import run_scaffold, run_solvation, run_stochastic
+    of the CPU port's and `recorded_gate` of the recorded eval, and each
+    episode within `modes_gate` of one of its formula's `modes` where the
+    run has them; then one gradient pass of log-prob, entropy and value
+    over the trajectory, its launch counts exact and its gradients finite;
+    with a host reward, a sampled rollout of the recorded run's envs and
+    steps through each transport, from generators of their own (other
+    draws: the energy cache meets new geometries), timed with the host
+    reward's share."""
     from molgym_tpu_torch.ops import fused_agg
     from molgym_tpu_torch.rl import rollout as rl
     from molgym_tpu_torch.spaces import ObservationSpace, symbols_to_zs
-    from molgym_tpu_torch.tools.driver import (distance_penalty,
-                                               make_reward_fn, standard_envs)
+    from molgym_tpu_torch.tools.diagnose_greedy import env_builder, run_config
+    from molgym_tpu_torch.tools.driver import distance_penalty, make_reward_fn
     from molgym_tpu_torch.tools.model_io import ModelIO
     from molgym_tpu_torch.tools.model_util import build_model
 
     run = TRAINED[experiment]
-    config = trained_config(experiment)
-    solvation = experiment == 'solvation'
-    builder = {'stochastic': run_stochastic.stochastic_envs,
-               'solvation': run_solvation.solvation_envs,
-               'scaffold_pm6': run_scaffold.scaffold_envs}.get(experiment,
-                                                               standard_envs)
+    path = trained_checkpoint(experiment)
+    config = run_config(path)
+    builder, solvation = env_builder(config)
     space = ObservationSpace(config['canvas_size'],
                              symbols_to_zs(config['symbols']))
     reward_fn, host_calc = make_reward_fn(config, solvation=solvation)
     _train_env, env = builder(config, space, reward_fn, dev)
     agent = build_model(config, space, device=dev)
-    path = trained_checkpoint(experiment)
     t0 = time.perf_counter()
     state, steps = ModelIO(os.path.dirname(path), run['tag']).load(
         path, dev, family=config['model'], template=agent.state_dict())
@@ -2263,19 +2286,31 @@ def evaluate_trained(dev, experiment):
         raise AssertionError(f'{experiment}: non-finite returns')
     mean = float(returns.mean())
     per_formula = [float(m) for m in returns.mean(axis=0)]
-    with open(os.path.join(EXPERIMENTS, experiment, 'results',
-                           run['tag'] + '_eval.txt')) as f:
+    with open(os.path.join(os.path.dirname(os.path.dirname(path)),
+                           'results', run['tag'] + '_eval.txt')) as f:
         recorded = json.loads(f.readlines()[-1])['return_mean']
-    recorded_err = (min(abs(m - recorded) for m in per_formula)
-                    if config.get('num_eval_episodes') == 1
-                    and len(formulas) > 1 else abs(mean - recorded))
+    if run.get('recorded_pairs'):
+        recorded_err = float(np.abs((returns[:, None, 0]
+                                     + returns[None, :, 1]) / 2
+                                    - recorded).min())
+    elif config.get('num_eval_episodes') == 1 and len(formulas) > 1:
+        recorded_err = min(abs(m - recorded) for m in per_formula)
+    else:
+        recorded_err = abs(mean - recorded)
     cpu_err = abs(mean - run['cpu']) if run['cpu'] is not None else None
+    modes_err = (float(max(min(abs(r - m) for m in modes)
+                           for f, modes in enumerate(run['modes'])
+                           for r in returns[:, f]))
+                 if 'modes' in run else 0.0)
     if ((cpu_err is not None and not cpu_err <= run['gate'])
-            or not recorded_err <= run['recorded_gate']):
+            or not recorded_err <= run['recorded_gate']
+            or not modes_err <= run.get('modes_gate', 0.0)):
         raise AssertionError(
             f'{experiment}: greedy mean {mean} against the CPU port\'s '
             f'{run["cpu"]} (gate {run["gate"]}) and the recorded {recorded} '
-            f'(gate {run["recorded_gate"]}, off by {recorded_err})')
+            f'(gate {run["recorded_gate"]}, off by {recorded_err}); an '
+            f'episode {modes_err} from its formula\'s modes; returns '
+            f'{returns.tolist()}')
 
     # one gradient pass at the trained weights over the trajectory
     obs = traj.obs.map(lambda x: x.flatten(0, 1))
@@ -2303,9 +2338,10 @@ def evaluate_trained(dev, experiment):
     res = dict(steps=steps, model=config['model'],
                encoder_dtype=encoder_dtype, formulas=formulas,
                envs=TRAINED_ENVS, episodes_per_env=len(formulas),
-               mean=mean, per_formula=per_formula, cpu=run['cpu'],
-               cpu_err=cpu_err, gate=run['gate'], recorded=recorded,
-               recorded_err=recorded_err, load_ms=load_ms, eval_ms=eval_ms,
+               mean=mean, per_formula=per_formula, modes_err=modes_err,
+               cpu=run['cpu'], cpu_err=cpu_err, gate=run['gate'],
+               recorded=recorded, recorded_err=recorded_err, load_ms=load_ms,
+               eval_ms=eval_ms,
                mean_episode_atoms=float(
                    (traj.next_obs.elements != 0).sum(-1)[
                        traj.terminals.bool()].float().mean()),
@@ -2346,6 +2382,39 @@ def evaluate_trained(dev, experiment):
     return res
 
 
+def diagnose_trained(dev):
+    """14c: the greedy and sampled evaluation of DIAGNOSED's run through
+    molgym_tpu_torch.tools.diagnose_greedy (TRAINED_ENVS greedy envs, the
+    protocol of 14a, and DIAGNOSED['sampled'] sampled ones): every greedy
+    episode DIAGNOSED['length'] steps long and ended by a refused action
+    closer than DIAGNOSED['contact'] to an atom, the greedy mean within
+    the run's gate of the CPU port's, and some sampled episode placing
+    every atom."""
+    from molgym_tpu_torch.tools import diagnose_greedy
+    name = DIAGNOSED['run']
+    result = diagnose_greedy.diagnose(
+        trained_checkpoint(name), num_sampled=DIAGNOSED['sampled'],
+        seed=TRAINED_SEED, device=dev)
+    episodes = [e for env_eps in result['greedy']['episodes']
+                for e in env_eps]
+    lengths = [e['length'] for e in episodes]
+    contacts = [e['closest_contact'] for e in episodes]
+    ends = [e['steps'][-1] for e in episodes if 'steps' in e]
+    if (lengths != [DIAGNOSED['length']] * len(episodes)
+            or not max(contacts) < DIAGNOSED['contact']
+            or len(ends) != len(episodes)
+            or any(end['placed'] or not end['done'] for end in ends)
+            or not abs(result['greedy']['mean'] - TRAINED[name]['cpu'])
+            <= TRAINED[name]['gate']
+            or not result['sampled']['complete_fraction'] > 0):
+        raise AssertionError(f'phase 14c: {name} diagnosed as {lengths}, '
+                             f'contacts {contacts}, greedy mean '
+                             f'{result["greedy"]["mean"]}, sampled '
+                             f'{result["sampled"]}')
+    return dict(result, lengths=lengths, contacts=contacts,
+                cpu_contacts=DIAGNOSED['cpu_contacts'])
+
+
 def run_trained(dev='cuda', experiments=tuple(TRAINED)):
     """Phase 14: (a) evaluate_trained for each run; then every f32
     kernel's counters moved over the covariant f32 runs, the encoder's
@@ -2384,6 +2453,10 @@ def run_trained(dev='cuda', experiments=tuple(TRAINED)):
                                  f'expected: {moved}')
     out = dict(evaluations=evals, counts_by_family=moved,
                seconds_evaluations=seconds_a)
+    if DIAGNOSED['run'] in experiments:
+        t0 = time.perf_counter()
+        out['diagnosis'] = diagnose_trained(dev)
+        out['seconds_diagnosis'] = time.perf_counter() - t0
     if dev.type == 'cuda' and 'sf6_pm6' in experiments:
         t0 = time.perf_counter()
         out['resume'] = run_training(
@@ -2692,6 +2765,19 @@ def main() -> int:
                 f'energy evaluations, {t["mean_canvas_atoms"]:.2f} atoms a '
                 f'canvas, {t["recomputes"]} recomputes, on {card}, nproc '
                 f'{host_lib["nproc"]}')
+    diagnosis = trained['diagnosis']
+    log(f'{DIAGNOSED["run"]} diagnosed: greedy lengths '
+        f'{diagnosis["lengths"]}, closest contacts '
+        + ', '.join(f'{c:.4f}' for c in diagnosis['contacts'])
+        + f' A (CPU {diagnosis["cpu_contacts"][0]}-'
+        f'{diagnosis["cpu_contacts"][1]}), greedy mean '
+        f'{diagnosis["greedy"]["mean"]:.6f}; sampled '
+        f'{diagnosis["sampled"]["envs"]}: mean length '
+        f'{diagnosis["sampled"]["mean_length"]:.3f}, complete fraction '
+        f'{diagnosis["sampled"]["complete_fraction"]:.3f}, mean '
+        f'{diagnosis["sampled"]["mean"]:.6f}, best '
+        f'{diagnosis["sampled"]["best"]:.6f}; '
+        f'{trained["seconds_diagnosis"]:.1f} s on {card}')
     resume = trained['resume']
     log(f'sf6pm6_run-1 resumed at 15,120 steps for 2 iterations: optimizer '
         f'count {resume["start_count"]} -> {resume["count"]}, losses '

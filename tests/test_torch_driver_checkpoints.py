@@ -1,10 +1,12 @@
 """The trained checkpoints of the solvation, scaffold, QM9, organics and
-halides runs in experiments/, evaluated greedily in both packages on the
-CPU through each package's own env builder (scripts/run_*.py's and the port's
-run_*.py's), reward (each driver's make_reward_fn, the solvation penalty
-included) and model factory, from the run's recorded configuration
-(experiments/*/logs/*_run-1.json, its asset paths made absolute). Each of 8
-envs runs as many greedy episodes as the run has formulas, so that every
+halides runs and of the three PM6 families organics_pm6, solvation_pm6
+and stochastic_pm6 (its run-1 and run-2) in experiments/, evaluated
+greedily in both packages on the CPU through each package's own env
+builder (scripts/run_*.py's and the port's run_*.py's), reward (each
+driver's make_reward_fn, the solvation penalty included) and model
+factory, from the run's recorded configuration
+(experiments/*/logs/*_run-N.json, its asset paths made absolute). Each of
+8 envs runs as many greedy episodes as the run has formulas, so that every
 formula of the cycle is evaluated; the mean over them is held against the
 other package's and the run's last recorded eval (results/*_eval.txt).
 
@@ -29,6 +31,38 @@ Gates, measured on the CPU:
     whose envs' means spread over 9e-4 with the draws: 1e-3 between the
     packages (port 0.572922, JAX 0.572742) and to the recorded 0.573206
     (one episode a formula).
+
+The three PM6 families. Their recorded evals came from the PM6 constants
+of their day: organics_pm6 ran on today's (round-5) calibration, while
+solvation_pm6 and stochastic_pm6 ran on the round-3 constants
+(experiments/*/README.md), which the C++ of csrc/ no longer builds. Both
+packages read today's surface through the same library, so the gates
+between the packages are measured on it, and each run's distance to its
+record is measured and bounds it:
+  * solvation_pm6 (internal agent, PM6, CO pre-placed, 2 refills): no
+    draw, 1e-4 between the packages (port 0.824794, JAX 0.824796); 0.15
+    to the recorded 0.967983 (0.1432 off: the round-3 surface);
+  * organics_pm6 (covariant, CH3NO and C2H2O2): C2H2O2's greedy episode
+    ends in one of two modes (0.474 or -0.063) as the best draw falls, so
+    one of the 16 episodes changing mode moves the mean by 0.0336: 0.07
+    between the packages, two such changes (port 0.564289, JAX 0.530475:
+    3 and 4 envs at -0.063); each port episode within 0.03 of a JAX
+    episode of its formula (the good mode's episodes spread over
+    0.472-0.489 with the draws: 0.4721-0.4749 here, one at 0.4890 on the
+    card), and CH3NO's means, of one mode, within 0.005 (0.85557,
+    0.85564). The recorded eval played one episode of each formula: some
+    two of the port's episodes give it within 0.005 (0.0016 off);
+  * stochastic_pm6 run-1 (covariant, maxl 4, 3 CG levels): its envs
+    spread over 0.022 with the draws (an env's sd 0.008): 0.015 between the
+    packages (port 0.656253, JAX 0.658895); 0.08 to the recorded 0.731613
+    (0.0754 off: round 3);
+  * stochastic_pm6 run-2: every greedy episode, in both packages, ends at
+    its third action, which puts an O within 0.1 A of the second C (port
+    0.075-0.078 A; the reference's probe: 0.077 A) and is refused: the
+    lengths are all 3, as recorded. 0.005 between the packages (port
+    -0.256961, JAX -0.258107; the envs spread over 0.003); 0.06 to the
+    recorded -0.207769 (0.0492 off: round 3; the reference read -0.26 on
+    the recalibrated surface).
 The file reads experiments/ and writes nothing there."""
 import json
 from pathlib import Path
@@ -41,17 +75,18 @@ from flax.traverse_util import flatten_dict
 
 import scripts.run_scaffold as jax_run_scaffold
 import scripts.run_solvation as jax_run_solvation
+import scripts.run_stochastic as jax_run_stochastic
 from molgym_tpu.rl.rollout import make_rollout_fn as jax_rollout_fn
 from molgym_tpu.spaces import ActionSpace as JaxActionSpace
 from molgym_tpu.spaces import ObservationSpace as JaxObservationSpace
 from molgym_tpu.tools import driver as jax_driver
 from molgym_tpu.tools.model_util import build_model as jax_build_model
-from molgym_tpu_torch import run_scaffold, run_solvation
+from molgym_tpu_torch import run_scaffold, run_solvation, run_stochastic
 from molgym_tpu_torch.convert import (covariant_params_from_jax,
                                       internal_params_from_jax)
 from molgym_tpu_torch.rl.rollout import make_rollout_fn
 from molgym_tpu_torch.spaces import ObservationSpace, symbols_to_zs
-from molgym_tpu_torch.tools import driver
+from molgym_tpu_torch.tools import diagnose_greedy, driver
 from molgym_tpu_torch.tools.model_util import build_model
 
 from .test_torch_checkpoint import _restore
@@ -82,6 +117,27 @@ RUNS = {
     'halides_pm6': dict(experiment='halides_pm6', tag='halo_run-1',
                         steps=14000, tol=1e-3, recorded=0.5732058584690094,
                         recorded_tol=1e-3),
+    'organics_pm6': dict(experiment='organics_pm6', tag='orgpm6_run-1',
+                         steps=14000, tol=0.07, modes_tol=0.03,
+                         recorded=0.663188518024981, recorded_pairs=True,
+                         recorded_tol=0.005),
+    'solvation_pm6': dict(experiment='solvation_pm6', tag='solvpm6_run-1',
+                          steps=21000,
+                          builders=(jax_run_solvation.solvation_envs,
+                                    run_solvation.solvation_envs),
+                          solvation=True, tol=1e-4,
+                          recorded=0.967983135022223, recorded_tol=0.15),
+    'stochastic_pm6-run-1': dict(
+        experiment='stochastic_pm6', tag='stochpm6_run-1', steps=7000,
+        builders=(jax_run_stochastic.stochastic_envs,
+                  run_stochastic.stochastic_envs),
+        tol=0.015, recorded=0.7316128443926573, recorded_tol=0.08),
+    'stochastic_pm6-run-2': dict(
+        experiment='stochastic_pm6', tag='stochpm6_run-2', steps=7000,
+        builders=(jax_run_stochastic.stochastic_envs,
+                  run_stochastic.stochastic_envs),
+        tol=0.005, recorded=-0.20776903629302979, recorded_tol=0.06,
+        greedy_length=3),
 }
 ASSETS = ('initial_structure', 'scaffold')
 
@@ -103,7 +159,10 @@ def recorded_config(experiment: str, tag: str) -> dict:
     config = json.loads((directory / 'logs' / f'{tag}.json').read_text())
     for key in ASSETS:
         if config.get(key):
-            config[key] = str(directory / config[key])
+            # a path the run recorded absolute names a file of `directory`
+            path = directory / config[key]
+            config[key] = str(path if path.exists()
+                              else directory / Path(config[key]).name)
     return config
 
 
@@ -156,21 +215,62 @@ def evaluate_both(name):
     tret = episode_returns(traj.rewards.numpy(), traj.terminals.numpy(),
                            len(formulas))
     assert np.isfinite(tret).all() and np.isfinite(jret).all()
-    return tret, jret, env, traj, config
+    return tret, jret, env, traj, config, jtraj
+
+
+def first_episodes(elements, positions, actions, terminals):
+    """(each env's first episode length, the distance from the position
+    its last action chose to the nearest atom on the canvas) of a covariant
+    agent's trajectory: the action is (focus, element, distance,
+    orientation), the position the focus atom's plus distance times
+    orientation."""
+    elements, positions, actions, terminals = (np.asarray(x) for x in (
+        elements, positions, actions, terminals))
+    lengths, contacts = [], []
+    for b in range(terminals.shape[1]):
+        t = int(terminals[:, b].argmax())   # the first episode's last step
+        assert terminals[t, b]
+        focus, distance = int(actions[t, b, 0]), float(actions[t, b, 2])
+        position = positions[t, b, focus] + distance * actions[t, b, 3:6]
+        lengths.append(t + 1)
+        contacts.append(diagnose_greedy.contacts(
+            elements[t, b], positions[t, b], position)[0])
+    return lengths, contacts
 
 
 @pytest.mark.parametrize('name', list(RUNS))
 def test_trained_driver_checkpoint_evaluates_alike(name):
     run = RUNS[name]
-    tret, jret, env, traj, config = evaluate_both(name)
+    tret, jret, env, traj, config, jtraj = evaluate_both(name)
     assert abs(float(tret.mean()) - float(jret.mean())) <= run['tol'], (
         tret, jret)
-    if config.get('num_eval_episodes') == 1:
+    if run.get('recorded_pairs'):
+        # the recorded eval played one episode of each of the two formulas:
+        # some two of the port's episodes give its mean
+        recorded_err = np.abs(
+            (tret[:, None, 0] + tret[None, :, 1]) / 2 - run['recorded']).min()
+    elif config.get('num_eval_episodes') == 1:
         # the recorded eval played one formula's episode
         recorded_err = np.abs(tret.mean(axis=0) - run['recorded']).min()
     else:
         recorded_err = abs(float(tret.mean()) - run['recorded'])
     assert recorded_err <= run['recorded_tol'], tret
+    if 'modes_tol' in run:
+        # each port episode ends where some JAX episode of its formula
+        # ends; the first formula's episodes have one mode
+        assert (np.abs(tret[:, None, :] - jret[None, :, :]).min(axis=1)
+                <= run['modes_tol']).all(), (tret, jret)
+        assert np.abs(tret[:, 0].mean() - jret[:, 0].mean()) <= 0.005
+    if 'greedy_length' in run:
+        # every greedy episode ends at the same action in both packages,
+        # one that places its atom within 0.1 A of another
+        for obs, actions, terminals in (
+                (traj.obs, traj.actions, traj.terminals),
+                (jtraj.obs, jtraj.actions, jtraj.terminals)):
+            lengths, contacts = first_episodes(
+                obs.elements, obs.positions, actions, terminals)
+            assert lengths == [run['greedy_length']] * NUM_ENVS, lengths
+            assert max(contacts) < 0.1, contacts
     placed = traj.next_obs.elements != 0
     if env.n_scaffold:
         # the scaffold stays, and every atom an episode placed lies inside
