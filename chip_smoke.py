@@ -104,6 +104,14 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      molgym_tpu_torch.run with --host_reward_mode=loop and the checks of
      phase 7, recomputes included in the launch counts, and reward_time
      and transport in every train record;
+ 10b. the same with the EHT reward (csrc/eht.cpp; the reward of
+     experiments/sf6_eht and experiments/h2o_eht): the SF6 agent's 10-env x
+     14-step rollout through both transports with phase 10's checks (the
+     same bits, the rewards recomputed, exact launch counts), then 2 PPO
+     iterations of experiments/sf6_eht/README.md's command through
+     molgym_tpu_torch.run with the in-step transport that
+     --host_reward_mode=auto picks and the checks of phase 7; the host
+     reward's share of the rollouts and the host's cores logged;
  11. the fifth path, the internal (SchNet) agent at SF6 full width
      (experiments/sf6_internal/logs/sf6int_run-1.json: X,S,F; canvas 7;
      width 128; 3 interactions; 64 atom features): a 140-env x 14-step
@@ -203,7 +211,16 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      stochpm6_run-2 (8 greedy envs, 16 sampled): every greedy episode ends
      at its third action, an O refused within 0.1 A of another atom, as on
      the CPU and in the reference's probe, the greedy mean within its gate
-     of the CPU port's, and some sampled episode places every atom.
+     of the CPU port's, and some sampled episode places every atom; (d) the
+     nine covariant checkpoints of (a) (all but the internal agents'),
+     evaluated by (a)'s protocol with the greedy distance taken from shared
+     candidates (molgym_tpu_torch/tools/shared_draws.py) instead of the
+     best of 128 draws, so that the evaluation is a deterministic function
+     of the weights: every env's focus and element at every step equal to
+     the CPU port's and the mean within 1e-4 of it (SHARED, measured by
+     tests/test_torch_shared_draws.py and _pm6.py, which hold the CPU port
+     against the JAX package at float tolerance; sf6_bf16 within those
+     tests' bf16 tolerance of 0.02), with exact launch counts.
 
 The line before the last two is {"kernels": [...]}, then the card's name and
 power limit, and the last line is {"ok": true, "device": {...}}.
@@ -963,6 +980,15 @@ SF6_PM6 = ['--name=sf6pm6', '--formulas=SF6', '--canvas_size=7',
            '--save_rollouts=eval', '--seed=1', '--num_steps=280',
            '--host_reward_mode=loop', '--log_level=WARNING']
 PM6_ENVS = 10   # the recorded run's --num_envs
+# experiments/sf6_eht/README.md's command, cut to 2 iterations; the in-step
+# transport that --host_reward_mode=auto picks
+SF6_EHT = ['--name=sf6eht', '--formulas=SF6', '--canvas_size=7',
+           '--symbols=X,S,F', '--bag_scale=5', '--model=covariant',
+           '--beta=-10', '--min_mean_distance=1.10',
+           '--max_mean_distance=2.10', '--num_envs=10',
+           '--num_steps_per_iter=140', '--mini_batch_size=140',
+           '--reward=eht', '--seed=1', '--num_steps=280',
+           '--log_level=WARNING']
 
 
 def per_forward_launches(agent, encoder_dtype='float32'):
@@ -2228,6 +2254,38 @@ def episode_returns(rewards, terminals, k):
                      for i in range(k)], axis=1)
 
 
+def trained_setup(dev, experiment):
+    """(orbax path, recorded configuration, solvation, host calculator or
+    None, evaluation env, agent, steps, load ms, evaluation formulas) of
+    TRAINED[experiment]: the env (the driver's builder's evaluation env),
+    reward (make_reward_fn, the solvation penalty included) and agent from
+    the recorded configuration, the weights through ModelIO.load of the
+    orbax path."""
+    from molgym_tpu_torch.spaces import ObservationSpace, symbols_to_zs
+    from molgym_tpu_torch.tools.diagnose_greedy import env_builder, run_config
+    from molgym_tpu_torch.tools.driver import make_reward_fn
+    from molgym_tpu_torch.tools.model_io import ModelIO
+    from molgym_tpu_torch.tools.model_util import build_model
+
+    path = trained_checkpoint(experiment)
+    config = run_config(path)
+    builder, solvation = env_builder(config)
+    space = ObservationSpace(config['canvas_size'],
+                             symbols_to_zs(config['symbols']))
+    reward_fn, host_calc = make_reward_fn(config, solvation=solvation)
+    _train_env, env = builder(config, space, reward_fn, dev)
+    agent = build_model(config, space, device=dev)
+    t0 = time.perf_counter()
+    state, steps = ModelIO(os.path.dirname(path),
+                           TRAINED[experiment]['tag']).load(
+        path, dev, family=config['model'], template=agent.state_dict())
+    agent.load_state_dict(state['model'])
+    load_ms = (time.perf_counter() - t0) * 1e3
+    formulas = (config.get('eval_formulas') or config['formulas']).split(',')
+    return (path, config, solvation, host_calc, env, agent, steps, load_ms,
+            formulas)
+
+
 def evaluate_trained(dev, experiment):
     """14a for one run: its env (the driver's builder's evaluation env),
     reward (make_reward_fn, the solvation penalty included) and agent from
@@ -2245,30 +2303,13 @@ def evaluate_trained(dev, experiment):
     reward's share."""
     from molgym_tpu_torch.ops import fused_agg
     from molgym_tpu_torch.rl import rollout as rl
-    from molgym_tpu_torch.spaces import ObservationSpace, symbols_to_zs
-    from molgym_tpu_torch.tools.diagnose_greedy import env_builder, run_config
-    from molgym_tpu_torch.tools.driver import distance_penalty, make_reward_fn
-    from molgym_tpu_torch.tools.model_io import ModelIO
-    from molgym_tpu_torch.tools.model_util import build_model
+    from molgym_tpu_torch.tools.driver import distance_penalty
 
     run = TRAINED[experiment]
-    path = trained_checkpoint(experiment)
-    config = run_config(path)
-    builder, solvation = env_builder(config)
-    space = ObservationSpace(config['canvas_size'],
-                             symbols_to_zs(config['symbols']))
-    reward_fn, host_calc = make_reward_fn(config, solvation=solvation)
-    _train_env, env = builder(config, space, reward_fn, dev)
-    agent = build_model(config, space, device=dev)
-    t0 = time.perf_counter()
-    state, steps = ModelIO(os.path.dirname(path), run['tag']).load(
-        path, dev, family=config['model'], template=agent.state_dict())
-    agent.load_state_dict(state['model'])
-    load_ms = (time.perf_counter() - t0) * 1e3
+    (path, config, solvation, host_calc, env, agent, steps, load_ms,
+     formulas) = trained_setup(dev, experiment)
     encoder_dtype = config.get('encoder_dtype') or 'float32'
     per_forward = per_forward_launches(agent, encoder_dtype)
-
-    formulas = (config.get('eval_formulas') or config['formulas']).split(',')
     num_steps = len(formulas) * (config['canvas_size'] + 1)
     gen = torch.Generator(device=dev).manual_seed(TRAINED_SEED)
     states = env.init_states(TRAINED_ENVS, gen)
@@ -2467,6 +2508,124 @@ def run_trained(dev='cuda', experiments=tuple(TRAINED)):
     return out
 
 
+# 14d: the nine covariant checkpoints of TRAINED evaluated greedily (14a's
+# protocol) with the greedy distance from shared candidates
+# (molgym_tpu_torch/tools/shared_draws.py), so that the evaluation is a
+# deterministic function of the weights: name -> the CPU port's mean and
+# its discrete actions, every env's (focus:element a step, all envs alike),
+# both measured by tests/test_torch_shared_draws.py and
+# tests/test_torch_shared_draws_pm6.py, which hold them against the JAX
+# package. The card holds the actions equal and the mean within
+# SHARED_TOL (float order), sf6_bf16 within SHARED_BF16_TOL, the tests'
+# bf16 tolerance on a return (bf16 rounds at other places on the card)
+SHARED = {
+    'stochastic': dict(
+        cpu=1.2506981,
+        actions='0:3 0:2 1:2 2:1 2:1 2:1 1:1 1:1 1:1 0:3 0:2'),
+    'sf6_bf16': dict(
+        cpu=1.5290735,
+        actions='0:1 0:2 0:2 0:2 0:2 0:2 0:2 0:1'),
+    'sf6_pm6': dict(
+        cpu=0.6829676,
+        actions='0:1 0:2 0:2 0:2 0:2 0:2 0:2 0:1'),
+    'qm9_pm6': dict(
+        cpu=0.4010152,
+        actions=('0:2 0:4 0:1 0:1 0:2 0:5 0:1 0:1 0:1 0:2 0:4 '
+                 '0:4 0:1 0:2 0:1 0:3 0:2 0:4 0:1 0:1 0:2 0:5 '
+                 '0:1 0:1 0:1 0:2 0:4 0:4 0:1 0:2 0:1 0:3')),
+    'organics': dict(
+        cpu=1.0227005,
+        actions=('0:4 0:4 0:1 0:1 0:2 1:2 0:4 0:1 0:1 0:1 0:2 '
+                 '0:3 0:4 0:4 0:1 0:1 0:2 1:2 0:4 0:1 0:1 0:1')),
+    'halides_pm6': dict(
+        cpu=0.5726286,
+        actions=('0:2 0:1 0:1 0:1 0:4 0:2 0:1 0:1 0:1 0:3 0:2 '
+                 '0:1 0:1 0:1')),
+    'organics_pm6': dict(
+        cpu=0.6650000,
+        actions=('0:4 0:2 1:2 2:1 2:1 2:4 0:4 0:2 1:1 1:1 1:1 '
+                 '1:3 0:4 0:2 1:2 2:1 2:1 2:4 0:4 0:2 1:1 1:1')),
+    'stochastic_pm6': dict(
+        cpu=0.6540313,
+        actions='0:2 0:2 0:3 1:1 0:1 1:1 1:1 1:1 0:1 0:2 0:2'),
+    'stochastic_pm6-run-2': dict(
+        cpu=-0.2564908,
+        actions='0:2 0:2 0:3 0:2 0:2 0:3 0:2 0:2 0:3 0:2 0:2'),
+}
+SHARED_TOL = 1e-4
+SHARED_BF16_TOL = 0.02
+
+
+def discrete_actions(traj) -> str:
+    """The focus and element of every step of a trajectory's env 0, as
+    'focus:element' words; every env must have the same."""
+    actions = traj.actions[..., :2].round().long().cpu().numpy()
+    words = [' '.join(f'{f}:{e}' for f, e in actions[:, b])
+             for b in range(actions.shape[1])]
+    if len(set(words)) != 1:
+        raise AssertionError(f'the envs act differently: {words}')
+    return words[0]
+
+
+def evaluate_shared(dev, name):
+    """14d for one run: TRAINED_ENVS envs of its evaluation env play as many
+    greedy episodes as it has formulas with the greedy distance from shared
+    candidates, the launch counts zeroed just before and read just after
+    (exact: the rollout's forwards); the mean and the discrete actions
+    against SHARED's (on the card; a CPU rehearsal returns them)."""
+    from molgym_tpu_torch.ops import fused_agg
+    from molgym_tpu_torch.rl import rollout as rl
+    from molgym_tpu_torch.tools.shared_draws import shared_greedy_draws
+    (_path, config, _solvation, _calc, env, agent, _steps, _load_ms,
+     formulas) = trained_setup(dev, name)
+    num_steps = len(formulas) * (config['canvas_size'] + 1)
+    gen = torch.Generator(device=dev).manual_seed(TRAINED_SEED)
+    states = env.init_states(TRAINED_ENVS, gen)
+    _sync(dev)
+    fused_agg.reset_launch_counts()
+    t0 = time.perf_counter()
+    with shared_greedy_draws():
+        _states, traj = rl.make_rollout_fn(env, agent, num_steps,
+                                           deterministic=True)(
+            agent, states, gen)
+    _sync(dev)
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    counts = dict(fused_agg.launch_counts)
+    returns = episode_returns(traj.rewards.cpu().numpy(),
+                              traj.terminals.cpu().numpy(), len(formulas))
+    if not np.isfinite(returns).all():
+        raise AssertionError(f'14d {name}: non-finite returns')
+    res = dict(mean=float(returns.mean()), actions=discrete_actions(traj),
+               eval_ms=eval_ms, counts=counts,
+               encoder_dtype=config.get('encoder_dtype') or 'float32')
+    if dev.type != 'cuda':
+        return res
+    want = expected_launches(per_forward_launches(agent, res['encoder_dtype']),
+                             num_steps + 1, 0)
+    tol = (SHARED_BF16_TOL if res['encoder_dtype'] == 'bfloat16'
+           else SHARED_TOL)
+    res.update(cpu=SHARED[name]['cpu'], tol=tol,
+               cpu_err=abs(res['mean'] - SHARED[name]['cpu']))
+    if (counts != want or res['actions'] != SHARED[name]['actions']
+            or not res['cpu_err'] <= tol):
+        raise AssertionError(
+            f'14d {name}: greedy mean {res["mean"]} against the CPU port\'s '
+            f'{SHARED[name]["cpu"]} (tolerance {tol}); actions '
+            f'{res["actions"]} against {SHARED[name]["actions"]}; launches '
+            f'{counts}, expected {want}')
+    return res
+
+
+def run_shared_draws(dev='cuda', names=None):
+    """Phase 14d: evaluate_shared for each of SHARED's runs (`names`: all),
+    and the seconds it took. `dev` cpu (a rehearsal) returns each mean and
+    its actions, the values of SHARED."""
+    dev = torch.device(dev)
+    t0 = time.perf_counter()
+    out = {name: evaluate_shared(dev, name) for name in names or SHARED}
+    return dict(evaluations=out, seconds=time.perf_counter() - t0)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log('chip_smoke: no CUDA device is visible')
@@ -2618,7 +2777,8 @@ def main() -> int:
     log('bf16 training:', json.dumps(bf16_training))
 
     # the fourth path: SF6 with the PM6 reward on the host
-    from molgym_tpu_torch.calculators.native import METHOD_LJ, METHOD_PM6
+    from molgym_tpu_torch.calculators.native import (METHOD_EHT, METHOD_LJ,
+                                                     METHOD_PM6)
     host_lib = build_host_library()
     log('host library:', json.dumps(host_lib))
     pm6 = run_host_transports(dev, METHOD_PM6, 0.0)
@@ -2635,6 +2795,26 @@ def main() -> int:
     pm6_training = run_training(dev, run, build_default_argparser, SF6_PM6,
                                 iterations=2, transport='pipelined')
     log('pm6 training:', json.dumps(pm6_training))
+
+    # phase 10b: SF6 with the EHT reward on the host
+    t0 = time.perf_counter()
+    eht = run_host_transports(dev, METHOD_EHT, 0.0)
+    log('eht transports:', json.dumps(eht))
+    eht_training = run_training(dev, run, build_default_argparser, SF6_EHT,
+                                iterations=2)
+    log('eht training:', json.dumps(eht_training))
+    eht_seconds = time.perf_counter() - t0
+    log(f'eht rollout {PM6_ENVS} envs x {NUM_STEPS} steps: ' + ', '.join(
+        f'{n} {r["ms"]:.1f} ms (reward {r["reward_ms"]:.1f} ms, '
+        f'{r["recomputes"]} recomputes)' for n, r in eht['transports'].items())
+        + '; 2 in-step iterations ' + ' / '.join(
+            f'{t:.1f}' for t in eht_training['iteration_ms'])
+        + ' ms, host reward share of the rollouts ' + ', '.join(
+            f'{r / t:.3f}' for r, t in zip(
+                [x * 1e3 for x in eht_training['reward_time_s']],
+                eht_training['rollout_ms']))
+        + f'; phase 10b {eht_seconds:.1f} s on {card}, nproc '
+        f'{host_lib["nproc"]}')
 
     # the fifth path: the internal (SchNet) agent at SF6, and the mlp model
     internal_rollout = run_internal_rollout(dev)
@@ -2786,6 +2966,20 @@ def main() -> int:
         + f' ms; phase 14: {trained["seconds_evaluations"]:.1f} s of '
         f'evaluations, {trained["seconds_resume"]:.1f} s of resume on {card}')
 
+    # phase 14d: the covariant checkpoints' greedy evaluations from shared
+    # draws, against the CPU port's
+    shared = run_shared_draws()
+    log('shared-draw evaluations:', json.dumps(shared))
+    for name, res in shared['evaluations'].items():
+        log(f'{name} from shared draws: greedy mean {res["mean"]:.7f} (CPU '
+            f'port {res["cpu"]:.7f}, off by {res["cpu_err"]:.3g}, tolerance '
+            f'{res["tol"]}), every focus and element as on the CPU, '
+            f'{res["eval_ms"]:.1f} ms on {card}')
+    log(f'phase 14d: {shared["seconds"]:.1f} s on {card}')
+    shared_counts = {k: sum(r['counts'][k]
+                            for r in shared['evaluations'].values())
+                     for k in training['counts']}
+
     def entry(name, source, replaces, main, others, path=training, **extra):
         """A kernel's line: `launches` from the run of its main path (the
         SF6 training for the f32 kernels, the bf16 SF6 training for the
@@ -2803,6 +2997,8 @@ def main() -> int:
                     bf16_training_launches=bf16_training['counts'][name],
                     pm6_rollout_launches=pm6['counts'][name],
                     pm6_training_launches=pm6_training['counts'][name],
+                    eht_rollout_launches=eht['counts'][name],
+                    eht_training_launches=eht_training['counts'][name],
                     internal_rollout_launches=internal_rollout['counts'][name],
                     internal_training_launches=internal_training['counts'][
                         name],
@@ -2814,6 +3010,7 @@ def main() -> int:
                         family: counts[name] for family, counts in
                         trained['counts_by_family'].items()},
                     resume_launches=resume['counts'][name],
+                    shared_draws_launches=shared_counts[name],
                     **extra)
 
     def entry16(name, source, replaces, main, others, **extra):
@@ -2937,6 +3134,7 @@ def main() -> int:
                       'host_library': host_lib, 'pm6_transports': pm6,
                       'lj_fixup_transports': fixup,
                       'pm6_training': pm6_training,
+                      'eht_transports': eht, 'eht_training': eht_training,
                       'internal_rollout': internal_rollout,
                       'internal_agent_grads': internal_grads,
                       'internal_training': internal_training,
@@ -2952,7 +3150,7 @@ def main() -> int:
                       'b70_kernels': {k: dict(b140=v[0], b70=v[1])
                                       for k, v in b70.items()},
                       'data_parallel': data_parallel,
-                      'trained': trained}))
+                      'trained': trained, 'shared_draws': shared}))
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

@@ -9,7 +9,19 @@ mean training return of the last 10 iterations, the last 4 greedy
 evaluations (return, episode length) and the final one; for the run also
 its iteration seconds (the first, which builds the kernels, the median of
 the rest, the sum), which the reference's records lack. Host only: it reads
-the JSON lines a run wrote (tools/util.py's InfoSaver).
+the JSON lines a run wrote (tools/util.py's InfoSaver). With a host reward
+it adds the reward's share of the rollouts' seconds (the first iteration
+left out).
+
+    python3 -m molgym_tpu_torch.curve_summary --family=sf6_pm6 \\
+        --tag=sf6pm6_run-1 --results=<run 1's results dir> \\
+        --tag=sf6pm6_run-2 --results=<run 2's> ... \\
+        --reference=experiments/sf6_pm6/results
+
+sums up each tag (one --results for all, or one for each) and prints the
+family's verdict under THRESHOLDS beside them (`meets`): the thresholds
+that the port's seeds 1, 2 and 3 of a recorded run are held to when it is
+trained in full on the card, set from the JAX records before any such run.
 """
 from __future__ import annotations
 
@@ -24,10 +36,33 @@ from molgym_tpu_torch.tools.analysis import read_jsonl
 LAST_TRAIN = 10
 LAST_EVALS = 4
 
+# family -> (floor of the last-10 training mean, floor of a greedy eval,
+# the atoms of a full episode). A seed meets its family's threshold when
+# its last-10 mean is at or above the first floor and at least
+# EVALS_TO_MEET of its last LAST_EVALS greedy evals are at or above the
+# second with every atom placed; a family meets it when at least
+# SEEDS_TO_MEET of its seeds (1, 2 and 3) do.
+THRESHOLDS = {
+    'sf6_pm6': (0.35, 0.60, 7),
+    'sf6_internal': (0.40, 0.85, 7),
+    'sf6_eht': (0.70, 1.00, 7),
+    'h2o_eht': (0.25, 0.30, 3),
+}
+EVALS_TO_MEET = 3
+SEEDS_TO_MEET = 2
 
-def summarize(results_dir: str, tag: str) -> dict:
+
+def summarize(results_dir: str, tag: str,
+              max_steps: Optional[int] = None) -> dict:
+    """The run's numbers; with `max_steps`, of its first max_steps env
+    steps only (the iterations that start before them and the evaluations
+    up to them), for a record that a resumed run continued."""
     def lines(mode):
-        return read_jsonl(os.path.join(results_dir, f'{tag}_{mode}.txt'))
+        recs = read_jsonl(os.path.join(results_dir, f'{tag}_{mode}.txt'))
+        if max_steps is None:
+            return recs
+        return [r for r in recs if r['total_num_steps'] < max_steps
+                or (mode == 'eval' and r['total_num_steps'] == max_steps)]
     train, evals, opt = lines('train'), lines('eval'), lines('opt')
     out = dict(
         iterations=len(train),
@@ -43,20 +78,60 @@ def summarize(results_dir: str, tag: str) -> dict:
         out.update(first_iteration_s=seconds[0],
                    median_iteration_s=statistics.median(seconds[1:]),
                    total_iteration_s=sum(seconds))
+    rollouts = [r for r in train[1:] if 'reward_time' in r]
+    if rollouts:
+        out['reward_share'] = (sum(r['reward_time'] for r in rollouts)
+                               / sum(r['time'] for r in rollouts))
     return out
+
+
+def seed_meets(family: str, summary: dict) -> bool:
+    """Whether one seed's summary meets THRESHOLDS[family]."""
+    train_floor, eval_floor, atoms = THRESHOLDS[family]
+    evals_met = sum(ret >= eval_floor and length >= atoms - 1e-6
+                    for ret, length in summary['last4_evals'])
+    return (summary['last10_train_return'] >= train_floor
+            and evals_met >= EVALS_TO_MEET)
+
+
+def meets(family: str, summaries: Sequence[dict]) -> dict:
+    """The verdict on a family's seeds (summarize's dicts): each seed's,
+    and whether at least SEEDS_TO_MEET of them meet THRESHOLDS[family]."""
+    seeds = [seed_meets(family, s) for s in summaries]
+    return dict(family=family, thresholds=THRESHOLDS[family],
+                seeds=seeds, meets=sum(seeds) >= SEEDS_TO_MEET)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
-    parser.add_argument('--tag', required=True, help='e.g. sf6lj_run-1')
-    parser.add_argument('--results', required=True,
-                        help="the run's results directory")
+    parser.add_argument('--tag', required=True, action='append',
+                        help='e.g. sf6lj_run-1; once for each run')
+    parser.add_argument('--results', required=True, action='append',
+                        help="the run's results directory: once for all "
+                        'runs, or once for each')
     parser.add_argument('--reference', help="the JAX record's results "
-                        'directory (experiments/<experiment>/results)')
+                        'directory (experiments/<experiment>/results); a '
+                        'tag without a record there is left out')
+    parser.add_argument('--max_steps', type=int,
+                        help="the reference's first MAX_STEPS env steps "
+                        'only (a record that a resumed run continued)')
+    parser.add_argument('--family', choices=sorted(THRESHOLDS),
+                        help="print the family's verdict (THRESHOLDS)")
     args = parser.parse_args(argv)
-    out = dict(tag=args.tag, run=summarize(args.results, args.tag))
-    if args.reference:
-        out['reference'] = summarize(args.reference, args.tag)
+    if len(args.results) not in (1, len(args.tag)):
+        parser.error('give --results once, or once for each --tag')
+    results = args.results * (len(args.tag) // len(args.results))
+    runs = []
+    for tag, directory in zip(args.tag, results):
+        out = dict(tag=tag, run=summarize(directory, tag))
+        if args.reference and os.path.exists(
+                os.path.join(args.reference, f'{tag}_train.txt')):
+            out['reference'] = summarize(args.reference, tag,
+                                         args.max_steps)
+        runs.append(out)
+    out = runs[0] if len(runs) == 1 else dict(runs=runs)
+    if args.family:
+        out['verdict'] = meets(args.family, [r['run'] for r in runs])
     print(json.dumps(out))
     return out
 

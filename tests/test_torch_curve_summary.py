@@ -1,0 +1,138 @@
+"""molgym_tpu_torch/curve_summary.py on the committed JAX records
+(experiments/*/results/): the last-10 training means and the last 4
+greedy evaluations that the thresholds of a full run on the card were set
+from, the thresholds' rule on those records (sf6_pm6's seeds 1 and 3 meet
+it, seed 2, the 6-atom local optimum of experiments/sf6_pm6/README.md,
+does not; the single-seed records meet it), synthetic curves below a
+floor, and the command line. The file reads experiments/ and writes
+only under pytest's tmp_path."""
+import json
+from pathlib import Path
+
+import pytest
+
+from molgym_tpu_torch import curve_summary
+
+EXPERIMENTS = Path(__file__).resolve().parents[1] / 'experiments'
+
+# tag -> (experiment, the first env steps of the record (a resumed run
+# continued sf6pm6_run-2 to 30,240), its last-10 training mean, its last 4
+# greedy evals, their episode length)
+RECORDS = {
+    'sf6pm6_run-1': ('sf6_pm6', None, 0.4937,
+                     (0.7171, 0.6576, 0.6721, 0.6826), 7),
+    'sf6pm6_run-2': ('sf6_pm6', 15120, -0.1580,
+                     (-0.1111, -0.1033, -0.1085, -0.1072), 6),
+    'sf6pm6_run-3': ('sf6_pm6', None, 0.5256,
+                     (0.7130, 0.7149, 0.7054, 0.6995), 7),
+    'sf6int_run-1': ('sf6_internal', None, 0.5645,
+                     (1.391, 1.311, 1.215, 0.968), 7),
+    'sf6eht_run-1': ('sf6_eht', None, 0.9443,
+                     (1.143, 1.138, 1.130, 1.129), 7),
+    'h2oeht_run-1': ('h2o_eht', None, 0.3174,
+                     (0.333, 0.335, 0.333, 0.332), 3),
+}
+
+
+def record(tag):
+    experiment, max_steps, *_ = RECORDS[tag]
+    return curve_summary.summarize(str(EXPERIMENTS / experiment / 'results'),
+                                   tag, max_steps)
+
+
+@pytest.mark.parametrize('tag', list(RECORDS))
+def test_record_summaries(tag):
+    _experiment, _steps, last10, evals, length = RECORDS[tag]
+    got = record(tag)
+    assert round(got['last10_train_return'], 4) == last10
+    digits = 4 if tag.startswith('sf6pm6') else 3
+    assert [round(r, digits) for r, _n in got['last4_evals']] == list(evals)
+    assert [n for _r, n in got['last4_evals']] == [length] * 4
+    assert got['final_eval'] == got['last4_evals'][-1][0]
+
+
+def test_sf6_pm6_records_meet_two_of_three():
+    verdict = curve_summary.meets(
+        'sf6_pm6', [record(f'sf6pm6_run-{s}') for s in (1, 2, 3)])
+    assert verdict['seeds'] == [True, False, True]
+    assert verdict['meets']
+
+
+@pytest.mark.parametrize('family,tag', [('sf6_internal', 'sf6int_run-1'),
+                                        ('sf6_eht', 'sf6eht_run-1'),
+                                        ('h2o_eht', 'h2oeht_run-1')])
+def test_single_seed_records_meet_their_family(family, tag):
+    assert RECORDS[tag][0] == family
+    assert curve_summary.seed_meets(family, record(tag))
+
+
+def _below(summary, how):
+    """A copy of `summary` moved below its family's threshold one way."""
+    out = dict(summary, last4_evals=list(summary['last4_evals']))
+    if how == 'last10':
+        out['last10_train_return'] = 0.3499
+    elif how == 'two_evals_low':
+        out['last4_evals'][:2] = [(0.5999, 7.0)] * 2
+    else:   # two evals that placed an atom too few
+        out['last4_evals'][1:3] = [(0.9, 6.0)] * 2
+    return out
+
+
+@pytest.mark.parametrize('how', ['last10', 'two_evals_low', 'atoms_short'])
+def test_a_curve_below_a_floor_fails(how):
+    good = record('sf6pm6_run-1')
+    assert curve_summary.seed_meets('sf6_pm6', good)
+    bad = _below(good, how)
+    assert not curve_summary.seed_meets('sf6_pm6', bad)
+    # one seed below makes 2 of 3 still; two below, 1 of 3, fail
+    assert curve_summary.meets('sf6_pm6', [good, bad, good])['meets']
+    assert not curve_summary.meets('sf6_pm6', [good, bad, bad])['meets']
+
+
+def _write_run(directory, tag, returns, evals, reward_time=None):
+    """A run's results as InfoSaver writes them: 140 env steps an
+    iteration, an evaluation every other one."""
+    directory.mkdir(parents=True, exist_ok=True)
+    lines = dict(train=[], opt=[], eval=[])
+    for i, ret in enumerate(returns):
+        train = dict(time=2.0, return_mean=ret, total_num_steps=140 * i)
+        if reward_time is not None:
+            train['reward_time'] = reward_time * (5 if i == 0 else 1)
+        lines['train'].append(train)
+        lines['opt'].append(dict(iteration_time=10.0 if i == 0 else 1.0 + i,
+                                 total_num_steps=140 * i))
+    for i, (ret, length) in enumerate(evals):
+        lines['eval'].append(dict(return_mean=ret, episode_length_mean=length,
+                                  total_num_steps=280 * i))
+    for mode, recs in lines.items():
+        (directory / f'{tag}_{mode}.txt').write_text(
+            ''.join(json.dumps(r) + '\n' for r in recs))
+
+
+def test_command_line_sums_up_a_family(tmp_path, capsys):
+    good = [(0.31, 3.0)] * 4
+    for seed, (last, evals) in enumerate([(0.3, good), (0.2, good),
+                                          (0.3, [(0.31, 2.0)] * 4)], 1):
+        _write_run(tmp_path / str(seed) / 'results', f'h2oeht_run-{seed}',
+                   [0.0] * 5 + [last] * 10, evals, reward_time=0.5)
+    argv = ['--family=h2o_eht']
+    for seed in (1, 2, 3):
+        argv += [f'--tag=h2oeht_run-{seed}',
+                 f'--results={tmp_path / str(seed) / "results"}']
+    argv.append(f'--reference={EXPERIMENTS / "h2o_eht" / "results"}')
+    out = curve_summary.main(argv)
+    assert json.loads(capsys.readouterr().out.splitlines()[-1]) == json.loads(
+        json.dumps(out))
+    # only seed 1 meets: seed 2's last-10 mean and seed 3's atoms fall short
+    assert out['verdict']['seeds'] == [True, False, False]
+    assert not out['verdict']['meets']
+    first = out['runs'][0]
+    assert first['reference']['last10_train_return'] == pytest.approx(
+        0.3174, abs=5e-5)
+    assert 'reference' not in out['runs'][1]   # no record of seed 2
+    run = first['run']
+    assert run['iterations'] == 15 and run['last10_train_return'] == 0.3
+    assert run['first_iteration_s'] == 10.0
+    assert run['median_iteration_s'] == 8.5   # of 2.0 .. 15.0
+    assert run['total_iteration_s'] == 10.0 + sum(range(2, 16))
+    assert run['reward_share'] == 0.25   # the first iteration left out

@@ -177,7 +177,8 @@ def episode_returns(rewards, terminals, k):
 
 def evaluate_both(name):
     """(port, JAX) [NUM_ENVS, F] greedy returns of run `name`, the port's
-    env and trajectory, and the run's configuration."""
+    env and trajectory, the run's configuration, the JAX trajectory and
+    the port's agent."""
     run = RUNS[name]
     jax_envs, port_envs = run.get(
         'builders', (jax_driver.standard_envs, driver.standard_envs))
@@ -215,7 +216,7 @@ def evaluate_both(name):
     tret = episode_returns(traj.rewards.numpy(), traj.terminals.numpy(),
                            len(formulas))
     assert np.isfinite(tret).all() and np.isfinite(jret).all()
-    return tret, jret, env, traj, config, jtraj
+    return tret, jret, env, traj, config, jtraj, agent
 
 
 def first_episodes(elements, positions, actions, terminals):
@@ -241,7 +242,7 @@ def first_episodes(elements, positions, actions, terminals):
 @pytest.mark.parametrize('name', list(RUNS))
 def test_trained_driver_checkpoint_evaluates_alike(name):
     run = RUNS[name]
-    tret, jret, env, traj, config, jtraj = evaluate_both(name)
+    tret, jret, env, traj, config, jtraj, _agent = evaluate_both(name)
     assert abs(float(tret.mean()) - float(jret.mean())) <= run['tol'], (
         tret, jret)
     if run.get('recorded_pairs'):
