@@ -90,8 +90,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      ones;
  10. the fourth path, SF6 with the PM6 reward on the host
      (experiments/sf6_pm6/logs/sf6pm6_run-1.json): the native library
-     built from csrc/ into molgym_tpu_torch/_build (its seconds and the
-     host's cores logged); a 10-env x 14-step rollout of the SF6 agent at
+     built by g++ on this host from the port's own sources
+     (molgym_tpu_torch/csrc/host/*.cpp) into molgym_tpu_torch/_build (its
+     seconds, name (the source hash), compiler and the host's cores
+     logged; nothing of the repository's csrc/ is read); a 10-env x 14-step rollout of the SF6 agent at
      full width through the pipelined and the in-step transports from one
      generator state (the in-step one is also the serial host loop, and
      meets the energy cache the pipelined one filled), every field of the
@@ -104,14 +106,28 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      molgym_tpu_torch.run with --host_reward_mode=loop and the checks of
      phase 7, recomputes included in the launch counts, and reward_time
      and transport in every train record;
- 10b. the same with the EHT reward (csrc/eht.cpp; the reward of
-     experiments/sf6_eht and experiments/h2o_eht): the SF6 agent's 10-env x
-     14-step rollout through both transports with phase 10's checks (the
-     same bits, the rewards recomputed, exact launch counts), then 2 PPO
-     iterations of experiments/sf6_eht/README.md's command through
-     molgym_tpu_torch.run with the in-step transport that
+ 10b. the same with the EHT reward (molgym_tpu_torch/csrc/host/eht.cpp;
+     the reward of experiments/sf6_eht and experiments/h2o_eht): the SF6
+     agent's 10-env x 14-step rollout through both transports with phase
+     10's checks (the same bits, the rewards recomputed, exact launch
+     counts), then 2 PPO iterations of experiments/sf6_eht/README.md's
+     command through molgym_tpu_torch.run with the in-step transport that
      --host_reward_mode=auto picks and the checks of phase 7; the host
      reward's share of the rollouts and the host's cores logged;
+ 10c. that build, on this host, against the reference's golden PM6
+     values (tests/test_nddo.py's): the H (doublet), C and O atoms within
+     1e-8 Ha, H2 at 1.2 A and the H2O fixture within 5e-8 Ha, the H2O
+     gradients within 5e-7 Ha/bohr; against the port's numpy oracle
+     (molgym_tpu_torch/calculators/nddo_ref.py) within 2e-9 Ha on the H2O
+     fixture, on SF6 at 1.561 A (the d shell of S) and on the six seeded
+     random molecules of tests/test_nddo.py::test_random_molecules, each
+     trial's outcome printed (equal, a basin flip held to functional
+     parity, an outcome flip, neither converged) and judged as that test
+     judges it (at most one outcome flip and one basin flip, at least four
+     converged in both); and EHT's external anchors
+     (tests/test_eht.py::TestEHTExternalAnchors: H2's Wolfsberg-Helmholz
+     relation within 1e-6, CH4's t2 degeneracy within 1e-6 eV and its
+     Koopmans IPs, N2's gap); every reading beside its gate;
  11. the fifth path, the internal (SchNet) agent at SF6 full width
      (experiments/sf6_internal/logs/sf6int_run-1.json: X,S,F; canvas 7;
      width 128; 3 interactions; 64 atom features): a 140-env x 14-step
@@ -1325,13 +1341,170 @@ def run_stochastic_rollout(dev):
 
 
 def build_host_library():
-    """The native library from csrc/ into molgym_tpu_torch/_build, timed,
-    with the host's cores (the library's pool takes one thread a core)."""
+    """The native library from the port's sources (molgym_tpu_torch/csrc/
+    host/) into molgym_tpu_torch/_build, timed, with the compiler and the
+    host's cores (the library's pool takes one thread a core)."""
     from molgym_tpu_torch import host_build
     t0 = time.perf_counter()
     path = host_build.build()
-    return dict(seconds=time.perf_counter() - t0, library=os.path.relpath(path),
+    seconds = time.perf_counter() - t0
+    compiler = subprocess.run([host_build._compiler(), '--version'],
+                              capture_output=True, text=True).stdout
+    return dict(seconds=seconds, library=os.path.relpath(path),
+                sources=os.path.relpath(host_build.CSRC),
+                compiler=compiler.splitlines()[0],
                 nproc=len(os.sched_getaffinity(0)), cpu_count=os.cpu_count())
+
+
+# phase 10c: the reference's golden PM6 values (tests/test_nddo.py, from
+# the reference's tests/test_sparrow.py and tests/resources/h2o.xyz,
+# energy.dat, gradients.dat): (symbol, spin multiplicity, Hartree)
+GOLDEN_ATOMS = (('H', 2, -0.4133180865), ('C', 1, -4.162353543),
+                ('O', 1, -10.37062419))
+GOLDEN_ATOM_TOL = 1e-8
+GOLDEN_H2 = -0.9379853016   # H2 at 1.2 A, singlet
+GOLDEN_H2O_POS = np.array([[-0.27939703, 0.83823215, 0.00973345],
+                           [-0.52040310, 1.77677325, 0.21391146],
+                           [0.54473632, 0.90669722, -0.53501306]])
+GOLDEN_H2O = -11.72459668
+GOLDEN_H2O_GRADIENTS = np.array(
+    [[-8.700857e-03, -1.502556e-02, 5.081632e-03],
+     [-4.048210e-03, 1.437334e-02, 3.364464e-03],
+     [1.274907e-02, 6.522202e-04, -8.446095e-03]])
+GOLDEN_TOL = 5e-8            # H2 and H2O, Hartree
+GOLDEN_GRADIENT_TOL = 5e-7   # H2O, Hartree/bohr
+ORACLE_TOL = 2e-9            # C++ against the numpy oracle, Hartree
+SF6_BOND = 1.561             # Angstrom, the experimental S-F bond
+
+
+def _pm6_calc(symbols, positions, multiplicity=0):
+    from molgym_tpu_torch.calculators.native import NativeCalc
+    calc = NativeCalc(method='PM6')
+    calc.set_elements(symbols)
+    calc.set_positions(np.asarray(positions, np.float64))
+    calc.set_settings({'molecular_charge': 0,
+                       'spin_multiplicity': multiplicity})
+    return calc
+
+
+def _gate(readings, what, value, gate, error):
+    readings.append(dict(what=what, value=value, error=error, gate=gate))
+    if not error <= gate:
+        raise AssertionError(f'{what}: {value!r}, error {error!r} over '
+                             f'{gate!r}')
+
+
+def random_molecules_against_oracle():
+    """tests/test_nddo.py::TestOracleParity::test_random_molecules on this
+    host's build: six seeded clusters of H, C, N, O, F, each C++ energy
+    within ORACLE_TOL of the numpy oracle's where both converge, a basin
+    flip (both converge, energies apart) held to functional parity (the
+    oracle's energy of the C++ density equal to the C++ energy, that
+    density stationary under the oracle's Fock), and at most one outcome
+    flip and one basin flip; every trial is returned."""
+    from molgym_tpu_torch.calculators import nddo_ref
+    from molgym_tpu_torch.calculators.native import nddo_scf_density
+    rng = np.random.default_rng(7)
+    trials = []
+    for _ in range(6):
+        n = int(rng.integers(2, 6))
+        zs = [int(rng.choice([1, 6, 7, 8, 9])) for _ in range(n)]
+        pos = rng.uniform(-1.0, 1.0, (n, 3)) * 1.4
+        pos[:, 0] += np.arange(n) * 1.6
+        e_cpp = _pm6_calc(zs, pos).calculate_energy()
+        oracle = nddo_ref.NDDO(zs, pos)
+        e_py, conv_py = oracle.scf()
+        trial = dict(zs=zs, cpp=e_cpp, oracle=float(e_py),
+                     oracle_converged=bool(conv_py))
+        if conv_py and not np.isnan(e_cpp):
+            trial['error'] = abs(e_cpp - e_py)
+            if trial['error'] <= ORACLE_TOL:
+                trial['outcome'] = 'equal'
+            else:
+                e_dens, pa, pb = nddo_scf_density(zs, pos)
+                e_func, stat = oracle.energy_of_density(pa, pb)
+                trial.update(outcome='basin flip', density_energy=e_dens,
+                             functional=float(e_func),
+                             stationarity=float(stat))
+                if not (abs(e_dens - e_cpp) <= 1e-9
+                        and abs(e_func - e_cpp) <= 1e-8 and stat < 1e-5):
+                    raise AssertionError(f'functional parity broken: {trial}')
+        elif conv_py != (not np.isnan(e_cpp)):
+            trial['outcome'] = 'outcome flip'
+        else:
+            trial['outcome'] = 'neither converged'
+        trials.append(trial)
+    outcomes = [t['outcome'] for t in trials]
+    if (outcomes.count('outcome flip') > 1 or outcomes.count('basin flip') > 1
+            or sum('error' in t for t in trials) < 4):
+        raise AssertionError(f'random molecules: {outcomes}')
+    return trials
+
+
+def check_host_golden():
+    """Phase 10c: the host library this process loaded, built on this host
+    from the port's sources, held to the reference's golden PM6 values, to
+    the port's numpy oracle (calculators/nddo_ref.py) on the H2O fixture,
+    on SF6 (where the d shell of S is reached) and on six random molecules,
+    and to the EHT anchors of tests/test_eht.py::TestEHTExternalAnchors.
+    Raises on the first reading past its gate; returns every reading beside
+    its gate. Runs on any host: `chip_smoke.check_host_golden()`."""
+    from molgym_tpu_torch.calculators import nddo_ref
+    from molgym_tpu_torch.calculators.native import eht_orbital_energies
+    t0 = time.perf_counter()
+    readings = []
+    for symbol, mult, golden in GOLDEN_ATOMS:
+        e = _pm6_calc([symbol], [(0, 0, 0)], mult).calculate_energy()
+        _gate(readings, f'{symbol} atom (multiplicity {mult})', e,
+              GOLDEN_ATOM_TOL, abs(e - golden))
+    e = _pm6_calc(['H', 'H'], [(0, 0, 0), (1.2, 0, 0)], 1).calculate_energy()
+    _gate(readings, 'H2 at 1.2 A', e, GOLDEN_TOL, abs(e - GOLDEN_H2))
+    h2o = _pm6_calc(['O', 'H', 'H'], GOLDEN_H2O_POS, 1)
+    e, g = h2o.calculate_energy(), h2o.calculate_gradients()
+    _gate(readings, 'H2O fixture', e, GOLDEN_TOL, abs(e - GOLDEN_H2O))
+    _gate(readings, 'H2O gradients, max |error|', g.tolist(),
+          GOLDEN_GRADIENT_TOL, float(np.abs(g - GOLDEN_H2O_GRADIENTS).max()))
+    oracle_h2o = nddo_ref.energy([8, 1, 1], GOLDEN_H2O_POS)
+    _gate(readings, 'H2O fixture against the oracle', e, ORACLE_TOL,
+          abs(e - oracle_h2o))
+    d = SF6_BOND
+    sf6 = [[0, 0, 0], [d, 0, 0], [-d, 0, 0], [0, d, 0], [0, -d, 0],
+           [0, 0, d], [0, 0, -d]]
+    e = _pm6_calc(['S'] + ['F'] * 6, sf6).calculate_energy()
+    _gate(readings, f'SF6 at {d} A against the oracle', e, ORACLE_TOL,
+          abs(e - nddo_ref.energy([16] + [9] * 6, sf6)))
+    trials = random_molecules_against_oracle()
+
+    # EHT: the Wolfsberg-Helmholz two-level relation of H2 (one overlap S
+    # from both eigenvalues), CH4's t2 degeneracy and Koopmans IPs, N2's
+    # HOMO-LUMO gap (tests/test_eht.py::TestEHTExternalAnchors)
+    eps, n_elec = eht_orbital_energies([1, 1], [[0, 0, 0], [0.74, 0, 0]])
+    h_ii, k = -13.6, 1.75
+    s_bond = (eps[0] - h_ii) / (k * h_ii - eps[0])
+    s_anti = (eps[1] - h_ii) / (eps[1] - k * h_ii)
+    if not (n_elec == 2 and len(eps) == 2 and 0.0 < s_bond < 1.0
+            and eps[0] < h_ii < eps[1]):
+        raise AssertionError(f'EHT H2: {eps}, {n_elec}, S {s_bond}')
+    _gate(readings, 'EHT H2 overlap from both levels', s_bond, 1e-6,
+          abs(s_bond - s_anti))
+    r = 1.09 / np.sqrt(3.0)
+    eps, n_elec = eht_orbital_energies(
+        [6, 1, 1, 1, 1], [[0, 0, 0], [r, r, r], [r, -r, -r], [-r, r, -r],
+                          [-r, -r, r]])
+    _gate(readings, 'EHT CH4 t2 degeneracy (eV)', eps[1:4].tolist(), 1e-6,
+          float(max(abs(eps[1] - eps[2]), abs(eps[2] - eps[3]))))
+    if not (n_elec == 8 and len(eps) == 8 and eps[3] < eps[4] - 1.0
+            and -16.5 < eps[1] < -12.5 and -26.5 < eps[0] < -21.0):
+        raise AssertionError(f'EHT CH4: {eps}, {n_elec}')
+    eht = dict(h2_overlap=float(s_bond), ch4_2a1_ev=float(eps[0]),
+               ch4_t2_ev=float(eps[1]), ch4_gap_ev=float(eps[4] - eps[3]))
+    eps, n_elec = eht_orbital_energies([7, 7], [[0, 0, 0], [1.10, 0, 0]])
+    if not (n_elec == 10 and eps[5] - eps[4] > 1.0
+            and -19.0 < eps[4] < -12.0):
+        raise AssertionError(f'EHT N2: {eps}, {n_elec}')
+    eht.update(n2_homo_ev=float(eps[4]), n2_gap_ev=float(eps[5] - eps[4]))
+    return dict(readings=readings, random_molecules=trials, eht=eht,
+                seconds=time.perf_counter() - t0)
 
 
 def recompute_rewards(traj, space, calculator, min_reward):
@@ -2194,7 +2367,7 @@ TRAINED = {
     'halides_pm6': dict(tag='halo_run-1', cpu=0.5729221, gate=1e-3,
                         recorded_gate=1e-3, test=_DRIVER_TEST),
     # the PM6 families' recorded evals of solvation_pm6 and stochastic_pm6
-    # came from the round-3 PM6 constants, which csrc/ no longer builds:
+    # came from the round-3 PM6 constants, which the C++ no longer holds:
     # `recorded_gate` is their measured distance, rounded up. organics_pm6:
     # C2H2O2's greedy episode ends in one of two modes as the best draw
     # falls, each env's change of mode moving the mean by 0.0336, so the
@@ -2815,6 +2988,21 @@ def main() -> int:
                 eht_training['rollout_ms']))
         + f'; phase 10b {eht_seconds:.1f} s on {card}, nproc '
         f'{host_lib["nproc"]}')
+
+    # phase 10c: this host's build of the port's sources against the
+    # reference's golden values, the numpy oracle and the EHT anchors
+    golden = check_host_golden()
+    log('host golden:', json.dumps(golden))
+    for reading in golden['readings']:
+        log(f'  {reading["what"]}: error {reading["error"]:.3e} (gate '
+            f'{reading["gate"]:.0e})')
+    for trial in golden['random_molecules']:
+        log(f'  random molecule {trial["zs"]}: {trial["outcome"]}'
+            + (f', error {trial["error"]:.3e}' if 'error' in trial else ''))
+    log(f'phase 10c {golden["seconds"]:.1f} s; the library '
+        f'{host_lib["library"]} from {host_lib["sources"]} built in '
+        f'{host_lib["seconds"]:.1f} s by {host_lib["compiler"]}, nproc '
+        f'{host_lib["nproc"]}, on {card}')
 
     # the fifth path: the internal (SchNet) agent at SF6, and the mlp model
     internal_rollout = run_internal_rollout(dev)

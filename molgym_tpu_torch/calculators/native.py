@@ -3,7 +3,8 @@ molgym_tpu/calculators/native.py): the thread-pooled batched interaction
 reward and single-molecule energies and gradients of the pair potentials
 (LJ, Morse), extended Hückel and PM6.
 
-The library is the one `host_build.build` makes from `csrc/` into `_build/`.
+The library is the one `host_build.build` makes from the port's sources,
+`molgym_tpu_torch/csrc/host/*.cpp`, into `_build/`.
 It is loaded with `ctypes.CDLL`, which releases the interpreter lock for
 every call, so a reward batch on a worker thread runs beside the thread
 that launches the policy's kernels. Plain numpy; no tensor passes here.
@@ -21,8 +22,8 @@ from molgym_tpu_torch.periodic import ATOMIC_NUMBERS
 
 METHOD_LJ = 0
 METHOD_MORSE = 1
-METHOD_EHT = 2  # extended Hückel (csrc/eht.cpp)
-METHOD_PM6 = 3  # NDDO/PM6 SCF (csrc/nddo.cpp)
+METHOD_EHT = 2  # extended Hückel (csrc/host/eht.cpp)
+METHOD_PM6 = 3  # NDDO/PM6 SCF (csrc/host/nddo.cpp; oracle: nddo_ref.py)
 METHODS = {'lj': METHOD_LJ, 'morse': METHOD_MORSE, 'eht': METHOD_EHT,
            'pm6': METHOD_PM6}
 

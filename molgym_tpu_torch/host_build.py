@@ -1,15 +1,18 @@
-"""Build the native host library (the C++ reward calculators of `csrc/`)
-with g++ at first use.
+"""Build the native host library (the C++ reward calculators of
+`molgym_tpu_torch/csrc/host/`) with g++ at first use.
 
-The three sources `csrc/molgym_host.cpp`, `eht.cpp` and `nddo.cpp` compile
-with the Makefile's flags (and one forced include, see CXXFLAGS) into `_build/libmolgym_host-<hash>.so`. The hash
-covers the sources, the compiler, the flags and this host's CPU identity:
-the library is built `-march=native`, so one built on another CPU may not
-run here, and its SCF may converge to another UHF basin on near-degenerate
-clusters. A build writes a temporary file and moves it into place with
-`os.replace`, so processes that build at once each load a whole library.
-A failed build raises with the compiler's output; nothing stale is loaded
-in its place, and nothing is written into `csrc/`.
+The three sources `csrc/host/molgym_host.cpp`, `eht.cpp` and `nddo.cpp` are
+the port's copies of the JAX package's `csrc/` sources, equal to them but
+for the `#include` lines they lacked (tests/test_torch_package.py holds
+them so). They compile with the JAX package's Makefile flags into
+`_build/libmolgym_host-<hash>.so`. The hash covers the sources, the
+compiler, the flags and this host's CPU identity: the library is built
+`-march=native`, so one built on another CPU may not run here, and its SCF
+may converge to another UHF basin on near-degenerate clusters. A build
+writes a temporary file and moves it into place with `os.replace`, so
+processes that build at once each load a whole library. A failed build
+raises with the compiler's output; nothing stale is loaded in its place,
+and nothing is written beside the sources.
 """
 from __future__ import annotations
 
@@ -21,13 +24,11 @@ from pathlib import Path
 
 from molgym_tpu_torch.cuda_build import BUILD_DIR
 
-CSRC = Path(__file__).resolve().parent.parent / 'csrc'
+CSRC = Path(__file__).resolve().parent / 'csrc' / 'host'
 SOURCES = ('molgym_host.cpp', 'eht.cpp', 'nddo.cpp')
-# csrc/Makefile's CXXFLAGS and its -shared, and <cstdio> included first:
-# nddo.cpp calls std::fprintf without including it, which newer libstdc++
-# headers no longer bring in by the way (g++ on the H100 machines refuses it)
+# the JAX package's csrc/Makefile: its CXXFLAGS and its -shared
 CXXFLAGS = ('-O3', '-march=native', '-fPIC', '-std=c++17', '-Wall', '-pthread',
-            '-shared', '-include', 'cstdio')
+            '-shared')
 
 
 def cpu_key() -> str:

@@ -91,7 +91,7 @@ from molgym_tpu_torch.tools.model_util import build_model
 
 from .test_torch_checkpoint import _restore
 from .test_torch_host_reward import \
-    jax_library_over_the_port_build  # noqa: F401  (module fixture)
+    jax_library_built_from_csrc  # noqa: F401  (module fixture)
 
 EXPERIMENTS = Path(__file__).resolve().parents[1] / 'experiments'
 NUM_ENVS = 8

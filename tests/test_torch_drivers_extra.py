@@ -39,7 +39,7 @@ from molgym_tpu_torch.tools.model_io import ModelIO
 
 from .test_torch_driver_checkpoints import EXPERIMENTS, recorded_config
 from .test_torch_host_reward import \
-    jax_library_over_the_port_build  # noqa: F401  (module fixture)
+    jax_library_built_from_csrc  # noqa: F401  (module fixture)
 
 SOLUTE = str(EXPERIMENTS / 'solvation' / 'solute.xyz')
 CUBE = str(EXPERIMENTS / 'scaffold_pm6' / 'cube.xyz')

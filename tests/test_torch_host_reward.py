@@ -1,20 +1,27 @@
 """The port's host reward layer against molgym_tpu's, on the CPU: the native
-library (built by the port into molgym_tpu_torch/_build), its
-single-molecule calculator, the reward classes, the device solvation
-penalty, the minimizer, and the env's host-reward step.
+library (built by the port from molgym_tpu_torch/csrc/host/ into
+molgym_tpu_torch/_build), its single-molecule calculator, the reward
+classes, the device solvation penalty, the minimizer, and the env's
+host-reward step.
 
-The JAX package's bindings run here over a second copy of the port's build
-(`jax_library_over_the_port_build`): their own loader would run `make -C
+Two builds from two source trees are compared. The JAX package's bindings
+run here over a library that the test compiles itself
+(`jax_library_built_from_csrc`), from a copy of the repository's csrc/
+sources with csrc/Makefile's flags: their own loader would run `make -C
 csrc`, which rewrites the tracked csrc/libmolgym_host.so, and no test of
-the port may write there. The copy loads as a library of its own, with its
-own energy cache and thread pool, so neither package reads the other's
-results. Both are compiled from csrc's sources with the Makefile's flags, so
-batched rewards, energies and gradients agree within 1e-10 relative, and
-minimized positions within 1e-6 Angstrom. float32 rewards of the env step
-agree within 1e-6 relative (one float32 rounding of equal float64 values).
-The PM6 geometries are near equilibrium, away from the near-degenerate
-clusters on which an SCF may land in another UHF basin (PARITY.md)."""
+the port may write there. The port's library comes from its own copies of
+those sources. Each module loads a copy of the test's build as a library
+of its own, with its own energy cache and thread pool, so neither package
+reads the other's results. Both compile the same code with the same flags,
+so batched rewards, energies and gradients agree within 1e-10 relative,
+and minimized positions within 1e-6 Angstrom. float32 rewards of the env
+step agree within 1e-6 relative (one float32 rounding of equal float64
+values). The PM6 geometries are near equilibrium, away from the
+near-degenerate clusters on which an SCF may land in another UHF basin
+(PARITY.md)."""
+import os
 import shutil
+import subprocess
 from pathlib import Path
 
 import jax
@@ -43,14 +50,39 @@ RTOL = 1e-10
 METHODS = ('lj', 'morse', 'eht', 'pm6')
 
 
+CSRC = Path(__file__).resolve().parents[1] / 'csrc'
+# csrc/Makefile's CXXFLAGS and its -shared, and <cstdio> included first:
+# csrc/nddo.cpp calls std::fprintf without including it, which newer
+# libstdc++ headers no longer bring in by the way
+JAX_CXXFLAGS = ('-O3', '-march=native', '-fPIC', '-std=c++17', '-Wall',
+                '-pthread', '-shared', '-include', 'cstdio')
+
+
+def build_jax_library(tmp_path_factory) -> Path:
+    """The JAX package's library, compiled once a session from a copy of
+    csrc/'s three sources into the session's temporary directory."""
+    src = tmp_path_factory.getbasetemp() / 'jax_csrc'
+    lib = src / 'libmolgym_host.so'
+    if not lib.exists():
+        src.mkdir(exist_ok=True)
+        for name in host_build.SOURCES:
+            shutil.copy2(CSRC / name, src / name)
+        tmp = src / 'libmolgym_host.so.tmp'
+        subprocess.run([os.environ.get('CXX', 'g++'), *JAX_CXXFLAGS, '-o',
+                        str(tmp), *(str(src / n) for n in host_build.SOURCES)],
+                       check=True, capture_output=True)
+        os.replace(tmp, lib)
+    return lib
+
+
 @pytest.fixture(scope='module', autouse=True)
-def jax_library_over_the_port_build(tmp_path_factory):
+def jax_library_built_from_csrc(tmp_path_factory):
     """molgym_tpu.calculators.native's library, for the tests of a module,
     loaded by its own `load_library` (its signatures) from a copy of the
-    port's build in a directory without a Makefile, so that it builds
-    nothing; the module's previous library is restored after."""
+    test's build of csrc/ in a directory without a Makefile, so that it
+    builds nothing; the module's previous library is restored after."""
     copy = tmp_path_factory.mktemp('jax_native') / 'libmolgym_host.so'
-    shutil.copy(host_build.build(), copy)
+    shutil.copy(build_jax_library(tmp_path_factory), copy)
     with pytest.MonkeyPatch.context() as patch:
         patch.setattr(jnative, '_lib', None)
         patch.setattr(jnative, '_CSRC_DIR', str(copy.parent))
@@ -178,7 +210,7 @@ def test_orbitals_and_density_match_jax():
 
 def _copy_sources(dst: Path) -> Path:
     dst.mkdir()
-    for name in host_build.SOURCES + ('Makefile', 'libmolgym_host.so'):
+    for name in host_build.SOURCES:
         shutil.copy2(host_build.CSRC / name, dst / name)
     return dst
 
@@ -189,9 +221,9 @@ def _snapshot(directory: Path):
 
 
 def test_build_writes_only_into_its_build_dir(tmp_path):
-    """A build from a copy of csrc/ (with its tracked libmolgym_host.so)
-    leaves every file of the copy as it was and writes one library into
-    the build directory; the port's default build directory is _build/."""
+    """A build from a copy of the port's csrc/host/ leaves every file of
+    the copy as it was and writes one library into the build directory;
+    the port's default build directory is _build/."""
     assert host_build.library_path().parent == (
         Path(host_build.__file__).parent / '_build')
     src = _copy_sources(tmp_path / 'csrc')

@@ -45,7 +45,7 @@ from .test_torch_checkpoint import (NUM_ENVS, _first_returns, _restore,
                                     agent_pair)
 from .test_torch_driver_checkpoints import recorded_config
 from .test_torch_host_reward import \
-    jax_library_over_the_port_build  # noqa: F401  (module fixture)
+    jax_library_built_from_csrc  # noqa: F401  (module fixture)
 
 ZS = (0, 1, 8)
 FIELDS = ('rewards', 'terminals', 'actions', 'logps', 'values',

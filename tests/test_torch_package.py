@@ -252,3 +252,103 @@ def test_new_drivers_refuse_cpu_without_device(monkeypatch, tmp_path, driver):
     with pytest.raises(RuntimeError, match='no CUDA device'):
         module.main(argv)
     assert not (tmp_path / 'results').exists()
+
+
+# -- the host library's sources: the port's own copies ----------------------
+
+PACKAGE = ROOT / 'molgym_tpu_torch'
+REPO_CSRC = ROOT / 'csrc'
+
+
+def _code_strings(path):
+    """The string constants of a file's code, its docstrings left out."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    docstrings = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and isinstance(
+                    first.value, ast.Constant):
+                docstrings.add(id(first.value))
+    return [node.value for node in ast.walk(tree)
+            if isinstance(node, ast.Constant) and isinstance(node.value, str)
+            and id(node) not in docstrings]
+
+
+def test_host_sources_and_flags_are_the_ports():
+    """The host library builds from the package's csrc/host/, with
+    csrc/Makefile's CXXFLAGS and -shared and nothing forced in."""
+    from molgym_tpu_torch import host_build
+    assert host_build.CSRC == PACKAGE / 'csrc' / 'host'
+    for name in host_build.SOURCES:
+        assert (host_build.CSRC / name).is_file()
+        assert PACKAGE in (host_build.CSRC / name).resolve().parents
+    makefile = (REPO_CSRC / 'Makefile').read_text()
+    flags = next(line.split('?=', 1)[1].split() for line in
+                 makefile.splitlines() if line.startswith('CXXFLAGS'))
+    assert host_build.CXXFLAGS == tuple(flags) + ('-shared', )
+    assert '-include' not in host_build.CXXFLAGS
+
+
+def test_no_port_module_reads_the_repo_csrc():
+    """No module of the port, and not chip_smoke.py, names the repository's
+    csrc/ or its libmolgym_host.so as a path: a code string 'csrc' is a
+    path part only in modules whose CSRC lies in the package, and every
+    other string naming csrc/ names the package's."""
+    import importlib
+    bad, joins = [], []
+    for path in _port_files():
+        for text in _code_strings(path):
+            if text == 'csrc':
+                joins.append(path)
+            elif 'csrc/' in text and 'molgym_tpu_torch/csrc/' not in text:
+                bad.append(f'{path.relative_to(ROOT)}: {text!r}')
+            elif text.endswith('libmolgym_host.so'):
+                bad.append(f'{path.relative_to(ROOT)}: {text!r}')
+    assert not bad, bad
+    assert {p.relative_to(ROOT).as_posix() for p in joins} == {
+        'molgym_tpu_torch/cuda_build.py', 'molgym_tpu_torch/host_build.py'}
+    for path in joins:
+        module = importlib.import_module('molgym_tpu_torch.' + path.stem)
+        assert PACKAGE in module.CSRC.parents
+
+
+def _without_added_includes(copy: str, original: str) -> str:
+    """`copy` less the #include lines that `original` does not have."""
+    have = set(original.splitlines())
+    return ''.join(line for line in copy.splitlines(keepends=True)
+                   if not (line.startswith('#include')
+                           and line.rstrip('\n') not in have))
+
+
+@pytest.mark.parametrize('name', ['molgym_host.cpp', 'eht.cpp', 'nddo.cpp'])
+def test_host_source_copies_equal_the_originals(name):
+    """Each of the port's C++ sources is its csrc/ original once the
+    #include lines it adds are removed; nddo.cpp adds <cstdio>, which the
+    original uses (std::fprintf) without including."""
+    from molgym_tpu_torch import host_build
+    assert name in host_build.SOURCES
+    copy = (host_build.CSRC / name).read_text()
+    original = (REPO_CSRC / name).read_text()
+    assert _without_added_includes(copy, original) == original
+    added = set(copy.splitlines()) - set(original.splitlines())
+    assert all(line.startswith('#include') for line in added)
+    if name == 'nddo.cpp':
+        assert added == {'#include <cstdio>'}
+
+
+def _after_docstring(path):
+    text = path.read_text()
+    tree = ast.parse(text)
+    doc = tree.body[0]
+    assert isinstance(doc, ast.Expr) and isinstance(doc.value, ast.Constant)
+    return '\n'.join(text.splitlines()[doc.end_lineno:])
+
+
+def test_nddo_oracle_equals_the_jax_packages_but_for_its_docstring():
+    ours = PACKAGE / 'calculators' / 'nddo_ref.py'
+    original = ROOT / 'molgym_tpu' / 'calculators' / 'nddo_ref.py'
+    assert _after_docstring(ours) == _after_docstring(original)
+    assert 'molgym_tpu_torch/csrc/host/nddo.cpp' in ast.get_docstring(
+        ast.parse(ours.read_text()))

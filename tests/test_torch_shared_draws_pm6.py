@@ -8,7 +8,7 @@ reads experiments/ and writes nothing there."""
 import pytest
 
 from .test_torch_host_reward import \
-    jax_library_over_the_port_build  # noqa: F401  (module fixture)
+    jax_library_built_from_csrc  # noqa: F401  (module fixture)
 from .test_torch_host_reward import one_torch_thread  # noqa: F401
 from .test_torch_host_rollout import SF6_PM6
 from .test_torch_shared_draws import check
