@@ -185,7 +185,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      writer, also evaluates), and rank 0's first reduced gradient of
      iteration 1 within 1e-5 of each leaf's max |g| of one process's
      make_train_fn from the same gathered trajectory, parameters,
-     optimizer and generator state, with the same number of steps; then
+     optimizer and generator state, with the same number of steps; and,
+     the run not depending on W, (b)'s first gathered training rollout and
+     its parameters after the 2 iterations against (a)'s plain run from
+     the same seed and weights, at tests/test_torch_parallel_draws.py's
+     gates (DP_RUN_TOL; the largest differences logged); then
      (a) and (b) each time 2 more iterations alike, with no evaluation and
      no writes on any rank: each rank's iteration ms and the env-steps/s
      of both together beside (a)'s; (d) molgym_tpu_torch.run --multihost
@@ -197,7 +201,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      iterations of molgym_tpu_torch.run --num_devices=2 over NCCL with
      finite records, a step in every update and a checkpoint of the right
      step count and optimizer count; with one card, a line saying it did
-     not run;
+     not run; (e) the bf16 encoder (--encoder_dtype=bfloat16): one
+     iteration at two ranks on this card over gloo against the same in
+     one process, the same number of steps, the differences of the first
+     rollout and the parameters logged, not gated;
  14. the JAX package's trained checkpoints (fourteen: the run-1 checkpoints
      of thirteen experiments, stochastic, sf6_bf16, sf6_pm6, sf6_internal,
      sf6_internal_pm6, solvation, scaffold_pm6, qm9_pm6, organics,
@@ -1911,6 +1918,16 @@ def run_covariance(dev):
 DP_RUN = [a for a in CANONICAL if not a.startswith('--num_steps=')] + [
     '--num_steps=280']
 DP_GRAD_TOL = 1e-5   # rank 0's reduced gradient against one process's
+# W = 2 against W = 1 from the same seed and weights, at the gates of
+# tests/test_torch_parallel_draws.py: the first training rollout's discrete
+# sub-actions (the covariant agent's focus and element), terminals,
+# elements and bags equal, its continuous sub-actions and positions within
+# DP_RUN_TOL, its rewards, values and log-probs within DP_RUN_TOL of
+# max(1, |value|); the parameters after the run by assert_params_close's
+# rule (every element within 2 lr per step + DP_RUN_TOL, at most 1% beyond
+# DP_RUN_TOL)
+DP_RUN_TOL = 1e-5
+DP_DISCRETE = (0, 1)
 
 
 def _sync(dev):
@@ -1981,11 +1998,23 @@ def _dp_expected(config, agent, records, evaluates):
         minibatches * sum(r['num_grad_passes'] for r in opt))
 
 
+class _FirstRollout:
+    """A rollout saver that keeps the run's first training rollout."""
+
+    def __init__(self):
+        self.arrays = None
+
+    def save(self, obj, num_steps, info):
+        if info == 'train' and self.arrays is None:
+            self.arrays = obj
+
+
 def dp_w1_rank(device, argv):
     """Phase 13a, in one spawned rank on `device` (cuda: cuda:0 over
     NCCL): the iterations of `argv`'s run through plain batch_ppo, then
     through batch_ppo(mesh=make_mesh(1, device)) from the same weights and
-    seed, with the launch counts of each; then the timed iterations."""
+    seed, with the launch counts of each and the first training rollout;
+    then the timed iterations."""
     from molgym_tpu_torch.ops import fused_agg
     from molgym_tpu_torch.parallel.mesh import make_mesh
     from molgym_tpu_torch.rl.ppo import batch_ppo
@@ -1996,18 +2025,19 @@ def dp_w1_rank(device, argv):
         out = dict(backend=mesh.backend, device=str(mesh.device))
         for name, m in (('plain', None), ('mesh', mesh)):
             agent.load_state_dict(init)
-            records = MemoryInfoSaver()
+            records, first = MemoryInfoSaver(), _FirstRollout()
             _sync(mesh.device)
             fused_agg.reset_launch_counts()
             t0 = time.perf_counter()
             batch_ppo(envs, eval_envs, agent, info_saver=records, mesh=m,
-                      **kwargs)
+                      rollout_saver=first, save_train_rollout=True,
+                      save_eval_rollout=False, **kwargs)
             _sync(mesh.device)
             out[name] = dict(
                 seconds=time.perf_counter() - t0, records=records.lines,
                 counts=dict(fused_agg.launch_counts),
                 expected=_dp_expected(config, agent, records.lines, True),
-                params=_cpu_params(agent))
+                params=_cpu_params(agent), first_rollout=first.arrays)
         out['timed_ms'] = _timed_iterations(mesh, envs, agent, kwargs)
         return out
 
@@ -2096,7 +2126,8 @@ def dp_w2_rank(device, argv):
                    counts=dict(fused_agg.launch_counts),
                    expected=_dp_expected(config, agent, records.lines,
                                          writer),
-                   per_iteration=per_iteration)
+                   per_iteration=per_iteration,
+                   first_rollout=snapshots[0][0])
         out['timed_ms'] = _timed_iterations(mesh, envs, agent, kwargs)
         if not writer:
             return out
@@ -2149,6 +2180,76 @@ def dp_w2_rank(device, argv):
                    ref_num_opt_steps=ref_info['num_opt_steps'],
                    num_opt_steps=opt[1]['num_opt_steps'])
         return out
+
+
+def dp_rollout_err(got, want):
+    """The differences of a data-parallel run's first training rollout
+    (numpy, as a rollout saver gets it) from one process's: `parted`, the
+    discrete sub-actions, terminals, elements and bags that differ; the
+    largest |difference| of the continuous sub-actions and positions; and
+    of the rewards, values, log-probs and bootstrap values, each over
+    max(1, |value|)."""
+    parted = int((got['actions'][..., DP_DISCRETE]
+                  != want['actions'][..., DP_DISCRETE]).sum())
+    parted += int((got['terminals'] != want['terminals']).sum())
+    out = dict(actions=float(np.abs(got['actions']
+                                    - want['actions']).max()),
+               positions=0.0)
+    for o in ('obs', 'next_obs'):
+        for f in ('elements', 'bag'):
+            parted += int((got[o][f] != want[o][f]).sum())
+        out['positions'] = max(out['positions'], float(np.abs(
+            got[o]['positions'] - want[o]['positions']).max()))
+    for f in ('rewards', 'values', 'logps', 'bootstrap_value'):
+        out[f] = float((np.abs(got[f] - want[f])
+                        / np.maximum(1.0, np.abs(want[f]))).max())
+    return dict(parted=parted, **out)
+
+
+def dp_params_err(params, ref, lr, steps):
+    """assert_params_close's rule between two parameter sets: the largest
+    |difference|, its bound 2 lr per step + DP_RUN_TOL, and the share of
+    elements beyond DP_RUN_TOL (at most 0.01)."""
+    diffs = [(p - ref[k]).abs() for k, p in params.items()]
+    return dict(max_diff=max(float(d.max()) for d in diffs),
+                bound=2 * lr * steps + DP_RUN_TOL,
+                off_share=sum(int((d > DP_RUN_TOL).sum()) for d in diffs)
+                / sum(d.numel() for d in diffs))
+
+
+def dp_run_ok(rollout, params):
+    return (rollout['parted'] == 0
+            and all(v <= DP_RUN_TOL for k, v in rollout.items()
+                    if k != 'parted')
+            and params['max_diff'] <= params['bound']
+            and params['off_share'] <= 0.01)
+
+
+def dp_bf16_rank(device, argv):
+    """Phase 13e, in each of two spawned ranks, both on `device` (cuda:0)
+    over gloo: one iteration of `argv`'s run (the bf16 encoder) through
+    make_dp_ppo_iteration; rank 0 first runs the same iteration in one
+    process (mesh=None) from the same weights and seed, and returns both
+    first rollouts and parameters."""
+    from molgym_tpu_torch.parallel.mesh import make_dp_ppo_iteration, make_mesh
+    with make_mesh(2, device, backend='gloo') as mesh:
+        config, envs, _eval_envs, agent, kwargs = _dp_setup(mesh.device,
+                                                            argv)
+        init = {k: v.clone() for k, v in agent.state_dict().items()}
+        out = {}
+        for name, m in (('single', None), ('mesh', mesh)):
+            if m is None and mesh.rank != 0:
+                continue
+            agent.load_state_dict(init)
+            init_fn, iteration = make_dp_ppo_iteration(
+                envs, agent, kwargs['config'], config['num_envs'],
+                config['num_steps_per_iter'], m)
+            states, optimizer, generator = init_fn(config['seed'])
+            _states, traj, info = iteration(states, generator)
+            out[name] = dict(rollout=traj.to_numpy(),
+                             params=_cpu_params(agent),
+                             steps=optimizer.count)
+        return out if mesh.rank == 0 else None
 
 
 def run_cli_data_parallel(device, argv):
@@ -2272,6 +2373,21 @@ def run_data_parallel(device='cuda', argv=DP_RUN):
     r0 = b[0]
     if len(r0['per_iteration']) != 2:
         raise AssertionError('13b: 2 iterations expected')
+    # the run does not depend on W: W = 2 against 13a's plain W = 1 run
+    lr = build_default_argparser().parse_args(argv).learning_rate
+    steps = sum(x['num_opt_steps'] for n, x in plain['records'] if n == 'opt')
+    against_w1 = [dict(rollout=dp_rollout_err(r['first_rollout'],
+                                              plain['first_rollout']),
+                       params=dp_params_err(r['per_iteration'][-1],
+                                            plain['params'], lr, steps))
+                  for r in b]
+    log('phase 13b against 13a (W = 2 against W = 1, the first training '
+        'rollout and the parameters after 2 iterations):',
+        json.dumps(against_w1))
+    for r, err in zip(b, against_w1):
+        if not dp_run_ok(err['rollout'], err['params']):
+            raise AssertionError(f'13b rank {r["rank"]}: W = 2 differs from '
+                                 f'W = 1 beyond the gates: {err}')
     if (r0['grad_err'] > DP_GRAD_TOL
             or r0['num_opt_steps'] != r0['ref_num_opt_steps']):
         raise AssertionError(
@@ -2293,12 +2409,28 @@ def run_data_parallel(device='cuda', argv=DP_RUN):
         timed_ms=[r['timed_ms'] for r in b],
         env_steps_per_s=[samples * 1e3 / max(a_, b_)
                          for a_, b_ in zip(*(r['timed_ms'] for r in b))],
-        counts=[r['counts'] for r in b])
+        counts=[r['counts'] for r in b], against_w1=against_w1)
     res['w1']['env_steps_per_s'] = [samples * 1e3 / t
                                     for t in res['w1']['timed_ms']]
     res['w2']['ratio_to_w1'] = [w2 / w1 for w2, w1 in zip(
         res['w2']['env_steps_per_s'], res['w1']['env_steps_per_s'])]
     res['cli'] = run_cli_data_parallel(device, argv)
+
+    # the bf16 encoder, W = 2 against one process: measured, not gated
+    bf16 = spawn(dp_bf16_rank, launch(2),
+                 ('cuda:0' if device == 'cuda' else device,
+                  argv + ['--encoder_dtype=bfloat16']), timeout=600)[0]
+    lr_steps = (lr, bf16['single']['steps'])
+    if bf16['mesh']['steps'] != bf16['single']['steps']:
+        raise AssertionError(f'13e: {bf16["mesh"]["steps"]} steps at W = 2, '
+                             f'{bf16["single"]["steps"]} in one process')
+    res['bf16_against_w1'] = dict(
+        rollout=dp_rollout_err(bf16['mesh']['rollout'],
+                               bf16['single']['rollout']),
+        params=dp_params_err(bf16['mesh']['params'],
+                             bf16['single']['params'], *lr_steps))
+    log('phase 13e, the bf16 encoder, W = 2 against one process (one '
+        'iteration; measured, not gated):', json.dumps(res['bf16_against_w1']))
 
     if device != 'cuda' or torch.cuda.device_count() < 2:
         log('phase 13c not run: one card visible, NCCL across two cards '

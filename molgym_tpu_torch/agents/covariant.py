@@ -24,6 +24,7 @@ from molgym_tpu_torch.distributions import spherical
 from molgym_tpu_torch.distributions.discrete import categorical_head
 from molgym_tpu_torch.distributions.gmm import (gmm_argmax, gmm_log_prob,
                                                 gmm_sample)
+from molgym_tpu_torch.draws import Rng
 from molgym_tpu_torch.ops.masked import to_one_hot
 from molgym_tpu_torch.ops.so3 import (atomic_scalars, atomic_scalars_dim,
                                       select_atomic_covariats,
@@ -92,7 +93,7 @@ class CovariantAC(nn.Module):
         return NUM_SUBACTIONS
 
     def _step(self, obs: Observation, actions: Optional[torch.Tensor],
-              generator: Optional[torch.Generator], deterministic: bool,
+              generator: Optional[Rng], deterministic: bool,
               return_dists: bool = False):
         batch = obs.elements.shape[0]
         device = obs.elements.device
@@ -179,7 +180,7 @@ class CovariantAC(nn.Module):
                              so3_dist=so3_dist)
         return out
 
-    def act(self, obs: Observation, generator: torch.Generator,
+    def act(self, obs: Observation, generator: Rng,
             deterministic: bool = False) -> AgentOutput:
         return self._step(obs, None, generator, deterministic)
 
@@ -187,7 +188,7 @@ class CovariantAC(nn.Module):
         out = self._step(obs, action_flat, None, False)
         return out.logp, out.ent, out.v
 
-    def act_with_dists(self, obs: Observation, generator: torch.Generator,
+    def act_with_dists(self, obs: Observation, generator: Rng,
                        deterministic: bool = False):
         return self._step(obs, None, generator, deterministic,
                           return_dists=True)

@@ -30,6 +30,7 @@ from molgym_tpu_torch.device import DeviceLike, resolve_device
 from molgym_tpu_torch.distributions.discrete import (categorical_head,
                                                      normal_log_prob,
                                                      normal_sample)
+from molgym_tpu_torch.draws import Rng
 from molgym_tpu_torch.ops import zmat
 from molgym_tpu_torch.ops.masked import masked_sum, to_one_hot
 from molgym_tpu_torch.spaces import Observation
@@ -108,7 +109,7 @@ class InternalAC(nn.Module):
         return torch.cat([logit(1.0), logit(-1.0)], dim=-1)
 
     def _step(self, obs: Observation, actions: Optional[torch.Tensor],
-              generator: Optional[torch.Generator], deterministic: bool):
+              generator: Optional[Rng], deterministic: bool):
         batch = obs.elements.shape[0]
         device = obs.elements.device
         n_atoms = (obs.elements != 0).sum(dim=-1)
@@ -190,7 +191,7 @@ class InternalAC(nn.Module):
         return AgentOutput(action_flat=actions, element=element,
                            position=position, logp=logp, ent=ent, v=v)
 
-    def act(self, obs: Observation, generator: torch.Generator,
+    def act(self, obs: Observation, generator: Rng,
             deterministic: bool = False) -> AgentOutput:
         return self._step(obs, None, generator, deterministic)
 

@@ -1,9 +1,11 @@
 """Masked categorical distribution as plain functions (counterpart of
 molgym_tpu/distributions/discrete.py). Sampling draws from an explicit
-torch.Generator. `categorical_head` is one whole head of the policy
-(probabilities, the chosen index, its log-probability and the entropy) in
-one fused kernel on the card; the other functions are its parts. The
-normal helpers serve the internal agent's continuous heads."""
+torch.Generator, or the Draws of a data-parallel rank's rows (draws.py),
+the batch on axis 0 (gumbel: on `batch_dim`). `categorical_head` is one
+whole head of the policy (probabilities, the chosen index, its
+log-probability and the entropy) in one fused kernel on the card; the
+other functions are its parts. The normal helpers serve the internal
+agent's continuous heads."""
 from __future__ import annotations
 
 import math
@@ -11,6 +13,7 @@ from typing import Optional
 
 import torch
 
+from molgym_tpu_torch.draws import Rng, as_draws
 from molgym_tpu_torch.ops.fused_softmax import (Head, categorical_entropy,
                                                 categorical_log_prob,
                                                 gumbel_from_uniform,
@@ -23,10 +26,11 @@ __all__ = ['gumbel', 'masked_categorical_probs', 'categorical_sample',
            'normal_sample']
 
 
-def gumbel(shape, generator: torch.Generator, device) -> torch.Tensor:
-    """Standard Gumbel noise -log(-log U) from `generator`."""
+def gumbel(shape, generator: Rng, device, batch_dim: int = 0) -> torch.Tensor:
+    """Standard Gumbel noise -log(-log U) from `generator`, the batch on
+    `batch_dim`."""
     return gumbel_from_uniform(
-        torch.rand(shape, generator=generator, device=device))
+        as_draws(generator).rand(shape, device=device, batch_dim=batch_dim))
 
 
 def masked_categorical_probs(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -36,7 +40,7 @@ def masked_categorical_probs(logits: torch.Tensor, mask: torch.Tensor) -> torch.
     return masked_softmax(logits, mask)
 
 
-def categorical_sample(generator: torch.Generator, probs: torch.Tensor) -> torch.Tensor:
+def categorical_sample(generator: Rng, probs: torch.Tensor) -> torch.Tensor:
     """Gumbel-max sampling over the last axis; zero-prob entries never win."""
     return gumbel_max(probs, gumbel(probs.shape, generator, probs.device))
 
@@ -46,7 +50,7 @@ def categorical_argmax(probs: torch.Tensor) -> torch.Tensor:
 
 
 def categorical_head(logits: torch.Tensor, mask: torch.Tensor,
-                     generator: Optional[torch.Generator],
+                     generator: Optional[Rng],
                      index: Optional[torch.Tensor] = None,
                      deterministic: bool = False) -> Head:
     """One masked categorical head: (probs, index, logp, ent) over the last
@@ -59,7 +63,7 @@ def categorical_head(logits: torch.Tensor, mask: torch.Tensor,
         return masked_categorical(logits, mask, index=index)
     if deterministic:
         return masked_categorical(logits, mask, greedy=True)
-    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    u = as_draws(generator).rand(logits.shape, device=logits.device)
     return masked_categorical(logits, mask, u=u)
 
 
@@ -73,8 +77,8 @@ def normal_entropy(std: torch.Tensor) -> torch.Tensor:
     return 0.5 * torch.log(2.0 * math.pi * math.e * std * std)
 
 
-def normal_sample(generator: torch.Generator, mean: torch.Tensor,
+def normal_sample(generator: Rng, mean: torch.Tensor,
                   std: torch.Tensor) -> torch.Tensor:
     """mean + std * one torch.randn draw of `generator`, of mean's shape."""
-    return mean + std * torch.randn(mean.shape, generator=generator,
-                                    device=mean.device, dtype=mean.dtype)
+    return mean + std * as_draws(generator).randn(
+        mean.shape, device=mean.device, dtype=mean.dtype)

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from molgym_tpu_torch.distributions.discrete import gumbel
+from molgym_tpu_torch.draws import Rng, as_draws
 from molgym_tpu_torch.ops.quadrature import gauss_legendre_sphere
 from molgym_tpu_torch.ops.so3 import (generate_fibonacci_grid, normalize_alms,
                                       sum_product_alms_ylms)
@@ -57,10 +58,10 @@ def _quadrature(n_theta: int, device: torch.device):
             torch.from_numpy(np.log(weights).astype(np.float32)).to(device))
 
 
-def random_rotation_matrices(generator: torch.Generator, n: int,
+def random_rotation_matrices(generator: Rng, n: int,
                              device) -> torch.Tensor:
     """Uniform random rotations via normalized quaternions -> [n, 3, 3]."""
-    q = torch.randn((n, 4), generator=generator, device=device)
+    q = as_draws(generator).randn((n, 4), device=device)
     q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
     w, x, y, z = q[:, 0], q[:, 1], q[:, 2], q[:, 3]
     return torch.stack([
@@ -113,7 +114,7 @@ def make_so3_distribution(a_lms: Sequence[torch.Tensor], empty: torch.Tensor,
                            beta=beta)
 
 
-def sample(dist: SO3Distribution, generator: torch.Generator) -> torch.Tensor:
+def sample(dist: SO3Distribution, generator: Rng) -> torch.Tensor:
     """One sample per batch element -> [B, 3]: Gumbel-categorical over a
     randomly rotated Fibonacci grid weighted by the density."""
     batch = dist.coefficients[0].shape[0]
@@ -123,7 +124,8 @@ def sample(dist: SO3Distribution, generator: torch.Generator) -> torch.Tensor:
     points = torch.einsum('bij,kj->kbi', rots, grid)  # [K, B, 3]
     logits = log_prob_unnormalized(dist, points)  # [K, B]
     logits = torch.where(dist.empty[None, :], torch.zeros_like(logits), logits)
-    idx = torch.argmax(logits + gumbel(logits.shape, generator, device), dim=0)
+    idx = torch.argmax(logits + gumbel(logits.shape, generator, device,
+                                       batch_dim=1), dim=0)
     return points[idx, torch.arange(batch, device=device)]
 
 

@@ -19,7 +19,9 @@ cursor, an optional initial structure, a refill budget, and an optional
 stochastic bag sampler (`stochastic_size_range`). The JAX state carries a
 PRNG key per env; here the sampler draws the bags of all envs of a reset at
 once from the `torch.Generator` the caller passes to `reset`,
-`reset_if_terminal` and `init_states`.
+`reset_if_terminal` and `init_states`, or from a data-parallel rank's
+`Draws` (draws.py): then it draws the global batch's bags, runs the parity
+loop over all of them, as one process would, and keeps the rank's rows.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ import numpy as np
 import torch
 
 from molgym_tpu_torch.device import DeviceLike, resolve_device
+from molgym_tpu_torch.draws import Rng, as_draws
 from molgym_tpu_torch.envs.reward import RewardFn
 from molgym_tpu_torch.periodic import SOLO_CANDIDATE_ZS, Z_TO_BOND_COUNT
 from molgym_tpu_torch.spaces import Observation, ObservationSpace
@@ -133,16 +136,23 @@ class MolecularEnv:
 
     # -- reset ---------------------------------------------------------------
 
-    def _sample_bags(self, num: int,
-                     generator: Optional[torch.Generator]) -> torch.Tensor:
+    def _sample_bags(self, num: int, generator: Optional[Rng]
+                     ) -> torch.Tensor:
         """int64[num, Z] bags of lo <= size < hi atoms (hi atoms when
         lo == hi) drawn from z_probs, each with even total valence: a bag of
         odd parity is drawn again, at most 64 times. The loop ends as soon
         as no bag of the batch is odd, which the host reads from the device
-        once per round."""
+        once per round. Under Draws, the batch is the global one."""
         if generator is None:
             raise ValueError('a stochastic-bag environment needs the '
                              'torch.Generator its bags are drawn from')
+        draws = as_draws(generator)
+        return draws.keep(self.draw_bags(draws.rows(num), draws.generator)[0])
+
+    def draw_bags(self, num: int, generator: torch.Generator
+                  ) -> Tuple[torch.Tensor, int]:
+        """(bags, redraws): `num` bags of _sample_bags's rule, and the rounds
+        of its parity loop that drew again."""
         lo, hi = self.stochastic_size_range
         probs = self.z_probs.expand(num, -1)
         slots = torch.arange(hi, device=self.device)
@@ -157,15 +167,15 @@ class MolecularEnv:
             return (picked * (slots < size[:, None])[..., None]).sum(dim=1)
 
         bags = draw()
-        for _ in range(64):
+        for redraws in range(64):
             odd = (bags * self.bond_counts).sum(dim=-1) % 2 != 0
             if not bool(odd.any()):
-                break
+                return bags, redraws
             bags = torch.where(odd[:, None], draw(), bags)
-        return bags
+        return bags, 64
 
     def reset(self, states: EnvState,
-              generator: Optional[torch.Generator] = None
+              generator: Optional[Rng] = None
               ) -> Tuple[EnvState, Observation]:
         """Restore every env's (possibly pre-seeded) canvas and load the next
         bag of its formula cycle, or a bag drawn from `generator` by the
@@ -188,7 +198,7 @@ class MolecularEnv:
         return new_state, new_state.observation()
 
     def init_states(self, num_envs: int,
-                    generator: Optional[torch.Generator] = None) -> EnvState:
+                    generator: Optional[Rng] = None) -> EnvState:
         """A reset batch of `num_envs` env states, each at formula 0 (or
         with a bag drawn from `generator`)."""
         zeros = torch.zeros(num_envs, dtype=torch.int64, device=self.device)
@@ -285,7 +295,7 @@ class MolecularEnv:
                           reward=reward, done=done)
 
     def reset_if_terminal(self, states: EnvState, dones: torch.Tensor,
-                          generator: Optional[torch.Generator] = None
+                          generator: Optional[Rng] = None
                           ) -> Tuple[EnvState, Observation]:
         """Auto-reset finished envs."""
         reset_states, _ = self.reset(states, generator)

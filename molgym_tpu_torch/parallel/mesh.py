@@ -12,15 +12,19 @@ explicit, and few:
   * after each rollout, every field of the trajectory is all-gathered along
     the env axis in rank order, so that every rank holds the global [T, B]
     trajectory that one process with B envs would (the JAX `host_fetch`);
-  * each epoch, rank 0 draws the permutation and broadcasts it; rank r runs
-    the r-th of W contiguous chunks of every minibatch, normalized by the
-    whole minibatch's weight sum; then one flat buffer of the summed
-    gradients and loss sums is all-reduced with SUM, before the KL check.
+  * each epoch, rank r runs the r-th of W contiguous chunks of every
+    minibatch, normalized by the whole minibatch's weight sum; then one
+    flat buffer of the summed gradients and loss sums is all-reduced with
+    SUM, before the KL check.
 
-So the update over W ranks computes what one process computes from the same
-global trajectory, and at W = 1 the same bits. The rollouts' random streams
-do depend on W: rank 0 draws from `seed`, rank r from (seed, r), where the
-JAX package draws the global batch from one key.
+No collective carries a random number. Every rank seeds the training
+generator with `seed`, as one process does, and draws every random number
+of the rollout at the global batch's size, keeping its rows (`Mesh.draws`,
+draws.py), as the JAX package draws the global batch from one key and
+shards it; every rank draws each epoch's permutation itself, the same one.
+So the run does not depend on W: W ranks compute what one process computes
+from the same seed and weights, up to the float order of the policy's
+forward over B / W rows against B, and at W = 1 the same bits.
 
 Ranks are processes. `spawn` starts the local ranks of the calling process
 with torch.multiprocessing and gives each torchrun's variables (RANK,
@@ -44,6 +48,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from molgym_tpu_torch.device import DeviceLike
+from molgym_tpu_torch.draws import Draws
 from molgym_tpu_torch.rl.buffer import Trajectory
 from molgym_tpu_torch.spaces import Observation
 
@@ -82,14 +87,11 @@ class Mesh:
         """The envs of each rank: rank r steps [r * n, (r + 1) * n)."""
         return shard_size(num_envs, self.world_size)
 
-    def rank_seed(self, seed: int) -> int:
-        """The seed of this rank's generator: `seed` on rank 0, so that one
-        rank draws what a single process draws; one drawn from (seed, rank)
-        elsewhere."""
-        if self.rank == 0:
-            return seed
-        return int(np.random.SeedSequence((seed, self.rank)).generate_state(
-            1, np.uint64)[0])
+    def draws(self, generator: torch.Generator, num_envs: int) -> Draws:
+        """`generator`'s draws for all `num_envs` envs, of which this rank
+        keeps its shard."""
+        n = self.shard(num_envs)
+        return Draws(generator, self.rank * n, (self.rank + 1) * n, num_envs)
 
     def all_gather(self, tensor: torch.Tensor, dim: int) -> torch.Tensor:
         """Every rank's `tensor`, concatenated along `dim` in rank order."""
@@ -313,8 +315,9 @@ def make_dp_ppo_iteration(env, agent: torch.nn.Module, config,
     """Returns (init_fn, iteration_fn), to be called inside a rank:
 
       init_fn(seed) -> (states, optimizer, generator): this rank's env
-          shard and generator, and the agent's optimizer, with rank 0's
-          parameters and optimizer state on every rank
+          shard, drawn for all num_envs, its Draws (the generator seeded
+          with `seed` on every rank), and the agent's optimizer, with rank
+          0's parameters and optimizer state on every rank
       iteration_fn(states, generator) -> (states, traj, info):
           one PPO iteration: the rollout of this rank's envs, the global
           trajectory `traj` (every rank's, gathered), GAE and the clipped

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from molgym_tpu_torch.draws import Rng, as_draws
 from molgym_tpu_torch.envs.environment import MolecularEnv
 from molgym_tpu_torch.rl.buffer import (buffer_stats, compute_ppo_data,
                                         episode_stats)
@@ -175,36 +176,32 @@ def make_train_fn(agent: nn.Module, optimizer: Optimizer, config: PPOConfig,
                   num_samples: int, mesh=None) -> Callable:
     """Returns train(data, generator) -> info, which updates the agent's
     parameters and the optimizer state in place. num_samples = T * B.
+    `generator` is a torch.Generator or a rank's Draws (draws.py); each
+    epoch's permutation of the samples is drawn from the generator under
+    it.
 
     info holds the losses of the last epoch that stepped, its grad_norm,
     num_opt_steps, and num_grad_passes: the epochs whose gradients were
     computed (the steps, plus one when the KL stop fired).
 
     With a `mesh` (parallel/mesh.py) every rank holds the same global
-    `data`: rank 0 draws each epoch's permutation and broadcasts it, rank r
-    runs the r-th of W contiguous chunks of each minibatch (normalized by
-    the whole minibatch's weight sum), and the epoch's summed gradients and
-    loss sums are all-reduced (SUM) in one collective before the KL check,
-    so that every rank takes the same decision and the same step."""
+    `data` and the same generator state: each rank draws the epoch's
+    permutation itself, the same on every rank, runs the r-th of W
+    contiguous chunks of each minibatch (normalized by the whole
+    minibatch's weight sum), and the epoch's summed gradients and loss sums
+    are all-reduced (SUM) in one collective before the KL check, so that
+    every rank takes the same decision and the same step."""
     loss_fn = make_loss_fn(agent, config)
     params = optimizer.params
     mb = min(config.mini_batch_size, num_samples)
     num_batches = -(-num_samples // mb)
     pad = num_batches * mb - num_samples
 
-    def permutation(generator, device):
-        if mesh is not None and mesh.rank != 0:
-            perm = torch.empty(num_samples, dtype=torch.int64, device=device)
-        else:
-            perm = torch.randperm(num_samples, generator=generator,
-                                  device=device)
-        if mesh is not None:
-            mesh.broadcast_([perm])
-        return perm
-
     def epoch_grads(data, generator):
         device = data['adv'].device
-        perm = permutation(generator, device)
+        perm = torch.randperm(num_samples,
+                              generator=as_draws(generator).generator,
+                              device=device)
         # pad with arbitrary (weight-0) indices so every batch has size mb
         idx = (torch.cat([perm, perm[:pad]]) if pad else perm).reshape(
             num_batches, mb)
@@ -238,7 +235,7 @@ def make_train_fn(agent: nn.Module, optimizer: Optimizer, config: PPOConfig,
             info_sum = dict(zip(INFO_KEYS, sums))
         return grads, {k: v / num_batches for k, v in info_sum.items()}
 
-    def train(data, generator: torch.Generator) -> Dict[str, float]:
+    def train(data, generator: Rng) -> Dict[str, float]:
         last_info = dict.fromkeys(INFO_KEYS + ('grad_norm', ), 0.0)
         num_opt_steps = num_grad_passes = 0
         for _ in range(config.max_num_train_iters):
@@ -302,23 +299,33 @@ def eval_rollout_size(num_eval_episodes: int, eval_sample_k: int,
     return episodes, episodes * (canvas_size + 1)
 
 
+def eval_seed(seed: int) -> int:
+    """The seed of the evaluation's generator: a stream apart from the
+    training one (seeded with `seed`), as the JAX package's eval_key, so
+    that the training draws do not depend on whether or how often a rank
+    evaluates."""
+    return int(np.random.SeedSequence((seed, 1)).generate_state(
+        1, np.uint64)[0])
+
+
 def start_rollouts(envs: MolecularEnv, num_envs: int, optimizer: Optimizer,
-                   seed: int, mesh=None
-                   ) -> Tuple[object, torch.Generator]:
+                   seed: int, mesh=None) -> Tuple[object, Rng]:
     """(env states, generator) of the calling rank at the start of training:
-    its generator, seeded with `seed` (rank r > 0 of a mesh: with
-    mesh.rank_seed(seed)), and the initial states of its envs drawn from it
-    (all `num_envs`, or its shard of them); with a mesh, rank 0's parameters
-    and optimizer state then go to every replica. batch_ppo and
+    a generator seeded with `seed`, on every rank alike, and the initial
+    states of the rank's envs drawn from it. Without a mesh the generator is
+    a torch.Generator and the states are all `num_envs`; with one, it is the
+    rank's Draws (mesh.draws), which draws for all `num_envs` and keeps the
+    rank's shard, so that W ranks hold what one process holds; rank 0's
+    parameters and optimizer state then go to every replica. batch_ppo and
     parallel.mesh.make_dp_ppo_iteration start here."""
     device = next(iter(optimizer.params.values())).device
-    generator = torch.Generator(device=device).manual_seed(
-        seed if mesh is None else mesh.rank_seed(seed))
-    states = envs.init_states(
-        num_envs if mesh is None else mesh.shard(num_envs), generator)
-    if mesh is not None:
-        mesh.broadcast_optimizer_(optimizer)
-    return states, generator
+    generator = torch.Generator(device=device).manual_seed(seed)
+    if mesh is None:
+        return envs.init_states(num_envs, generator), generator
+    draws = mesh.draws(generator, num_envs)
+    states = envs.init_states(mesh.shard(num_envs), draws)
+    mesh.broadcast_optimizer_(optimizer)
+    return states, draws
 
 
 def batch_ppo(
@@ -353,15 +360,22 @@ def batch_ppo(
     on the agent's device, with JSONL metrics, periodic evaluation and
     checkpointing on the host. Returns the trained agent and its optimizer.
 
+    The training rollouts and the update draw from a generator seeded with
+    `seed`; the evaluation envs' states and every evaluation from a second
+    one, seeded with eval_seed(seed).
+
     With a `mesh` (parallel/mesh.py) this runs in one data-parallel rank:
-    it steps envs [r * B / W, (r + 1) * B / W) from its own generator (rank
-    0's seeded with `seed`, so W = 1 computes what mesh=None does, bit for
-    bit), starts from rank 0's parameters and optimizer state, gathers every
-    rollout into the global trajectory, and runs the update of
-    make_train_fn(mesh=...). Only a writer rank evaluates and writes: the
-    caller passes eval_envs, the savers, the model handler and profile_dir
-    on writer ranks only. A writer's `reward_time` and `recomputes` are its
-    own rollout's.
+    it steps envs [r * B / W, (r + 1) * B / W), drawing every random number
+    for all B envs from the same training generator as every other rank and
+    keeping its rows (start_rollouts), starts from rank 0's parameters and
+    optimizer state, gathers every rollout into the global trajectory, and
+    runs the update of make_train_fn(mesh=...). So the run does not depend
+    on W: W ranks compute what one process computes from the same seed and
+    weights, up to the float order of the policy's forward over B / W rows
+    against B (at W = 1, bit for bit). Only a writer rank evaluates and
+    writes: the caller passes eval_envs, the savers, the model handler and
+    profile_dir on writer ranks only. A writer's `reward_time` and
+    `recomputes` are its own rollout's.
 
     `profile_dir` traces iteration 1 (the second, after the first's warm-up)
     with torch.profiler, the host and (on a card) the device, into
@@ -410,8 +424,10 @@ def batch_ppo(
             host_loop_calculator, host_distance_penalty)[0]
 
     states, generator = start_rollouts(envs, num_envs, optimizer, seed, mesh)
-    eval_states = (eval_envs.init_states(num_eval_envs, generator)
-                   if eval_envs is not None else None)
+    if eval_envs is not None:
+        eval_generator = torch.Generator(device=device).manual_seed(
+            eval_seed(seed))
+        eval_states = eval_envs.init_states(num_eval_envs, eval_generator)
 
     total_num_steps = start_num_steps
     num_iterations = (max_num_steps - total_num_steps) // num_steps_per_iter
@@ -486,7 +502,7 @@ def batch_ppo(
         if eval_rollout_fn is not None and (
                 iteration % eval_freq == 0 or iteration == num_iterations - 1):
             eval_states, eval_traj = eval_rollout_fn(agent, eval_states,
-                                                     generator)
+                                                     eval_generator)
             e_returns, e_lengths = _episodes(eval_traj, config.gamma)
             if len(e_returns) < total_eval_episodes:
                 raise RuntimeError(

@@ -2,7 +2,10 @@
 rollout start, stepped T times with auto-reset at terminals, and the value
 head on the final observation gives the bootstrap value. The JAX
 `lax.scan` becomes a Python loop; the rollout runs without autograd. A
-stochastic-bag env draws its bags from the rollout's generator.
+stochastic-bag env draws its bags from the rollout's generator. The
+generator is a torch.Generator, or a data-parallel rank's Draws
+(draws.py), which draws every random number for the global batch and keeps
+the rank's rows: W ranks then step what one process steps.
 
 Two transports for a host reward (calculators/reward_host.py), each with
 the (params_or_module, states, generator) -> (states, Trajectory) contract
@@ -37,6 +40,7 @@ from torch import nn
 
 from molgym_tpu_torch.calculators.reward_host import (host_rewards,
                                                       inputs_to_host)
+from molgym_tpu_torch.draws import Rng
 from molgym_tpu_torch.envs.environment import EnvState, MolecularEnv
 from molgym_tpu_torch.rl.buffer import Trajectory
 from molgym_tpu_torch.spaces import Observation
@@ -86,7 +90,7 @@ def make_rollout_fn(env: MolecularEnv, agent: nn.Module,
     evaluation) instead of sampling."""
 
     def rollout(params, states: EnvState,
-                generator: torch.Generator) -> Tuple[EnvState, Trajectory]:
+                generator: Rng) -> Tuple[EnvState, Trajectory]:
         module = _module(agent, params)
         rec = _Recorder()
         with torch.no_grad():
@@ -124,7 +128,7 @@ def make_pipelined_host_rollout_fn(env: MolecularEnv, agent: nn.Module,
     executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix='mg_reward')
 
     def rollout(params, states: EnvState,
-                generator: torch.Generator) -> Tuple[EnvState, Trajectory]:
+                generator: Rng) -> Tuple[EnvState, Trajectory]:
         module = _module(agent, params)
         rec = _Recorder()
         rollout.recomputes = 0

@@ -3,7 +3,9 @@ CPU, over gloo processes: the update of W = 2 and W = 3 ranks against the
 JAX package's make_train_fn and against the port's own single-process
 update, the replicas' bits, the trajectory gather and the start broadcast,
 W = 1 batch_ppo(mesh=...) against plain batch_ppo bit for bit, and the
-driver's --num_devices and --multihost runs and refusals.
+driver's --num_devices and --multihost runs and refusals, each against the
+same run in one process (test_torch_parallel_draws.py's gates: the run
+does not depend on W).
 
 Tolerances: against JAX those of test_torch_ppo.py's
 test_train_matches_make_train_fn (rtol 1e-4 on the info,
@@ -38,6 +40,8 @@ from molgym_tpu_torch.tools.driver import run_experiment
 from molgym_tpu_torch.tools.model_io import ModelIO
 from tests import torch_parallel_ranks as ranks
 from tests.test_torch_covariant import SMALL, make_batch, torch_obs
+from tests.test_torch_parallel_draws import (assert_params_rule,
+                                             assert_records_match)
 from tests.test_torch_ppo import CONFIG, Setup, assert_params_close
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -275,14 +279,39 @@ def _lines(path):
     return [json.loads(line) for line in path.read_text().splitlines()]
 
 
+def _one_process_run(path):
+    """O2_MLP in this process, writing under `path`: (its results
+    directory, its checkpoint)."""
+    run.main(O2_MLP + _dirs(path))
+    return (path / 'results',
+            ModelIO(path / 'model', 'dp_run-1').load_latest()[0])
+
+
+def assert_run_matches(results, state, ref_results, ref_state, rank0=True):
+    """A data-parallel run's records and checkpoint against one process's:
+    the train, opt and eval streams (a writer's) within rtol 1e-4, the
+    parameters by assert_params_close's rule, the same step count."""
+    for stream in ('train', 'opt', 'eval'):
+        assert_records_match(
+            [(stream, r) for r in _lines(results / f'dp_run-1_{stream}.txt')],
+            [(stream, r) for r in _lines(ref_results
+                                         / f'dp_run-1_{stream}.txt')])
+    count = ref_state['optimizer']['count']
+    assert state['optimizer']['count'] == count
+    lr = run.build_default_argparser().parse_args(O2_MLP).learning_rate
+    assert_params_rule(state['model'], ref_state['model'], lr, count)
+
+
 def test_cpu_num_devices_2_run(tmp_path, one_thread):
     """--device=cpu --num_devices=2 through molgym_tpu_torch.run: rank 0
     writes one of each stream, log, config and checkpoint, untagged, as one
     process would, and rank 1 nothing; the checkpoint is the state the run
-    returns."""
-    agent, optimizer = run.main(O2_MLP + _dirs(tmp_path)
+    returns; the records and the checkpoint are those of the same run in
+    one process."""
+    dp_path = tmp_path / 'dp'
+    agent, optimizer = run.main(O2_MLP + _dirs(dp_path)
                                 + ['--num_devices=2', '--save_rollouts=all'])
-    files = sorted(str(p.relative_to(tmp_path)) for p in tmp_path.rglob('*')
+    files = sorted(str(p.relative_to(dp_path)) for p in dp_path.rglob('*')
                    if p.is_file())
     assert files == [
         'data/dp_run-1_steps-0_train.pkl', 'data/dp_run-1_steps-16_eval.pkl',
@@ -290,26 +319,30 @@ def test_cpu_num_devices_2_run(tmp_path, one_thread):
         'log/dp_run-1.json', 'log/dp_run-1.log',
         'model/dp_run-1_steps-16.model', 'results/dp_run-1_eval.txt',
         'results/dp_run-1_opt.txt', 'results/dp_run-1_train.txt']
-    opt = _lines(tmp_path / 'results' / 'dp_run-1_opt.txt')
+    opt = _lines(dp_path / 'results' / 'dp_run-1_opt.txt')
     assert [r['total_num_steps'] for r in opt] == [0, 8]
     assert all(r['num_opt_steps'] >= 1 for r in opt)
     assert optimizer.count == sum(r['num_opt_steps'] for r in opt)
-    with open(tmp_path / 'data' / 'dp_run-1_steps-8_train.pkl', 'rb') as f:
+    with open(dp_path / 'data' / 'dp_run-1_steps-8_train.pkl', 'rb') as f:
         # the global trajectory: 2 steps of all 4 envs
         assert pickle.load(f)['rewards'].shape == (2, 4)
-    state, steps = ModelIO(tmp_path / 'model', 'dp_run-1').load_latest()
+    state, steps = ModelIO(dp_path / 'model', 'dp_run-1').load_latest()
     assert steps == 16 and state['optimizer']['count'] == optimizer.count
     for k, v in agent.state_dict().items():
         assert torch.equal(state['model'][k], v), k
     for k, v in optimizer.mu.items():
         assert torch.equal(state['optimizer']['mu'][k], v), k
+    assert_run_matches(dp_path / 'results', state,
+                       *_one_process_run(tmp_path / 'one'))
 
 
 def test_two_process_multihost_run(tmp_path):
     """Two processes of --multihost --num_devices=2 with the MOLGYM_*
     variables (tests/test_parallel.py's multihost driver run): each
     process's rank writes its checkpoint and streams under its own
-    directories, and rank-tagged rollouts into the shared data_dir."""
+    directories, and rank-tagged rollouts into the shared data_dir; the
+    records and checkpoint of each are those of the same run in one
+    process."""
     port = pmesh.free_port()
     data_dir = tmp_path / 'data'
     procs = []
@@ -349,6 +382,10 @@ def test_two_process_multihost_run(tmp_path):
         params.append(state)
     for k, v in params[0]['model'].items():
         assert torch.equal(params[1]['model'][k], v), k
+    ref = _one_process_run(tmp_path / 'one')
+    for rank in range(2):
+        assert_run_matches(tmp_path / f'rank{rank}' / 'results',
+                           params[rank], *ref)
 
 
 def test_num_envs_must_divide_over_the_ranks(tmp_path):

@@ -1,7 +1,8 @@
 """What the data-parallel tests run inside their spawned ranks. It imports
 torch and the port only, so that a rank starts without JAX; the tests
-themselves (test_torch_parallel.py, test_torch_driver.py) hold the results
-against the JAX package and against one process."""
+themselves (test_torch_parallel.py, test_torch_parallel_draws.py,
+test_torch_driver.py) hold the results against the JAX package and against
+one process."""
 import dataclasses
 
 import numpy as np
@@ -174,3 +175,113 @@ def dp_iteration_rank(world, kwargs):
                       max_num_steps=kwargs['num_steps_per_iter'], **kwargs)
         out['batch_ppo'] = (params_of(agent), records.lines)
         return out
+
+
+# the runs of test_torch_parallel_draws.py, each one PPO iteration of 6 envs
+# x 4 steps (so that W = 2 and W = 3 divide the envs) with an evaluation:
+# name -> (argv, the action columns that are discrete indices, the host LJ
+# epsilon or None)
+DRAWS_SHAPE = ['--num_envs=6', '--num_steps_per_iter=24',
+               '--mini_batch_size=12', '--max_num_train_iters=2',
+               '--num_steps=24', '--eval_freq=1', '--device=cpu']
+DRAWS_COVARIANT = ['--model=covariant', '--maxl=2', '--num_cg_levels=2',
+                   '--network_width=16', '--num_channels_hidden=3',
+                   '--num_channels_per_element=2', '--beta=-10']
+DRAWS_RUNS = {
+    # the canonical SF6 run's env and agent family, narrowed
+    'sf6': (['--formulas=SF6', '--symbols=X,S,F', '--canvas_size=7',
+             '--bag_scale=5', '--min_mean_distance=1.10',
+             '--max_mean_distance=2.10', '--reward=device_lj', '--seed=1']
+            + DRAWS_COVARIANT, (0, 1), None),
+    # stochastic bags: the parity loop draws again at the start (the test
+    # checks that it does)
+    'stochastic': (['--formulas=C2H6O', '--symbols=X,H,C,O',
+                    '--canvas_size=6', '--bag_scale=6', '--size_range=3,6',
+                    '--min_mean_distance=0.9', '--max_mean_distance=1.8',
+                    '--reward=device_lj', '--seed=2'] + DRAWS_COVARIANT,
+                   (0, 1), None),
+    # the internal agent: its normal heads and its kappa head
+    'internal': (['--formulas=H2O', '--symbols=X,H,O', '--canvas_size=3',
+                  '--bag_scale=3', '--model=internal', '--num_interactions=2',
+                  '--network_width=16', '--reward=device_lj', '--seed=3'],
+                 (1, 2, 6), None),
+    # the pipelined host transport over stochastic bags, LJ on the host at
+    # tests/test_torch_host_rollout.py's fixup_lj: close placements in a
+    # deep well, so that rewards below min_reward end episodes that the
+    # speculative rewards of 0 did not, and the forward is computed again
+    'pipelined': (['--formulas=H2O', '--symbols=X,H,O', '--canvas_size=4',
+                   '--bag_scale=3', '--size_range=2,4', '--reward=lj',
+                   '--host_reward_mode=loop', '--min_mean_distance=0.7',
+                   '--max_mean_distance=1.0', '--seed=5'] + DRAWS_COVARIANT,
+                  (0, 1), 40.0),
+}
+
+
+def draws_config(name):
+    from molgym_tpu_torch.run_stochastic import build_parser
+    from molgym_tpu_torch.tools.arg_parser import build_default_argparser
+    argv = ['--name=' + name] + DRAWS_RUNS[name][0] + DRAWS_SHAPE
+    parser = (build_parser() if any(a.startswith('--size_range=')
+                                    for a in argv)
+              else build_default_argparser())
+    return vars(parser.parse_args(argv))
+
+
+def draws_run(name, mesh=None):
+    """One iteration of DRAWS_RUNS[name] through batch_ppo (with `mesh`:
+    this rank's part; a writer evaluates), from random weights of seed 0:
+    the global training rollout (numpy), the records and the parameters."""
+    from molgym_tpu_torch.calculators.native import (METHOD_LJ,
+                                                     NativeBatchCalculator)
+    from molgym_tpu_torch.calculators.reward_host import (
+        TimedBatchCalculator, make_host_reward)
+    from molgym_tpu_torch.run_stochastic import stochastic_envs
+    from molgym_tpu_torch.spaces import symbols_to_zs
+    from molgym_tpu_torch.tools.driver import (host_loop_calculator,
+                                               make_reward_fn,
+                                               ppo_config_from, standard_envs)
+    from molgym_tpu_torch.tools.model_util import build_model
+
+    config = draws_config(name)
+    space = ObservationSpace(config['canvas_size'],
+                             symbols_to_zs(config['symbols']))
+    epsilon = DRAWS_RUNS[name][2]
+    if epsilon is None:
+        reward_fn, host_calc = make_reward_fn(config)
+    else:
+        host_calc = TimedBatchCalculator(NativeBatchCalculator(METHOD_LJ,
+                                                               epsilon))
+        reward_fn = make_host_reward(host_calc)
+    build = stochastic_envs if config.get('size_range') else standard_envs
+    envs, eval_envs = build(config, space, reward_fn, torch.device('cpu'))
+    torch.manual_seed(0)
+    agent = build_model(config, space, device='cpu')
+    rollouts, records = {}, MemoryInfoSaver()
+
+    class Saver:
+        def save(self, obj, num_steps, info):
+            rollouts[info] = obj
+
+    writer = mesh is None or mesh.writer
+    ppo.batch_ppo(
+        envs, eval_envs if writer else None, agent,
+        num_envs=config['num_envs'],
+        num_steps_per_iter=config['num_steps_per_iter'],
+        max_num_steps=config['max_num_steps'],
+        config=ppo_config_from(config),
+        eval_freq=config['eval_freq'],
+        num_eval_episodes=int(eval_envs.formulas.shape[0]),
+        rollout_saver=Saver(), save_train_rollout=True,
+        info_saver=records, seed=config['seed'], mesh=mesh,
+        host_loop_calculator=host_loop_calculator(
+            config['host_reward_mode'], host_calc))
+    return dict(rollouts=rollouts, records=records.lines,
+                params=params_of(agent))
+
+
+def draws_rank(world):
+    """In each of `world` ranks: every run of DRAWS_RUNS; returns this
+    rank's results by name."""
+    with make_mesh(world, 'cpu') as mesh:
+        return dict(rank=mesh.rank, runs={name: draws_run(name, mesh)
+                                          for name in DRAWS_RUNS})
