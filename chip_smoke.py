@@ -243,7 +243,19 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      the CPU port's and the mean within 1e-4 of it (SHARED, measured by
      tests/test_torch_shared_draws.py and _pm6.py, which hold the CPU port
      against the JAX package at float tolerance; sf6_bf16 within those
-     tests' bf16 tolerance of 0.02), with exact launch counts.
+     tests' bf16 tolerance of 0.02), with exact launch counts;
+ 15. the port's bench (molgym_tpu_torch/bench.py, the counterpart of the
+     JAX system's bench.py) in this process at small --iters and --reps
+     (BENCH_SMOKE): its gradient gates (each configuration's gradients on
+     the card against the CPU's at B = 140 within MODEL_TOL, the bf16
+     encoder's within BF16_MODEL_TOL, every gradient finite at 2240; the
+     two host transports the same trajectory with PM6 and with EHT) before
+     its timings, then every name of its record with a number (the
+     headline, ms_headline_rerun, the three mfu estimates, ms_batch_2240,
+     ms_bf16, ms_bf16_2240, ms_internal_agent and the PM6 and EHT
+     env-steps/s of both transports) finite and positive, bench.py's names
+     without a counterpart listed, and the card's name in the record; the
+     record logged.
 
 The line before the last two is {"kernels": [...]}, then the card's name and
 power limit, and the last line is {"ok": true, "device": {...}}.
@@ -260,6 +272,8 @@ import time
 import numpy as np
 import torch
 
+from molgym_tpu_torch import bench
+from molgym_tpu_torch.bench import BF16_MODEL_TOL, MODEL_TOL
 from molgym_tpu_torch.equivariance import (COVARIANCE_AGENT,
                                            COVARIANCE_FORMULA, SF6_AGENT,
                                            SF6_FORMULA)
@@ -269,10 +283,9 @@ SEED = 0
 NUM_ENVS = 140
 NUM_STEPS = 14
 KERNEL_TOL = 1e-4   # f32, another summation order: relative to max |ref|
-MODEL_TOL = 1e-3    # logp / v of the whole agent, card vs CPU
-# the bf16 encoder: each gradient within 0.03 of its leaf's max |g|, card vs
-# CPU (bf16 rounds at other places in cuBLAS and in the CPU's matmuls)
-BF16_MODEL_TOL = 0.03
+# MODEL_TOL (logp / v of the whole agent, and each gradient of its leaf's
+# max |g|, card vs CPU) and BF16_MODEL_TOL (the bf16 encoder's gradients)
+# are the bench's gates (molgym_tpu_torch/bench.py)
 BF16 = torch.bfloat16
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_F32_FLOP_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
@@ -391,13 +404,10 @@ def check_aggregate(dev, B, atom_n_ells, maxl=4, N=7, tau=10,
         lambda: torch.einsum('bijtm,bjtn,mnk->bitk', e_c, q_c, c_c))
     tabs = fused_agg._kernel_tables('aggregate', table3, grouped, None, dev)
     nnz = tabs['nnz']
-    n_flops = (B * N * N * tau * m1 * 2 +            # e = rad * Y
-               B * N * tau * m1 * m2 * N * 8 +       # z, complex MAC
-               B * N * tau * nnz * 4)                # sparse contraction
     # operands and outputs at their size (2 bytes in bf16), f32 operations
     res['bound_ms'], res['bound_by'] = bound_ms(
         nbytes(sph, rad, q_r, q_i, *out) + table_bytes(nnz, tabs['fwd_ptr']),
-        n_flops)
+        bench.aggregate_ops(B, N, tau, m1, m2, tabs))
     return res
 
 
@@ -439,12 +449,10 @@ def check_square(dev, tau, maxl=4, N=7, dtype=torch.float32, B=140):
     res['library_ms'] = time_ms(
         lambda: torch.einsum('...m,...n,mnk->...k', a_c, a_c, c_c))
     tabs = fused_agg._kernel_tables('square', table3, None, tri, dev)
-    rows = B * N * tau
-    # the pairs some column reads, 6 operations each, and 4 for each nonzero
-    n_flops = rows * (tabs['slot_mn'].numel() * 6 + tabs['nnz'] * 4)
     res['bound_ms'], res['bound_by'] = bound_ms(
         nbytes(a_r, a_i, *out) + table_bytes(tabs['nnz'], tabs['fwd_ptr'],
-                                             tabs['slot_mn']), n_flops)
+                                             tabs['slot_mn']),
+        bench.square_ops(B * N * tau, tabs))
     return res
 
 
@@ -532,13 +540,10 @@ def check_aggregate_bwd(dev, B, atom_n_ells, maxl=4, N=7, tau=10,
                 f'kernel ({mine} ms) is slower than its library call '
                 f'({theirs} ms) by more than the spread of three readings')
     nnz = tabs['nnz']
-    n_flops = (B * N * tau * nnz * 4 +                 # dz, sparse rows
-               B * N * N * tau * m1 * 2 +              # e = rad * Y
-               B * N * N * tau * m1 * m2 * 8 * 2 +     # de and dq, complex MAC
-               B * N * N * tau * m1 * 4)               # Re(de conj(Y))
     res['bound_ms'], res['bound_by'] = bound_ms(
         nbytes(sph, rad, q_r, q_i, g_r, g_i, *out) +
-        table_bytes(nnz, tabs['bwd_ptr']), n_flops)
+        table_bytes(nnz, tabs['bwd_ptr']),
+        bench.aggregate_ops(B, N, tau, m1, m2, tabs, backward=True))
     return res
 
 
@@ -576,13 +581,10 @@ def check_square_bwd(dev, tau, maxl=4, N=7, dtype=torch.float32, B=140):
     res['library_ms'] = _library_grad_ms(
         lambda a: torch.einsum('...m,...n,mnk->...k', a, a, c_c), (a_c, ),
         torch.complex(g_r.float(), g_i.float()))
-    rows = B * N * tau
-    # 4 operations for each nonzero, 8 for each of the two terms of every
-    # pair with entries
-    n_flops = rows * (tabs['nnz'] * 4 + 2 * tabs['n_live'] * 8)
     res['bound_ms'], res['bound_by'] = bound_ms(
         nbytes(a_r, a_i, g_r, g_i, *out) +
-        table_bytes(tabs['nnz'], tabs['bwd_ptr'], tabs['slot_mn']), n_flops)
+        table_bytes(tabs['nnz'], tabs['bwd_ptr'], tabs['slot_mn']),
+        bench.square_ops(B * N * tau, tabs, backward=True))
     return res
 
 
@@ -627,10 +629,8 @@ def check_contract(dev, lead, n1, n2, maxl):
     c_c = torch.from_numpy(table3).to(dev).to(torch.complex64)
     fwd['library_ms'] = time_ms(
         lambda: torch.einsum('rm,rn,mnk->rk', a_c, b_c, c_c))
-    # a complex product (6 operations) and a complex MAC by a real (4) for
-    # each nonzero and row
     fwd['bound_ms'], fwd['bound_by'] = bound_ms(
-        nbytes(*ops, *out) + fwd_table, rows * nnz * 10)
+        nbytes(*ops, *out) + fwd_table, bench.product_ops(rows, tabs))
 
     got = fused_cg._bwd_kernel(*ops, g_r, g_i, table3)
     again = fused_cg._bwd_kernel(*ops, g_r, g_i, table3)
@@ -651,11 +651,9 @@ def check_contract(dev, lead, n1, n2, maxl):
         lambda a, b: torch.einsum('rm,rn,mnk->rk', a, b, c_c),
         (a_c.requires_grad_(), b_c.requires_grad_()),
         torch.complex(g_r, g_i).reshape(rows, k))
-    # 4 operations for each nonzero and row (dz), 8 for each live pair and
-    # row in da and 8 in db
     bwd['bound_ms'], bwd['bound_by'] = bound_ms(
         nbytes(*ops, g_r, g_i, *got) + bwd_table,
-        rows * (nnz * 4 + tabs['n_live'] * 16))
+        bench.product_ops(rows, tabs, backward=True))
     if rows == 560:
         fwd['resources'] = {
             f'rows={n}': fused_cg.product_kernel_resources(n, table3, dev)
@@ -790,23 +788,12 @@ def check_head(dev, rows, n):
     return fwd, bwd
 
 
-def _bench_batch(seed, agent_kwargs, batch=140):
-    """Random canvases, the bench.py recipe (at SF6: 1-7 atoms of F/S, 1-5 F
-    and one S in the bag; a fourth element's count is 0-2)."""
-    rng = np.random.RandomState(seed)
-    canvas, num_zs = agent_kwargs['canvas_size'], len(agent_kwargs['zs'])
-    n_atoms = rng.randint(1, canvas + 1, size=batch)
-    elements = np.zeros((batch, canvas), np.int64)
-    positions = np.zeros((batch, canvas, 3), np.float32)
-    bag = np.zeros((batch, num_zs), np.int64)
-    for b in range(batch):
-        elements[b, :n_atoms[b]] = rng.randint(1, num_zs, size=n_atoms[b])
-        positions[b, :n_atoms[b]] = rng.randn(n_atoms[b], 3) * 1.2
-        bag[b, 1] = rng.randint(1, 6)
-        bag[b, 2] = 1
-        if num_zs > 3:
-            bag[b, 3:] = rng.randint(0, 3, size=num_zs - 3)
-    return elements, positions, bag
+def _bench_obs(agent_kwargs, device):
+    """The bench's minibatch of 140 (bench.make_batch, seed SEED) at the
+    canvas and elements of `agent_kwargs`, on `device`."""
+    return bench.observation(bench.make_batch(
+        SEED, 140, agent_kwargs['canvas_size'], len(agent_kwargs['zs'])),
+        device)
 
 
 def check_agent_grads(dev, agent_kwargs, encoder_dtype=None, build=None):
@@ -818,12 +805,8 @@ def check_agent_grads(dev, agent_kwargs, encoder_dtype=None, build=None):
     share. `build(device)` makes the agent (default: the covariant agent of
     `agent_kwargs`). One more fwd+bwd counts its kernels' launches and
     records which gradients each head's backward received."""
-    from torch.profiler import ProfilerActivity, profile
-
     from molgym_tpu_torch.agents.covariant import CovariantAC
     from molgym_tpu_torch.ops import fused_agg, fused_softmax
-    from molgym_tpu_torch.profile_rollout import device_us
-    from molgym_tpu_torch.spaces import Observation
 
     tol = MODEL_TOL if encoder_dtype is None else BF16_MODEL_TOL
     if build is None:
@@ -834,8 +817,7 @@ def check_agent_grads(dev, agent_kwargs, encoder_dtype=None, build=None):
     agents = {'cuda': build(dev)}
     agents['cpu'] = build('cpu')
     agents['cpu'].load_state_dict(agents['cuda'].state_dict())
-    arrays = _bench_batch(SEED, agent_kwargs)
-    obs = {name: Observation(*(torch.from_numpy(x).to(d) for x in arrays))
+    obs = {name: _bench_obs(agent_kwargs, d)
            for name, d in (('cuda', dev), ('cpu', 'cpu'))}
     with torch.no_grad():
         actions = agents['cuda'].act(
@@ -845,28 +827,13 @@ def check_agent_grads(dev, agent_kwargs, encoder_dtype=None, build=None):
 
     def fwd_bwd(name):
         agent = agents[name]
-        logp, ent, v = agent.evaluate(obs[name], acts[name])
-        loss = logp.mean() + 0.5 * (v ** 2).mean() + 0.01 * ent.mean()
+        loss = bench.bench_loss(*agent.evaluate(obs[name], acts[name]))
         agent.zero_grad(set_to_none=True)
         loss.backward()
         return {k: p.grad for k, p in agent.named_parameters()}
 
     grads = {name: fwd_bwd(name) for name in ('cuda', 'cpu')}
-    missing = [k for k, g in grads['cuda'].items() if g is None]
-    if missing:
-        raise AssertionError(f'no gradient on the card for {missing}')
-    # a leaf whose true gradient is zero holds only rounding noise (the
-    # focus head's last bias: a softmax does not see a shift of its
-    # logits), so no leaf is scaled below 1e-3 of the largest leaf's max |g|
-    floor = 1e-3 * max(float(g.abs().max()) for g in grads['cpu'].values())
-    worst = 0.0
-    for k, g in grads['cpu'].items():
-        scale = max(float(g.abs().max()), floor)
-        ratio = float((grads['cuda'][k].cpu() - g).abs().max()) / scale
-        worst = max(worst, ratio)
-        if not ratio <= tol:
-            raise AssertionError(f'gradient of {k}: card vs CPU differ by '
-                                 f'{ratio} of the leaf\'s max |g|')
+    worst = bench.check_grads('the card', grads['cuda'], grads['cpu'], tol)
 
     # one counted pass; each head's backward: its rows, its N and the
     # gradients it received (probs, logp, ent)
@@ -886,26 +853,11 @@ def check_agent_grads(dev, agent_kwargs, encoder_dtype=None, build=None):
     torch.cuda.synchronize()
     counts = {k: v for k, v in fused_agg.launch_counts.items() if v}
 
-    times = []
     for _ in range(3):
         fwd_bwd('cuda')
-    for _ in range(20):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fwd_bwd('cuda')
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fwd_bwd('cuda')
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if str(e.device_type).endswith('CUDA') and device_us(e) > 0]
-    device_ms = sum(device_us(e) for e in kernels) / 1e3
+    times = bench.sample_ms(lambda: fwd_bwd('cuda'), 20)
+    prof = bench.profile_grad(lambda: fwd_bwd('cuda'))
+    device_ms = prof['device_busy_ms']
     median = float(np.median(times))
 
     # the other part of a gradient pass's epoch: one optimizer step
@@ -922,10 +874,10 @@ def check_agent_grads(dev, agent_kwargs, encoder_dtype=None, build=None):
     return dict(num_params=len(grads['cpu']), max_grad_err_share=worst,
                 fwd_bwd_ms_median=median,
                 fwd_bwd_ms_min=min(times), fwd_bwd_ms_max=max(times),
-                profiled_wall_ms=wall_ms, device_busy_ms=device_ms,
-                device_idle_share_profiled=1.0 - device_ms / wall_ms,
+                profiled_wall_ms=prof['wall_ms'], device_busy_ms=device_ms,
+                device_idle_share_profiled=prof['device_idle_share'],
                 device_idle_share_vs_median=1.0 - device_ms / median,
-                launches_per_fwd_bwd=sum(e.count for e in kernels),
+                launches_per_fwd_bwd=prof['launches_per_fwd_bwd'],
                 kernel_counts_per_fwd_bwd=counts, head_backwards=head_bwd,
                 optimizer_step_ms_median=float(np.median(step_times)))
 
@@ -940,14 +892,12 @@ def compare_bf16_to_f32(dev, agent_kwargs):
     canvases' equivalent atoms go either way); the JAX package's gates for
     this comparison (tests/covariant/test_covariant_agent.py)."""
     from molgym_tpu_torch.agents.covariant import CovariantAC
-    from molgym_tpu_torch.spaces import Observation
 
     torch.manual_seed(SEED)
     f32 = CovariantAC(**agent_kwargs, device=dev)
     bf16 = CovariantAC(**agent_kwargs, encoder_dtype='bfloat16', device=dev)
     bf16.load_state_dict(f32.state_dict())
-    obs = Observation(*(torch.from_numpy(x).to(dev)
-                        for x in _bench_batch(SEED, agent_kwargs)))
+    obs = _bench_obs(agent_kwargs, dev)
     with torch.no_grad():
         out32, d32 = f32.act_with_dists(
             obs, torch.Generator(device=dev).manual_seed(SEED), True)
@@ -1567,19 +1517,11 @@ def run_host_transports(dev, method, epsilon):
                                       gen)   # warm-up: tables, allocator
 
     def one(name, fn):
-        gen = torch.Generator(device=dev).manual_seed(SEED)
-        states = env.init_states(PM6_ENVS, gen)
-        time0, calls0 = calc.total_time, calc.total_calls
         torch.cuda.synchronize()
         fused_agg.reset_launch_counts()
-        t0 = time.perf_counter()
-        states, traj = fn(agent, states, gen)
-        torch.cuda.synchronize()
-        res = dict(ms=(time.perf_counter() - t0) * 1e3,
-                   reward_ms=(calc.total_time - time0) * 1e3,
-                   reward_calls=calc.total_calls - calls0,
-                   recomputes=getattr(fn, 'recomputes', 0),
-                   counts=dict(fused_agg.launch_counts))
+        res, run = bench.run_transport(fn, agent, env, calc, PM6_ENVS, SEED,
+                                       dev)
+        res['counts'] = dict(fused_agg.launch_counts)
         expected = expected_launches(per_forward_launches(agent),
                                      NUM_STEPS + 1 + res['recomputes'], 0)
         if res['counts'] != expected:
@@ -1587,26 +1529,15 @@ def run_host_transports(dev, method, epsilon):
                                  f'expected {expected}')
         if res['reward_calls'] != NUM_STEPS:
             raise AssertionError(f'{name}: {res["reward_calls"]} reward calls')
-        return res, (states, traj, gen.get_state())
+        return res, run
 
     runs = {'pipelined': one('pipelined', rl.make_pipelined_host_rollout_fn(
                 env, agent, calc, NUM_STEPS)),
             'in_step': one('in_step', rl.make_rollout_fn(env, agent,
                                                          NUM_STEPS))}
-    (_r, (states, traj, gen_state)), (_r, (ref_states, ref, ref_gen)) = (
-        runs['pipelined'], runs['in_step'])
-    same = [torch.equal(getattr(traj, f), getattr(ref, f)) for f in (
-        'rewards', 'terminals', 'actions', 'logps', 'values',
-        'bootstrap_value')]
-    same += [torch.equal(getattr(getattr(traj, o), f),
-                         getattr(getattr(ref, o), f))
-             for o in ('obs', 'next_obs') for f in ('elements', 'positions',
-                                                    'bag')]
-    same += [torch.equal(states.elements, ref_states.elements),
-             torch.equal(gen_state, ref_gen)]
-    if not all(same):
-        raise AssertionError('pipelined transport: another trajectory than '
-                             f'the in-step one ({same})')
+    bench.check_same_rollout(f'method {method}', runs['pipelined'][1],
+                             runs['in_step'][1])
+    ref = runs['in_step'][1][1]
     if not torch.isfinite(ref.rewards).all():
         raise AssertionError('non-finite rewards')
     placed, err = recompute_rewards(
@@ -2058,9 +1989,7 @@ def _trajectory_from(arrays, dev):
 def _grad_err(grads, ref):
     """Max over leaves of |g - ref| over the leaf's max |ref| (a leaf below
     1e-3 of the largest leaf's held against 1e-3 of that), as phase 6."""
-    floor = 1e-3 * max(float(g.abs().max()) for g in ref.values())
-    return max(float((grads[k] - g).abs().max()) /
-               max(float(g.abs().max()), floor) for k, g in ref.items())
+    return max(bench.grad_errs(grads, ref).values())
 
 
 def dp_w2_rank(device, argv):
@@ -2461,6 +2390,9 @@ def run_data_parallel(device='cuda', argv=DP_RUN):
                                             for r in opt])
     return res
 
+
+# phase 15: the bench's settings, small enough for a smoke
+BENCH_SMOKE = dict(iters=3, iters_2240=2, samples=10, reps=1)
 
 # phase 14: the JAX package's trained checkpoints of thirteen experiments,
 # loaded through ModelIO.load from their experiments/ orbax paths (read from
@@ -2938,10 +2870,7 @@ def main() -> int:
     from molgym_tpu_torch import cuda_build, run, run_stochastic
     from molgym_tpu_torch.tools.arg_parser import build_default_argparser
 
-    card = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit',
-         '--format=csv,noheader'], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    card = bench.card_line()
     log('card:', card)
     dev = torch.device('cuda')
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3296,6 +3225,26 @@ def main() -> int:
             f'{res["tol"]}), every focus and element as on the CPU, '
             f'{res["eval_ms"]:.1f} ms on {card}')
     log(f'phase 14d: {shared["seconds"]:.1f} s on {card}')
+
+    # phase 15: the port's bench, in this process, at small --iters/--reps
+    t0 = time.perf_counter()
+    bench_record = bench.run(**BENCH_SMOKE)
+    bench.check_record(bench_record)
+    if bench_record['extra']['device']['name'] != torch.cuda.get_device_name(0):
+        raise AssertionError(f'bench: device {bench_record["extra"]["device"]}')
+    log('bench record:', json.dumps(bench_record))
+    extra = bench_record['extra']
+    log(f'phase 15, the bench at {json.dumps(BENCH_SMOKE)}: fwd+bwd '
+        f'{bench_record["value"]:.3f} ms (p50 {extra["fwd_bwd_ms_p50"]:.3f}, '
+        f'p90 {extra["fwd_bwd_ms_p90"]:.3f}), bf16 {extra["ms_bf16"]:.3f}, '
+        f'internal {extra["ms_internal_agent"]:.3f}, B = 2240 '
+        f'{extra["ms_batch_2240"]:.3f} / bf16 {extra["ms_bf16_2240"]:.3f} ms; '
+        'env-steps/s PM6 pipelined / in step '
+        f'{extra["env_steps_per_sec_pm6"]:.1f} / '
+        f'{extra["env_steps_per_sec_pm6_serial"]:.1f}, EHT '
+        f'{extra["env_steps_per_sec_eht"]:.1f} / '
+        f'{extra["env_steps_per_sec_eht_serial"]:.1f}; '
+        f'{time.perf_counter() - t0:.1f} s on {card}, nproc {extra["nproc"]}')
     shared_counts = {k: sum(r['counts'][k]
                             for r in shared['evaluations'].values())
                      for k in training['counts']}
@@ -3470,7 +3419,8 @@ def main() -> int:
                       'b70_kernels': {k: dict(b140=v[0], b70=v[1])
                                       for k, v in b70.items()},
                       'data_parallel': data_parallel,
-                      'trained': trained, 'shared_draws': shared}))
+                      'trained': trained, 'shared_draws': shared,
+                      'bench': bench_record}))
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {
