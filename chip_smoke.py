@@ -111,9 +111,12 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      agent's 10-env x 14-step rollout through both transports with phase
      10's checks (the same bits, the rewards recomputed, exact launch
      counts), then 2 PPO iterations of experiments/sf6_eht/README.md's
-     command through molgym_tpu_torch.run with the in-step transport that
-     --host_reward_mode=auto picks and the checks of phase 7; the host
-     reward's share of the rollouts and the host's cores logged;
+     command through molgym_tpu_torch.run with the checks of phase 7 under
+     --host_reward_mode=auto, whose first two probes are the pipelined
+     and the in-step transport (each iteration's transport, its
+     evaluation's (pipelined until the selector has chosen) and its
+     recomputed forwards checked; so for every run below under auto); the
+     host reward's share of the rollouts and the host's cores logged;
  10c. that build, on this host, against the reference's golden PM6
      values (tests/test_nddo.py's): the H (doublet), C and O atoms within
      1e-8 Ha, H2 at 1.2 A and the H2O fixture within 5e-8 Ha, the H2O
@@ -128,6 +131,15 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      (tests/test_eht.py::TestEHTExternalAnchors: H2's Wolfsberg-Helmholz
      relation within 1e-6, CH4's t2 degeneracy within 1e-6 eV and its
      Koopmans IPs, N2's gap); every reading beside its gate;
+ 10d. the measured transport (rl/rollout.py's AutoTransportRollout):
+     the recorded PM6 run (experiments/sf6_pm6/logs/sf6pm6_run-1.json)
+     under its --host_reward_mode=auto for 5 iterations, an evaluation
+     after each, through molgym_tpu_torch.run with the checks of phase 7
+     (exact launch counts, each iteration's recomputed forwards in them):
+     the training transports pipelined, in_step, pipelined, in_step and
+     then the choice, the choice the faster of the two timed probes in the
+     run's log, the evaluations pipelined before the choice and the choice
+     after it;
  11. the fifth path, the internal (SchNet) agent at SF6 full width
      (experiments/sf6_internal/logs/sf6int_run-1.json: X,S,F; canvas 7;
      width 128; 3 interactions; 64 atom features): a 140-env x 14-step
@@ -142,7 +154,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      of the recorded run through molgym_tpu_torch.run with the checks of
      phase 7; then 2 iterations of the mlp model at its recorded width
      (experiments/host_loop/logs/hostloop_run-1.json: O2, canvas 3, width
-     32, the host LJ reward) the same way;
+     32, the host LJ reward, --host_reward_mode=auto's first two probes)
+     the same way;
  12. the sixth to eighth paths, each from its recorded configuration at
      full width, through its driver: the solvation run
      (experiments/solvation/logs/solv_run-1.json: the internal agent,
@@ -153,7 +166,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      32 steps, minibatch 128, here with --host_reward_mode=loop) and the
      QM9 run with PM6 (experiments/qm9_pm6/logs/qm9pm6_run-1.json: the
      covariant agent at full width over X,H,C,N,O,F, canvas 7, its bag set
-     drawn from qm9_sample.tar.gz): for each, a rollout at the run's envs
+     drawn from qm9_sample.tar.gz, --host_reward_mode=auto's first two
+     probes): for each, a rollout at the run's envs
      and steps through the driver's env builder with exact launch counts,
      finite outputs, the agent card vs CPU, the host ms of one `act` and
      one profiled rollout (launches a step, idle share), every atom the
@@ -253,7 +267,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      its timings, then every name of its record with a number (the
      headline, ms_headline_rerun, the three mfu estimates, ms_batch_2240,
      ms_bf16, ms_bf16_2240, ms_internal_agent and the PM6 and EHT
-     env-steps/s of both transports) finite and positive, bench.py's names
+     env-steps/s of both transports) finite and positive, the transport
+     --host_reward_mode=auto keeps for PM6 and for EHT
+     (auto_transport_pm6, _eht) one of the port's two, bench.py's names
      without a counterpart listed, and the card's name in the record; the
      record logged.
 
@@ -953,8 +969,8 @@ SF6_PM6 = ['--name=sf6pm6', '--formulas=SF6', '--canvas_size=7',
            '--save_rollouts=eval', '--seed=1', '--num_steps=280',
            '--host_reward_mode=loop', '--log_level=WARNING']
 PM6_ENVS = 10   # the recorded run's --num_envs
-# experiments/sf6_eht/README.md's command, cut to 2 iterations; the in-step
-# transport that --host_reward_mode=auto picks
+# experiments/sf6_eht/README.md's command, cut to 2 iterations: the first
+# two probes of --host_reward_mode=auto, pipelined and then in step
 SF6_EHT = ['--name=sf6eht', '--formulas=SF6', '--canvas_size=7',
            '--symbols=X,S,F', '--bag_scale=5', '--model=covariant',
            '--beta=-10', '--min_mean_distance=1.10',
@@ -962,6 +978,52 @@ SF6_EHT = ['--name=sf6eht', '--formulas=SF6', '--canvas_size=7',
            '--num_steps_per_iter=140', '--mini_batch_size=140',
            '--reward=eht', '--seed=1', '--num_steps=280',
            '--log_level=WARNING']
+
+
+# phase 10d: experiments/sf6_pm6/logs/sf6pm6_run-1.json under its
+# recorded --host_reward_mode=auto, cut to 5 iterations, an evaluation
+# after each: the selector probes pipelined, in_step, pipelined, in_step
+# and keeps the faster of its two timed probes for the fifth; logged at
+# INFO, so that the probes' ms are in the run's log
+SF6_PM6_AUTO = [a for a in SF6_PM6 if not a.startswith(
+    ('--num_steps=', '--host_reward_mode=', '--log_level='))] + [
+        '--num_steps=700', '--host_reward_mode=auto', '--eval_freq=1',
+        '--log_level=INFO']
+PROBE_ORDER = ['pipelined', 'in_step'] * 2
+# an auto run of 2 iterations: the first two probes
+PROBES_2 = PROBE_ORDER[:2]
+
+
+def selector_probes(config, tag):
+    """The selector's line in the log of a run under
+    --host_reward_mode=auto (curve_summary.selector_probes): its choice and
+    the ms of its two timed probes."""
+    from molgym_tpu_torch.curve_summary import selector_probes as probes
+    found = probes(os.path.join(config['log_dir'], tag + '.log'))
+    if found is None or set(found['probe_ms']) != set(PROBE_ORDER):
+        raise AssertionError(f'the selector\'s line in the log: {found}')
+    return found
+
+
+def run_selector(dev):
+    """Phase 10d: SF6_PM6_AUTO through molgym_tpu_torch.run with the checks
+    of phase 7 (exact launch counts, each iteration's transport and
+    recomputed forwards in them); the training transports must read
+    PROBE_ORDER and then the choice, the choice the faster of the two
+    logged probes, and the evaluations pipelined until the choice (after
+    the fourth iteration's rollout) and the choice after it."""
+    from molgym_tpu_torch import run
+    from molgym_tpu_torch.tools.arg_parser import build_default_argparser
+    res = run_training(dev, run, build_default_argparser, SF6_PM6_AUTO,
+                       iterations=5, transport=None, inspect=selector_probes)
+    choice, probes = res['choice'], res['probe_ms']
+    if (choice != min(probes, key=probes.get)
+            or res['transports'] != PROBE_ORDER + [choice]
+            or res['eval_transports'] != ['pipelined'] * 3 + [choice] * 2):
+        raise AssertionError(f'phase 10d: choice {choice} of {probes}, '
+                             f'transports {res["transports"]}, evaluations '
+                             f'{res["eval_transports"]}')
+    return res
 
 
 def per_forward_launches(agent, encoder_dtype='float32'):
@@ -1025,7 +1087,12 @@ def run_training(dev, entry, build_parser, argv, iterations,
     optimizer count the run must continue; the launch
     counts are zeroed just before and read just after, this process's and
     those of the data-parallel ranks the run spawns, added. Every training
-    rollout must name `transport`, and a host reward's its reward_time.
+    rollout must name `transport` (a list: each iteration's in turn, as
+    --host_reward_mode=auto probes pipelined, in_step, pipelined, in_step;
+    None: the caller checks the result's `transports`), and a host
+    reward's its reward_time; every evaluation the same transport where
+    `transport` is one name, and where it is a list pipelined, the
+    selector's before it has chosen (the result's `eval_transports`).
     `inspect(config, tag)`, called while the run's directories exist, adds
     its dict to the result. `env` holds environment variables set for the
     run only. On the CPU (a rehearsal) the counts are not checked: only a
@@ -1102,10 +1169,25 @@ def run_training(dev, entry, build_parser, argv, iterations,
             if bad:
                 raise AssertionError(f'non-finite {bad} in {rec}')
         host = config['reward'] not in ('device_lj', 'device_morse')
+        transports = [r['transport'] for r in train]
+        eval_transports = [r['transport'] for r in evals]
+        if isinstance(transport, str):
+            expected = ([transport] * len(train), [transport] * len(evals))
+        elif transport is not None:
+            expected = (list(transport), ['pipelined'] * len(evals))
+        if transport is not None and expected != (transports,
+                                                  eval_transports):
+            raise AssertionError(f'transports {transports}, evaluations '
+                                 f'{eval_transports}: expected {expected}')
+        for rec in train + evals:
+            if ('recomputes' in rec) != (rec['transport'] == 'pipelined'):
+                raise AssertionError(f'info {rec}: recomputes where the '
+                                     'transport was not pipelined')
         for rec in train:
-            if rec['transport'] != transport or host != ('reward_time' in rec):
-                raise AssertionError(f'train info {rec}: expected the '
-                                     f'{transport} transport')
+            if host != ('reward_time' in rec):
+                raise AssertionError(f'train info {rec}: reward_time with '
+                                     'a device reward, or none with a host '
+                                     'one')
         if min(r['num_opt_steps'] for r in opt) < 1:
             raise AssertionError(f'an update took no step: {opt}')
         if optimizer.count != start_count + sum(r['num_opt_steps']
@@ -1164,7 +1246,9 @@ def run_training(dev, entry, build_parser, argv, iterations,
                 approx_kl=[r['approx_kl'] for r in opt],
                 return_mean=[r['return_mean'] for r in train],
                 eval_return_mean=[r['return_mean'] for r in evals],
-                recomputes=recomputes,
+                recomputes=recomputes, transports=transports,
+                eval_transports=eval_transports,
+                recomputes_by_iteration=[r.get('recomputes') for r in train],
                 reward_time_s=[r.get('reward_time') for r in train],
                 start_count=start_count, count=optimizer.count, **extra)
 
@@ -3035,13 +3119,13 @@ def main() -> int:
     eht = run_host_transports(dev, METHOD_EHT, 0.0)
     log('eht transports:', json.dumps(eht))
     eht_training = run_training(dev, run, build_default_argparser, SF6_EHT,
-                                iterations=2)
+                                iterations=2, transport=PROBES_2)
     log('eht training:', json.dumps(eht_training))
     eht_seconds = time.perf_counter() - t0
     log(f'eht rollout {PM6_ENVS} envs x {NUM_STEPS} steps: ' + ', '.join(
         f'{n} {r["ms"]:.1f} ms (reward {r["reward_ms"]:.1f} ms, '
         f'{r["recomputes"]} recomputes)' for n, r in eht['transports'].items())
-        + '; 2 in-step iterations ' + ' / '.join(
+        + '; 2 iterations (pipelined, in step) ' + ' / '.join(
             f'{t:.1f}' for t in eht_training['iteration_ms'])
         + ' ms, host reward share of the rollouts ' + ', '.join(
             f'{r / t:.3f}' for r, t in zip(
@@ -3064,6 +3148,21 @@ def main() -> int:
         f'{host_lib["library"]} from {host_lib["sources"]} built in '
         f'{host_lib["seconds"]:.1f} s by {host_lib["compiler"]}, nproc '
         f'{host_lib["nproc"]}, on {card}')
+
+    # phase 10d: the measured transport (--host_reward_mode=auto) over 5
+    # iterations of the recorded PM6 run
+    t0 = time.perf_counter()
+    selector = run_selector(dev)
+    log('selector training:', json.dumps(selector))
+    log(f'phase 10d: transports {selector["transports"]}, evaluations '
+        f'{selector["eval_transports"]}; kept {selector["choice"]!r}, timed '
+        'probes ' + ', '.join(f'{n} {ms:.3f} ms' for n, ms in
+                              selector['probe_ms'].items())
+        + ', recomputes by iteration '
+        f'{selector["recomputes_by_iteration"]}; iterations ' + ' / '.join(
+            f'{t:.1f}' for t in selector['iteration_ms'])
+        + f' ms; {time.perf_counter() - t0:.1f} s on {card}, nproc '
+        f'{host_lib["nproc"]}')
 
     # the fifth path: the internal (SchNet) agent at SF6, and the mlp model
     internal_rollout = run_internal_rollout(dev)
@@ -3095,7 +3194,8 @@ def main() -> int:
                                      SF6_INTERNAL, iterations=2)
     log('internal training:', json.dumps(internal_training))
     mlp_training = run_training(dev, run, build_default_argparser,
-                                HOST_LOOP_MLP, iterations=2)
+                                HOST_LOOP_MLP, iterations=2,
+                                transport=PROBES_2)
     log('mlp training:', json.dumps(mlp_training))
 
     # the sixth to eighth paths: the solvation, scaffold and QM9 drivers
@@ -3133,7 +3233,8 @@ def main() -> int:
     if 'gap' in scaf_training:
         log('scaffold hull check: gap:', scaf_training['gap'])
     qm9_training = run_training(dev, run_qm9, run_qm9.build_parser, QM9_PM6,
-                                iterations=2, inspect=check_formulas)
+                                iterations=2, transport=PROBES_2,
+                                inspect=check_formulas)
     log('qm9 training:', json.dumps(qm9_training))
     covariance = run_covariance(dev)
     log('covariance on the card:', json.dumps(covariance))
@@ -3243,7 +3344,10 @@ def main() -> int:
         f'{extra["env_steps_per_sec_pm6"]:.1f} / '
         f'{extra["env_steps_per_sec_pm6_serial"]:.1f}, EHT '
         f'{extra["env_steps_per_sec_eht"]:.1f} / '
-        f'{extra["env_steps_per_sec_eht_serial"]:.1f}; '
+        f'{extra["env_steps_per_sec_eht_serial"]:.1f}; auto keeps '
+        f'{extra["auto_transport_pm6"]} (PM6) and '
+        f'{extra["auto_transport_eht"]} (EHT), timed probes '
+        f'{json.dumps(extra["auto_transport_probe_ms"])} ms; '
         f'{time.perf_counter() - t0:.1f} s on {card}, nproc {extra["nproc"]}')
     shared_counts = {k: sum(r['counts'][k]
                             for r in shared['evaluations'].values())
@@ -3404,6 +3508,7 @@ def main() -> int:
                       'lj_fixup_transports': fixup,
                       'pm6_training': pm6_training,
                       'eht_transports': eht, 'eht_training': eht_training,
+                      'selector_training': selector,
                       'internal_rollout': internal_rollout,
                       'internal_agent_grads': internal_grads,
                       'internal_training': internal_training,

@@ -62,6 +62,12 @@ extra   bench.py's names:
         peak_memory_bytes    max_memory_allocated over one call
         flops_per_fwd_bwd, peak_flop_per_s, flop_count_note
         env_steps_per_sec_pm6_serial  PM6 in step, the pair of the above
+        auto_transport_pm6, auto_transport_eht
+                             the transport --host_reward_mode=auto keeps
+                             (pipelined or in_step, the JAX serial loop's
+                             counterpart) at SF6, 10 envs x 14 steps,
+                             calling the selector until it has chosen
+        auto_transport_probe_ms  its two timed probes' ms, by reward
         env_steps_reps       every rep of each transport: ms, the host
                              reward's share, the library's pool counts
         gates                each configuration's card-against-CPU reading
@@ -124,11 +130,6 @@ FLOP_COUNT_NOTE = (
 NO_COUNTERPART = {
     'ms_einsum_agg': 'the port has one aggregate route; --agg_backend other '
                      'than auto is refused (tools/arg_parser.py)',
-    'auto_transport_pm6': 'no measured choice in the port: auto steps in the '
-                          'env; the pair env_steps_per_sec_pm6 / _serial is '
-                          'the A/B it measured',
-    'auto_transport_eht': 'as auto_transport_pm6; the pair '
-                          'env_steps_per_sec_eht / _serial',
     'vs_baseline': 'its denominator is a CPU reading of the TPU host; kept '
                    'as null',
     'baseline_pin_ms': 'a pinned CPU reading of the TPU host, not of the port',
@@ -148,7 +149,11 @@ EXTRA_NAMES = COUNTERPARTS + (
     'device_idle_share', 'profiled_wall_ms', 'device_idle_share_profiled',
     'launches_per_fwd_bwd', 'peak_memory_bytes', 'flops_per_fwd_bwd',
     'peak_flop_per_s', 'flop_count_note', 'env_steps_reps', 'gates', 'device', 'nproc',
-    'settings', 'no_counterpart')
+    'settings', 'no_counterpart', 'auto_transport_pm6', 'auto_transport_eht',
+    'auto_transport_probe_ms')
+# the transports the selector may keep (auto_transport_*)
+TRANSPORTS = ('pipelined', 'in_step')
+AUTO_MAX_CALLS = 8   # bench.py's bench_auto_transport
 
 
 def log(*args):
@@ -580,26 +585,19 @@ def check_same_rollout(what: str, run, ref) -> None:
                              f'trajectory than the in-step one ({same})')
 
 
-def host_env_steps(method: int, reps: int = REPS, device='cuda',
-                   agent_kwargs: Optional[dict] = None, formula: str = 'SF6',
-                   num_envs: int = HOST_ENVS,
-                   num_steps: int = HOST_STEPS) -> dict:
-    """Env-steps/s of a training rollout with the host reward `method`
-    (calculators/native.py) through the pipelined and the in-step
-    ('serial') transport: one NativeBatchCalculator over everything, the
-    covariant agent of `agent_kwargs` (default bench.py's SF6 agent) with
-    parameters drawn after torch.manual_seed(SEED). First both transports
-    from one generator state (SEED), which must give the same trajectory
-    (check_same_rollout; the in-step run meets the energies the pipelined
-    one computed); then `reps` rounds of both, the order alternating, each
-    rollout from a seed of its own, so that no rollout meets another's
-    geometries. Returns each transport's best env-steps/s and its readings."""
+def host_setup(method: int, device, agent_kwargs: Optional[dict] = None,
+               formula: str = 'SF6'):
+    """(env, agent, calc) of a host-reward rollout: one
+    TimedBatchCalculator of the host reward `method`
+    (calculators/native.py), the env over `formula` whose reward function
+    calls it in the step, and the covariant agent of `agent_kwargs`
+    (default bench.py's SF6 agent) with parameters drawn after
+    torch.manual_seed(SEED)."""
     from molgym_tpu_torch.calculators.native import NativeBatchCalculator
     from molgym_tpu_torch.calculators.reward_host import (
         TimedBatchCalculator, make_host_reward)
     from molgym_tpu_torch.envs.environment import MolecularEnv
     from molgym_tpu_torch.formula import string_to_formula
-    from molgym_tpu_torch.rl import rollout as rl
     from molgym_tpu_torch.spaces import ObservationSpace
 
     if agent_kwargs is None:
@@ -616,6 +614,49 @@ def host_env_steps(method: int, reps: int = REPS, device='cuda',
     else:
         from molgym_tpu_torch.agents.covariant import CovariantAC
         agent = CovariantAC(**agent_kwargs, device=device)
+    return env, agent, calc
+
+
+def auto_transport(method: int, device='cuda',
+                   agent_kwargs: Optional[dict] = None, formula: str = 'SF6',
+                   num_envs: int = HOST_ENVS,
+                   num_steps: int = HOST_STEPS) -> dict:
+    """The transport that --host_reward_mode=auto keeps for the host reward
+    `method` (bench.py's bench_auto_transport): the selector
+    (rl/rollout.py's make_auto_host_rollout_fn) over host_setup's env and
+    agent, called from the same initial states with a generator seeded
+    anew each call until it has chosen, at most AUTO_MAX_CALLS times.
+    Returns its choice, the ms of its two timed probes, and its calls."""
+    from molgym_tpu_torch.rl import rollout as rl
+
+    env, agent, calc = host_setup(method, device, agent_kwargs, formula)
+    rollout = rl.make_auto_host_rollout_fn(env, agent, calc, num_steps)
+    states = env.init_states(num_envs, torch.Generator(
+        device=device).manual_seed(SEED))
+    calls = 0
+    while rollout.choice is None and calls < AUTO_MAX_CALLS:
+        rollout(agent, states, torch.Generator(device=device).manual_seed(
+            SEED + 1 + calls))
+        calls += 1
+    return dict(choice=rollout.choice, calls=calls,
+                probe_ms={n: t * 1e3 for n, t in rollout.times.items()})
+
+
+def host_env_steps(method: int, reps: int = REPS, device='cuda',
+                   agent_kwargs: Optional[dict] = None, formula: str = 'SF6',
+                   num_envs: int = HOST_ENVS,
+                   num_steps: int = HOST_STEPS) -> dict:
+    """Env-steps/s of a training rollout with the host reward `method`
+    (calculators/native.py) through the pipelined and the in-step
+    ('serial') transport, over host_setup's env, agent and calculator.
+    First both transports from one generator state (SEED), which must give
+    the same trajectory (check_same_rollout; the in-step run meets the
+    energies the pipelined one computed); then `reps` rounds of both, the order alternating, each
+    rollout from a seed of its own, so that no rollout meets another's
+    geometries. Returns each transport's best env-steps/s and its readings."""
+    from molgym_tpu_torch.rl import rollout as rl
+
+    env, agent, calc = host_setup(method, device, agent_kwargs, formula)
     rollouts = {'pipelined': rl.make_pipelined_host_rollout_fn(
                     env, agent, calc, num_steps),
                 'serial': rl.make_rollout_fn(env, agent, num_steps)}
@@ -670,6 +711,9 @@ def check_record(record: dict) -> None:
                              f'{record["unit"]}')
     if sorted(extra['no_counterpart']) != sorted(NO_COUNTERPART):
         raise AssertionError(f'record: no_counterpart {extra["no_counterpart"]}')
+    choices = [extra[f'auto_transport_{name}'] for name in ('pm6', 'eht')]
+    if not all(c in TRANSPORTS for c in choices):
+        raise AssertionError(f'record: auto_transport {choices}')
 
 
 def run(iters: int = ITERS, iters_2240: int = ITERS_2240,
@@ -714,7 +758,8 @@ def run(iters: int = ITERS, iters_2240: int = ITERS_2240,
                       reps=reps),
         no_counterpart=dict(NO_COUNTERPART), gates={},
         flops_per_fwd_bwd={}, peak_flop_per_s=dict(PEAK_FLOP_PER_S),
-        flop_count_note=FLOP_COUNT_NOTE, env_steps_reps={})
+        flop_count_note=FLOP_COUNT_NOTE, env_steps_reps={},
+        auto_transport_probe_ms={})
 
     def first_call(fn):
         result = fn()
@@ -774,6 +819,12 @@ def run(iters: int = ITERS, iters_2240: int = ITERS_2240,
         put(**{f'env_steps_per_sec_{name}': res['best']['pipelined'],
                f'env_steps_per_sec_{name}_serial': res['best']['serial']})
         done(f'{name} env-steps/s')
+        auto = auto_transport(method, dev)
+        put(**{f'auto_transport_{name}': auto['choice']})
+        extra['auto_transport_probe_ms'][name] = auto['probe_ms']
+        log(f'bench: auto transport for {name}: {auto["choice"]} '
+            f'({auto["probe_ms"]})')
+        done(f'auto_transport_{name}')
     host('pm6', METHOD_PM6)
 
     tiles = BIG_BATCH // BATCH

@@ -6,7 +6,8 @@ of the recorded runs trained in full on the card.
 
 Prints one JSON object: for the run and the reference, the iterations, the
 mean training return of the last 10 iterations, the last 4 greedy
-evaluations (return, episode length) and the final one; for the run also
+evaluations (return, episode length), the final one and the last
+iteration's host transport; for the run also
 its iteration seconds (the first, which builds the kernels, the median of
 the rest, the sum), which the reference's records lack. Host only: it reads
 the JSON lines a run wrote (tools/util.py's InfoSaver). With a host reward
@@ -18,8 +19,10 @@ left out).
         --tag=sf6pm6_run-2 --results=<run 2's> ... \\
         --reference=experiments/sf6_pm6/results
 
-sums up each tag (one --results for all, or one for each) and prints the
-family's verdict under THRESHOLDS beside them (`meets`): the thresholds
+sums up each tag (one --results for all, or one for each; with --logs,
+the transport that --host_reward_mode=auto chose and its timed probes,
+from the run's log and the reference's) and prints the family's verdict
+under THRESHOLDS beside them (`meets`): the thresholds
 that the port's seeds 1, 2 and 3 of a recorded run are held to when it is
 trained in full on the card, set from the JAX records before any such run.
 """
@@ -28,6 +31,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 from typing import Optional, Sequence
 
@@ -37,16 +41,28 @@ LAST_TRAIN = 10
 LAST_EVALS = 4
 
 # family -> (floor of the last-10 training mean, floor of a greedy eval,
-# the atoms of a full episode). A seed meets its family's threshold when
-# its last-10 mean is at or above the first floor and at least
-# EVALS_TO_MEET of its last LAST_EVALS greedy evals are at or above the
-# second with every atom placed; a family meets it when at least
-# SEEDS_TO_MEET of its seeds (1, 2 and 3) do.
+# the atoms of a full episode[, the evals that must meet]). A seed meets
+# its family's threshold when its last-10 mean is at or above the first
+# floor and at least the given number (EVALS_TO_MEET unless given) of its
+# last LAST_EVALS greedy evals are at or above the second with every atom
+# placed: an eval's mean episode length at or above the atoms, which are
+# a mean over the eval formulas where those differ (qm9_pm6's CNH, COH2,
+# CFH3 and CO2H2: 4.25); a family meets it when at least SEEDS_TO_MEET of
+# its seeds (1, 2 and 3) do.
 THRESHOLDS = {
     'sf6_pm6': (0.35, 0.60, 7),
     'sf6_internal': (0.40, 0.85, 7),
     'sf6_eht': (0.70, 1.00, 7),
     'h2o_eht': (0.25, 0.30, 3),
+    'qm9_pm6': (0.25, 0.40, 4.25),
+    'scaffold_pm6': (-0.40, 0.45, 3),
+    'solvation_pm6': (0.45, 0.70, 9),
+    # the multimodal greedy mode (tools/diagnose_greedy.py): the JAX seeds
+    # themselves place every atom in 2 of their last 4 evals at most
+    'stochastic_pm6': (0.05, 0.45, 9, 2),
+    'halides_pm6': (0.30, 0.45, 5),
+    'organics_pm6': (0.30, 0.55, 6),
+    'sf6_internal_pm6': (-0.10, 0.50, 7),
 }
 EVALS_TO_MEET = 3
 SEEDS_TO_MEET = 2
@@ -71,6 +87,8 @@ def summarize(results_dir: str, tag: str,
         last4_evals=[(r['return_mean'], r['episode_length_mean'])
                      for r in evals[-LAST_EVALS:]],
         final_eval=evals[-1]['return_mean'],
+        # the transport the run kept (--host_reward_mode=auto's choice)
+        transport=train[-1].get('transport'),
         evals=[(r['total_num_steps'], r['return_mean'],
                 r['episode_length_mean']) for r in evals])
     seconds = [r['iteration_time'] for r in opt if 'iteration_time' in r]
@@ -85,13 +103,31 @@ def summarize(results_dir: str, tag: str,
     return out
 
 
+def selector_probes(log_path: str) -> Optional[dict]:
+    """The line of a run's log (either package's) where
+    --host_reward_mode=auto chose its transport, the last where the log
+    holds several runs: the choice and each timed probe's ms by transport;
+    None without such a line or log."""
+    if not os.path.exists(log_path):
+        return None
+    with open(log_path) as f:
+        lines = [line for line in f if 'transport auto-selected' in line]
+    if not lines:
+        return None
+    choice, probes = re.search(r"auto-selected '(\w+)' \((.*)\)",
+                               lines[-1]).groups()
+    return dict(choice=choice, probe_ms={
+        name: float(ms) for name, ms in re.findall(r'(\w+): ([\d.]+) ms',
+                                                   probes)})
+
+
 def seed_meets(family: str, summary: dict) -> bool:
     """Whether one seed's summary meets THRESHOLDS[family]."""
-    train_floor, eval_floor, atoms = THRESHOLDS[family]
+    train_floor, eval_floor, atoms, *evals_to_meet = THRESHOLDS[family]
     evals_met = sum(ret >= eval_floor and length >= atoms - 1e-6
                     for ret, length in summary['last4_evals'])
     return (summary['last10_train_return'] >= train_floor
-            and evals_met >= EVALS_TO_MEET)
+            and evals_met >= (evals_to_meet or [EVALS_TO_MEET])[0])
 
 
 def meets(family: str, summaries: Sequence[dict]) -> dict:
@@ -117,17 +153,33 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                         'only (a record that a resumed run continued)')
     parser.add_argument('--family', choices=sorted(THRESHOLDS),
                         help="print the family's verdict (THRESHOLDS)")
+    parser.add_argument('--logs', action='append',
+                        help="the run's log directory, once for all runs "
+                        'or once for each: adds the probes of '
+                        '--host_reward_mode=auto (the reference\'s from '
+                        'the logs beside its results)')
     args = parser.parse_args(argv)
-    if len(args.results) not in (1, len(args.tag)):
-        parser.error('give --results once, or once for each --tag')
-    results = args.results * (len(args.tag) // len(args.results))
+
+    def per_tag(name, given):
+        if len(given) not in (1, len(args.tag)):
+            parser.error(f'give --{name} once, or once for each --tag')
+        return given * (len(args.tag) // len(given))
+    results = per_tag('results', args.results)
+    logs = per_tag('logs', args.logs) if args.logs else [None] * len(args.tag)
     runs = []
-    for tag, directory in zip(args.tag, results):
+    for tag, directory, log_dir in zip(args.tag, results, logs):
         out = dict(tag=tag, run=summarize(directory, tag))
+        if log_dir:
+            out['run']['selector'] = selector_probes(
+                os.path.join(log_dir, f'{tag}.log'))
         if args.reference and os.path.exists(
                 os.path.join(args.reference, f'{tag}_train.txt')):
             out['reference'] = summarize(args.reference, tag,
                                          args.max_steps)
+            if log_dir:
+                out['reference']['selector'] = selector_probes(os.path.join(
+                    os.path.dirname(os.path.abspath(args.reference)), 'logs',
+                    f'{tag}.log'))
         runs.append(out)
     out = runs[0] if len(runs) == 1 else dict(runs=runs)
     if args.family:

@@ -120,6 +120,12 @@ class Mesh:
         dist.all_reduce(flat, op=dist.ReduceOp.SUM)
         return _split(flat, tensors)
 
+    def all_reduce_max(self, values: Sequence[float]) -> List[float]:
+        """The MAX over ranks of each number, in one collective."""
+        flat = torch.tensor(values, dtype=torch.float64, device=self.device)
+        dist.all_reduce(flat, op=dist.ReduceOp.MAX)
+        return flat.tolist()
+
     @torch.no_grad()
     def broadcast_(self, tensors: Sequence[torch.Tensor]) -> None:
         """Rank 0's values into every rank's `tensors` (one dtype), in

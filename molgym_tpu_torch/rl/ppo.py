@@ -33,8 +33,10 @@ from molgym_tpu_torch.draws import Rng, as_draws
 from molgym_tpu_torch.envs.environment import MolecularEnv
 from molgym_tpu_torch.rl.buffer import (buffer_stats, compute_ppo_data,
                                         episode_stats)
-from molgym_tpu_torch.rl.rollout import (make_pipelined_host_rollout_fn,
-                                         make_rollout_fn)
+from molgym_tpu_torch.rl.rollout import (AutoTransportRollout,
+                                         make_auto_host_rollout_fn,
+                                         make_pipelined_host_rollout_fn,
+                                         make_rollout_fn, sync)
 
 INFO_KEYS = ('policy_loss', 'entropy_loss', 'vf_loss', 'total_loss',
              'approx_kl', 'clip_fraction')
@@ -256,11 +258,6 @@ def make_train_fn(agent: nn.Module, optimizer: Optimizer, config: PPOConfig,
     return train
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == 'cuda':
-        torch.cuda.synchronize(device)
-
-
 def _episodes(traj, gamma: float) -> Tuple[list, list]:
     return episode_stats(traj.rewards.cpu().numpy(),
                          traj.terminals.cpu().numpy(), gamma)
@@ -277,15 +274,45 @@ def _episode_info(returns: list, lengths: list) -> dict:
 
 
 def _make_rollout(env, agent, num_steps, deterministic, calculator,
-                  distance_penalty):
-    """(rollout fn, transport name): in step without a host-loop
-    calculator, else the pipelined host loop, whose rewards are less
-    distance_penalty * |new position|."""
-    if calculator is None:
-        return make_rollout_fn(env, agent, num_steps, deterministic), 'in_step'
-    return make_pipelined_host_rollout_fn(
-        env, agent, calculator, num_steps, deterministic,
-        distance_penalty), 'pipelined'
+                  pipelined, distance_penalty, mesh=None):
+    """A rollout function: in step without a host-loop calculator or with
+    `pipelined` False; with one, the pipelined host loop (whose rewards are
+    less distance_penalty * |new position|) where `pipelined` is True, and
+    the measured choice between the two (AutoTransportRollout) where it is
+    'auto'."""
+    if calculator is None or pipelined is False:
+        return make_rollout_fn(env, agent, num_steps, deterministic)
+    if pipelined == 'auto':
+        return make_auto_host_rollout_fn(env, agent, calculator, num_steps,
+                                         deterministic, distance_penalty,
+                                         mesh)
+    return make_pipelined_host_rollout_fn(env, agent, calculator, num_steps,
+                                          deterministic, distance_penalty)
+
+
+class _Following:
+    """The evaluation rollout under a selector: it steps in the selector's
+    choice, pipelined until there is one (the transports give the same
+    trajectory, so this is a matter of time only), through one rollout
+    function per transport, `make(pipelined)`'s, built at its first use.
+    `recomputes` is its last call's."""
+
+    def __init__(self, selector: AutoTransportRollout, make: Callable):
+        self.selector, self.make = selector, make
+        self.fns = {}
+        self.recomputes = None
+
+    @property
+    def transport(self) -> str:
+        return self.selector.choice or 'pipelined'
+
+    def __call__(self, params, states, generator):
+        name = self.transport
+        if name not in self.fns:
+            self.fns[name] = self.make(name == 'pipelined')
+        out = self.fns[name](params, states, generator)
+        self.recomputes = getattr(self.fns[name], 'recomputes', None)
+        return out
 
 
 def eval_rollout_size(num_eval_episodes: int, eval_sample_k: int,
@@ -352,6 +379,7 @@ def batch_ppo(
     profile_dir: Optional[str] = None,
     mesh=None,
     host_loop_calculator=None,
+    host_loop_pipelined=True,
     host_distance_penalty: float = 0.0,
     host_reward_timer=None,
     eval_sample_k: int = 0,
@@ -383,18 +411,21 @@ def batch_ppo(
 
     A host reward runs in the env's step (the env's reward function is a
     `make_host_reward`) unless `host_loop_calculator` is given: then the
-    training and evaluation rollouts step in the pipelined host loop over
-    that batch calculator, less `host_distance_penalty` * |new position|
-    (the solvation penalty, which the env's reward function applies in the
-    in-step transport).
+    training and evaluation rollouts step, as `host_loop_pipelined` says
+    (the JAX package's flag), in the pipelined host loop over that batch
+    calculator (True), less `host_distance_penalty` * |new position| (the
+    solvation penalty, which the env's reward function applies in the
+    in-step transport), in the env's step (False), or in the faster of the
+    two ('auto': AutoTransportRollout measures both on the first warm
+    iterations, and the evaluation follows its choice, pipelined until
+    there is one; under a mesh every rank keeps the same).
     The port has no serial host loop: a step can always reach the host, so
-    the in-step transport does the serial loop's work in its order.
+    the in-step transport does the JAX serial loop's work in its order.
     `host_reward_timer` (a TimedBatchCalculator) adds `reward_time`, the
     seconds spent in the host reward during the training rollout, to the
-    train info. The train info's `transport` names the rollout's transport
-    (in_step or pipelined), and `recomputes` counts the pipelined
-    transport's forwards computed again after a low-reward termination
-    (also in the eval info).
+    train info. The train and eval infos' `transport` names the rollout's
+    transport (in_step or pipelined), and `recomputes` counts the pipelined
+    transport's forwards computed again after a low-reward termination.
 
     eval_sample_k = 0 (default) evaluates greedily; K > 0 samples K episodes
     per eval formula and adds `return_best_mean`, the mean over formulas of
@@ -409,9 +440,9 @@ def batch_ppo(
 
     if optimizer is None:
         optimizer = make_optimizer(config, agent)
-    rollout_fn, transport = _make_rollout(
+    rollout_fn = _make_rollout(
         envs, agent, steps_per_env, False, host_loop_calculator,
-        host_distance_penalty)
+        host_loop_pipelined, host_distance_penalty, mesh)
     train_fn = make_train_fn(agent, optimizer, config, num_steps_per_iter,
                              mesh=mesh)
 
@@ -419,9 +450,14 @@ def batch_ppo(
     if eval_envs is not None:
         total_eval_episodes, eval_steps = eval_rollout_size(
             num_eval_episodes, eval_sample_k, eval_envs.canvas_size)
-        eval_rollout_fn = _make_rollout(
-            eval_envs, agent, eval_steps, eval_sample_k == 0,
-            host_loop_calculator, host_distance_penalty)[0]
+
+        def make_eval(pipelined):
+            return _make_rollout(eval_envs, agent, eval_steps,
+                                 eval_sample_k == 0, host_loop_calculator,
+                                 pipelined, host_distance_penalty)
+        eval_rollout_fn = (_Following(rollout_fn, make_eval)
+                           if isinstance(rollout_fn, AutoTransportRollout)
+                           else make_eval(host_loop_pipelined))
 
     states, generator = start_rollouts(envs, num_envs, optimizer, seed, mesh)
     if eval_envs is not None:
@@ -445,11 +481,11 @@ def batch_ppo(
             profiler.start()
 
         # -- training rollout
-        _sync(device)
+        sync(device)
         t_iter = t0 = time.perf_counter()
         reward_t0 = (host_reward_timer.total_time
                      if host_reward_timer is not None else None)
-        train_info = {'transport': transport}
+        train_info = {'transport': rollout_fn.transport}
         states, traj = rollout_fn(agent, states, generator)
         if mesh is not None:
             traj = mesh.gather_trajectory(traj)
@@ -477,7 +513,7 @@ def batch_ppo(
         t0 = time.perf_counter()
         data = compute_ppo_data(traj, config.gamma, config.lam)
         opt_info = train_fn(data, generator)
-        _sync(device)
+        sync(device)
         opt_info['time'] = time.perf_counter() - t0
         opt_info['iteration_time'] = time.perf_counter() - t_iter
         logging.info(
@@ -501,6 +537,7 @@ def batch_ppo(
         # -- evaluation
         if eval_rollout_fn is not None and (
                 iteration % eval_freq == 0 or iteration == num_iterations - 1):
+            transport = eval_rollout_fn.transport
             eval_states, eval_traj = eval_rollout_fn(agent, eval_states,
                                                      eval_generator)
             e_returns, e_lengths = _episodes(eval_traj, config.gamma)
@@ -510,8 +547,9 @@ def batch_ppo(
                     f'{len(e_returns)} episodes: the canvas_size + 1 '
                     'episode-length bound was violated')
             e_returns = e_returns[:total_eval_episodes]
-            eval_info = _episode_info(e_returns,
-                                      e_lengths[:total_eval_episodes])
+            eval_info = dict(_episode_info(e_returns,
+                                           e_lengths[:total_eval_episodes]),
+                             transport=transport)
             if eval_sample_k > 0:
                 # episodes cycle the eval formulas in order, so episode i
                 # belongs to formula i % num_eval_episodes

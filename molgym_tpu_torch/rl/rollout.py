@@ -28,11 +28,17 @@ Both draw from the generator in the same order: the policy's draws of step
 t, then the auto-reset's (a stochastic-bag env's bags), then step t + 1's.
 The pipelined transport speculates from a copy of the generator's state and
 leaves the generator where the in-step order does.
+
+make_auto_host_rollout_fn measures the two on the first warm calls and keeps
+the faster (AutoTransportRollout), as the JAX package's
+--host_reward_mode=auto does on a backend without io_callback.
 """
 from __future__ import annotations
 
+import logging
+import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Tuple
+from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
@@ -104,6 +110,7 @@ def make_rollout_fn(env: MolecularEnv, agent: nn.Module,
             final_out = module.act(obs, generator, True)
         return states, rec.trajectory(final_out.v)
 
+    rollout.transport = 'in_step'
     return rollout
 
 
@@ -177,4 +184,103 @@ def make_pipelined_host_rollout_fn(env: MolecularEnv, agent: nn.Module,
         return states, rec.trajectory(final_out.v)
 
     rollout.recomputes = 0
+    rollout.transport = 'pipelined'
     return rollout
+
+
+def sync(device: torch.device) -> None:
+    """Waits for the work queued on `device` (a card; the CPU has none)."""
+    if device.type == 'cuda':
+        torch.cuda.synchronize(device)
+
+
+class AutoTransportRollout:
+    """Measured choice between host-reward transports (counterpart of the
+    JAX package's AutoTransportRollout). Which is faster depends on the
+    reward: a cheap one (EHT, or a cached geometry) gains little from the
+    overlap and pays the pipelined loop's speculative work, an expensive one
+    (PM6's SCF) hides the policy's forward behind it. So each transport runs
+    once untimed (calls 0 and 1: the warm-up, which builds the kernels and
+    fills the host energy cache), once timed (calls 2 and 3), and the faster
+    is kept for every later call. The transports give the same trajectory
+    from one generator state, so the choice changes only the time.
+
+    `fns` maps a transport's name to its rollout function, with the
+    (params_or_module, states, generator) -> (states, Trajectory) contract;
+    their order is the probe order. `transport`, as a rollout function's,
+    names the next call's. The clock stops after the device has
+    finished the call's work, which the pipelined transport leaves queued.
+    With a `mesh` (parallel/mesh.py) the timed seconds are the MAX over the
+    ranks (one all-reduce at lock-in), so that every rank keeps the same
+    transport. `recomputes` is the last call's transport's, None where it
+    has none (the in-step transport)."""
+
+    def __init__(self, fns: Dict[str, Callable], mesh=None):
+        self._fns = dict(fns)
+        if len(self._fns) < 2:
+            raise ValueError('a choice needs two transports at least')
+        self._order = list(self._fns)
+        self._calls = 0
+        self._mesh = mesh
+        self.times: Dict[str, float] = {}
+        self.choice = None
+        self.recomputes = None
+
+    def current_transport(self) -> str:
+        """The transport of the next call."""
+        if self.choice is not None:
+            return self.choice
+        return self._order[self._calls % len(self._order)]
+
+    @property
+    def transport(self) -> str:
+        return self.current_transport()
+
+    def __call__(self, params, states: EnvState,
+                 generator: Rng) -> Tuple[EnvState, Trajectory]:
+        name = self.current_transport()
+        fn = self._fns[name]
+        if self.choice is not None:
+            out = fn(params, states, generator)
+            self.recomputes = getattr(fn, 'recomputes', None)
+            return out
+        t0 = time.perf_counter()
+        states, traj = fn(params, states, generator)
+        sync(traj.rewards.device)
+        # each transport's first call is a warm-up, its second is timed
+        if self._calls >= len(self._order):
+            self.times[name] = time.perf_counter() - t0
+        self._calls += 1
+        self.recomputes = getattr(fn, 'recomputes', None)
+        if len(self.times) == len(self._order):
+            self._lock_in()
+        return states, traj
+
+    def _lock_in(self) -> None:
+        if self._mesh is not None:
+            self.times = dict(zip(self.times, self._mesh.all_reduce_max(
+                list(self.times.values()))))
+        self.choice = min(self.times, key=self.times.__getitem__)
+        logging.info(f'host-reward transport auto-selected {self.choice!r} ('
+                     + ', '.join(f'{n}: {t * 1e3:.3f} ms'
+                                 for n, t in self.times.items()) + ')')
+
+
+def make_auto_host_rollout_fn(env: MolecularEnv, agent: nn.Module,
+                              batch_calculator, num_steps_per_env: int,
+                              deterministic: bool = False,
+                              distance_penalty: float = 0.0,
+                              mesh=None) -> AutoTransportRollout:
+    """The measured choice between the pipelined host loop and the in-step
+    transport (make_rollout_fn over `env`, whose reward function must then
+    be make_host_reward(batch_calculator, distance_penalty)), probed in the
+    JAX package's order: pipelined first. The in-step transport is the
+    port's counterpart of the JAX package's `serial` host loop: the same
+    work in the same order, so it keeps the port's name, `in_step`."""
+    return AutoTransportRollout({
+        'pipelined': make_pipelined_host_rollout_fn(
+            env, agent, batch_calculator, num_steps_per_env, deterministic,
+            distance_penalty),
+        'in_step': make_rollout_fn(env, agent, num_steps_per_env,
+                                   deterministic),
+    }, mesh=mesh)

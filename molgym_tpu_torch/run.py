@@ -19,8 +19,9 @@ sf6pm6_run-1.json), its reward computed on the host by the native library:
         --save_rollouts=eval --num_steps=15120 --seed=1
 
 `--host_reward_mode=loop` overlaps each step's host reward with the next
-policy forward; `auto`, `callback` and `loop_serial` compute it inside the
-env's step, strictly in order. Add `--device=cpu`
+policy forward; `callback` and `loop_serial` compute it inside the env's
+step, strictly in order; `auto` (the default) times both on the first warm
+iterations and keeps the faster. Add `--device=cpu`
 to run on the CPU (slow; for tiny configurations).
 """
 from __future__ import annotations

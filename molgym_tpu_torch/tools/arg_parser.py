@@ -77,9 +77,10 @@ def build_default_argparser() -> argparse.ArgumentParser:
     parser.add_argument('--host_reward_mode',
                         help='host reward transport: loop overlaps the '
                              'host reward with the next policy forward '
-                             '(pipelined); auto, callback and loop_serial '
-                             'call the host inside the env step, strictly '
-                             'in order',
+                             '(pipelined); callback and loop_serial call '
+                             'the host inside the env step, strictly in '
+                             'order; auto times both on the first warm '
+                             'iterations and keeps the faster',
                         type=str, default='auto',
                         choices=['auto', 'callback', 'loop', 'loop_serial'])
     parser.add_argument('--num_reward_threads',

@@ -66,14 +66,20 @@ def make_reward_fn(config: dict, solvation: bool = False
     return make_host_reward(calc, distance_penalty=penalty), calc
 
 
-def host_loop_calculator(mode: str, host_calc):
-    """batch_ppo's host_loop_calculator for --host_reward_mode: the host
-    calculator under 'loop' (the pipelined host loop), else None (the
-    in-step transport). A step of the port can always reach the host, so
-    'auto' and 'callback' step in the env, as the JAX package does on
-    backends with io_callback, and so does 'loop_serial': the in-step
-    transport is the serial loop, the same work in the same order."""
-    return host_calc if mode == 'loop' else None
+def host_transport(mode: str, host_calc) -> dict:
+    """batch_ppo's host_loop_calculator and host_loop_pipelined for
+    --host_reward_mode and a host reward's calculator (None for a device
+    reward: nothing to choose). 'loop' is the pipelined host loop;
+    'loop_serial' and 'callback' step in the env; 'auto' measures both on
+    the first warm iterations and keeps the faster, as the JAX package does
+    on a backend without io_callback. That is the port's position: its
+    in-step transport copies the reward's inputs to the host inside the
+    step, which is the JAX serial host loop's work in its order, not a
+    callback inside a compiled step."""
+    if host_calc is None or mode not in ('loop', 'auto'):
+        return dict(host_loop_calculator=None)
+    return dict(host_loop_calculator=host_calc,
+                host_loop_pipelined=True if mode == 'loop' else 'auto')
 
 
 EnvBuilder = Callable[[dict, ObservationSpace, RewardFn, torch.device],
@@ -294,8 +300,8 @@ def _train(config: dict, env_builder: EnvBuilder, device: torch.device,
             profile_dir=(os.path.join(config['log_dir'], 'profile')
                          if config.get('profile') and writer else None),
             mesh=mesh,
-            host_loop_calculator=host_loop_calculator(
-                config.get('host_reward_mode', 'auto'), host_calc),
+            **host_transport(config.get('host_reward_mode', 'auto'),
+                             host_calc),
             host_distance_penalty=distance_penalty(config, solvation),
             host_reward_timer=host_calc,
         )

@@ -43,14 +43,14 @@ ADDED = {'fwd_bwd_ms_p50', 'fwd_bwd_ms_p90', 'fwd_bwd_samples',
          'peak_memory_bytes', 'flops_per_fwd_bwd',
          'peak_flop_per_s', 'flop_count_note', 'env_steps_per_sec_pm6_serial',
          'env_steps_reps', 'gates', 'device', 'nproc', 'settings',
-         'no_counterpart'}
+         'no_counterpart', 'auto_transport_probe_ms'}
 COUNTERPARTS = {'ms_headline_rerun', 'mfu_est_pct', 'mfu_est_pct_batch_2240',
                 'mfu_est_pct_bf16_2240', 'ms_batch_2240', 'ms_bf16',
                 'ms_bf16_2240', 'ms_internal_agent', 'env_steps_per_sec_pm6',
                 'env_steps_per_sec_pm6_serial', 'env_steps_per_sec_eht',
                 'env_steps_per_sec_eht_serial'}
-NO_COUNTERPART = {'ms_einsum_agg', 'auto_transport_pm6', 'auto_transport_eht',
-                  'vs_baseline', 'baseline_pin_ms', 'baseline_live_ms'}
+NO_COUNTERPART = {'ms_einsum_agg', 'vs_baseline', 'baseline_pin_ms',
+                  'baseline_live_ms'}
 
 
 @pytest.mark.parametrize('batch', [jbench.BATCH, jbench.SEED_BATCH])
@@ -283,17 +283,20 @@ def test_record_names_are_bench_pys():
     assert names <= ours | NO_COUNTERPART, names - ours - NO_COUNTERPART
     assert ours - names <= ADDED, ours - names - ADDED
     assert COUNTERPARTS <= ours
+    assert {'auto_transport_pm6', 'auto_transport_eht'} <= names & ours
 
 
 def _full_record():
     extra = {name: 1.0 for name in tbench.EXTRA_NAMES}
     extra['no_counterpart'] = dict(tbench.NO_COUNTERPART)
+    extra.update(auto_transport_pm6='pipelined', auto_transport_eht='in_step')
     return dict(metric=tbench.METRIC, value=50.0, unit='ms', vs_baseline=None,
                 extra=extra)
 
 
 @pytest.mark.parametrize('fault', [None, 'missing', 'undeclared', 'nan',
-                                   'zero', 'value', 'no_counterpart'])
+                                   'zero', 'value', 'no_counterpart',
+                                   'transport'])
 def test_check_record(fault):
     record = _full_record()
     extra = record['extra']
@@ -309,6 +312,8 @@ def test_check_record(fault):
         record['value'] = None
     elif fault == 'no_counterpart':
         del extra['no_counterpart']['vs_baseline']
+    elif fault == 'transport':
+        extra['auto_transport_eht'] = 'serial'   # the JAX name, not the port's
     if fault is None:
         tbench.check_record(record)
     else:
@@ -341,6 +346,16 @@ def test_host_transports_agree_on_the_cpu():
                                         for r in readings)
     seeds = [r['seed'] for rs in res['readings'].values() for r in rs]
     assert len(set(seeds)) == len(seeds) and tbench.SEED not in seeds
+
+
+def test_auto_transport_chooses_on_the_cpu():
+    """The bench's selector at a tiny config with the LJ host reward: four
+    probes, two of them timed, then a choice, the faster."""
+    res = tbench.auto_transport(METHOD_LJ, device='cpu', agent_kwargs=TINY,
+                                formula='H2O', num_envs=4, num_steps=5)
+    assert res['calls'] == 4
+    assert set(res['probe_ms']) == set(tbench.TRANSPORTS)
+    assert res['choice'] == min(res['probe_ms'], key=res['probe_ms'].get)
 
 
 def test_same_rollout_check_sees_another_trajectory():

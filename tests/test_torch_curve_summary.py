@@ -3,8 +3,10 @@
 greedy evaluations that the thresholds of a full run on the card were set
 from, the thresholds' rule on those records (sf6_pm6's seeds 1 and 3 meet
 it, seed 2, the 6-atom local optimum of experiments/sf6_pm6/README.md,
-does not; the single-seed records meet it), synthetic curves below a
-floor, and the command line. The file reads experiments/ and writes
+does not; the single-seed records meet it; the seven other PM6
+families' records meet theirs at the seeds their thresholds were set for, stochastic_pm6 with 2 full evals of 4, qm9_pm6's
+4.25 atoms a mean over its formulas), synthetic curves below a floor, and
+the command line. The file reads experiments/ and writes
 only under pytest's tmp_path."""
 import json
 from pathlib import Path
@@ -66,6 +68,89 @@ def test_single_seed_records_meet_their_family(family, tag):
     assert curve_summary.seed_meets(family, record(tag))
 
 
+# family -> (experiment, tag, the JAX seeds that meet its threshold)
+PM6_FAMILIES = {
+    'qm9_pm6': ('qm9_pm6', 'qm9pm6', (1, 2, 3)),
+    'scaffold_pm6': ('scaffold_pm6', 'scafpm6', (1, 2, 3)),
+    'solvation_pm6': ('solvation_pm6', 'solvpm6', (1, 2, 3)),
+    'stochastic_pm6': ('stochastic_pm6', 'stochpm6', (1, 3)),
+    'halides_pm6': ('halides_pm6', 'halo', (1, 2, 3)),
+    'organics_pm6': ('organics_pm6', 'orgpm6', (1, 2)),
+    'sf6_internal_pm6': ('sf6_internal_pm6', 'sf6int_pm6', (1, 2, 3)),
+}
+
+
+def family_records(family):
+    experiment, tag, _seeds = PM6_FAMILIES[family]
+    return [curve_summary.summarize(str(EXPERIMENTS / experiment / 'results'),
+                                    f'{tag}_run-{s}') for s in (1, 2, 3)]
+
+
+@pytest.mark.parametrize('family', list(PM6_FAMILIES))
+def test_pm6_family_records_meet_their_thresholds(family):
+    """Each family's JAX seeds meet its threshold exactly at the seeds
+    named when it was set, so the family meets it; every record kept the
+    transport its selector chose."""
+    seeds = PM6_FAMILIES[family][2]
+    summaries = family_records(family)
+    verdict = curve_summary.meets(family, summaries)
+    assert verdict['seeds'] == [s in seeds for s in (1, 2, 3)]
+    assert verdict['meets']
+    assert {s['transport'] for s in summaries} <= {'pipelined', 'serial'}
+
+
+def _evals_at_nine(n):
+    """stochastic_pm6's last 4 evals with `n` of them full (9 atoms, above
+    the eval floor) and the others short, as its seeds' are."""
+    return [(0.6, 9.0)] * n + [(0.3, 6.0)] * (4 - n)
+
+
+@pytest.mark.parametrize('full', [0, 1, 2, 3])
+def test_stochastic_pm6_needs_two_full_evals(full):
+    summary = dict(last10_train_return=0.2, last4_evals=_evals_at_nine(full))
+    assert curve_summary.seed_meets('stochastic_pm6', summary) == (full >= 2)
+    # three evals of four for a family that names no count
+    assert curve_summary.THRESHOLDS['stochastic_pm6'][3] == 2
+    assert len(curve_summary.THRESHOLDS['halides_pm6']) == 3
+
+
+@pytest.mark.parametrize('lengths,meets', [
+    ((4.25, 4.25, 4.25, 4.0), True), ((4.25, 4.0, 4.0, 4.25), False),
+    ((4.5, 4.25, 4.75, 3.0), True)])
+def test_qm9_pm6_atoms_are_judged_by_the_mean(lengths, meets):
+    """qm9_pm6's eval plays CNH, COH2, CFH3 and CO2H2 (3, 4, 5 and 5 atoms):
+    an eval places every atom when its mean episode length reaches 4.25;
+    one short episode (4.0) misses."""
+    summary = dict(last10_train_return=0.3,
+                   last4_evals=[(0.5, n) for n in lengths])
+    assert curve_summary.seed_meets('qm9_pm6', summary) == meets
+    seed1 = family_records('qm9_pm6')[0]
+    assert [n for _r, n in seed1['last4_evals']] == [4.25, 4.25, 4.25, 4.0]
+
+
+def test_selector_probes_of_either_package(tmp_path):
+    """The selector's line in a JAX record's log (its probes in whole ms,
+    the serial loop by its name) and in the port's, the last where a log
+    holds several runs; no line, or no log: None."""
+    got = curve_summary.selector_probes(
+        str(EXPERIMENTS / 'scaffold_pm6' / 'logs' / 'scafpm6_run-3.log'))
+    assert got == dict(choice='pipelined',
+                       probe_ms={'pipelined': 1109.0, 'serial': 1138.0})
+    log = tmp_path / 'x_run-1.log'
+    log.write_text(
+        "I: Host rewards via auto-selected host-loop rollout\n"
+        "I: host-reward transport auto-selected 'in_step' (pipelined: "
+        "963.551 ms, in_step: 761.816 ms)\n"
+        "I: host-reward transport auto-selected 'pipelined' (pipelined: "
+        "594.173 ms, in_step: 673.869 ms)\n")
+    assert curve_summary.selector_probes(str(log)) == dict(
+        choice='pipelined', probe_ms={'pipelined': 594.173,
+                                      'in_step': 673.869})
+    log.write_text('I: Starting PPO\n')
+    assert curve_summary.selector_probes(str(log)) is None
+    assert curve_summary.selector_probes(str(tmp_path / 'none.log')) is None
+
+
 def _below(summary, how):
     """A copy of `summary` moved below its family's threshold one way."""
     out = dict(summary, last4_evals=list(summary['last4_evals']))
@@ -115,7 +200,11 @@ def test_command_line_sums_up_a_family(tmp_path, capsys):
                                           (0.3, [(0.31, 2.0)] * 4)], 1):
         _write_run(tmp_path / str(seed) / 'results', f'h2oeht_run-{seed}',
                    [0.0] * 5 + [last] * 10, evals, reward_time=0.5)
-    argv = ['--family=h2o_eht']
+    argv = ['--family=h2o_eht', f'--logs={tmp_path / "logs"}']
+    (tmp_path / 'logs').mkdir()
+    (tmp_path / 'logs' / 'h2oeht_run-2.log').write_text(
+        "I: host-reward transport auto-selected 'in_step' (pipelined: "
+        "700.5 ms, in_step: 600.25 ms)\n")
     for seed in (1, 2, 3):
         argv += [f'--tag=h2oeht_run-{seed}',
                  f'--results={tmp_path / str(seed) / "results"}']
@@ -130,6 +219,12 @@ def test_command_line_sums_up_a_family(tmp_path, capsys):
     assert first['reference']['last10_train_return'] == pytest.approx(
         0.3174, abs=5e-5)
     assert 'reference' not in out['runs'][1]   # no record of seed 2
+    # the selector's probes from each run's log (seed 2's alone has one),
+    # the reference's from the logs beside its results (none for h2o_eht)
+    assert [r['run']['selector'] for r in out['runs']] == [None, dict(
+        choice='in_step', probe_ms={'pipelined': 700.5, 'in_step': 600.25}),
+        None]
+    assert out['runs'][0]['reference']['selector'] is None
     run = first['run']
     assert run['iterations'] == 15 and run['last10_train_return'] == 0.3
     assert run['first_iteration_s'] == 10.0

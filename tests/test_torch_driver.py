@@ -307,8 +307,8 @@ def one_torch_thread():
 
 @pytest.mark.usefixtures('one_torch_thread')
 @pytest.mark.parametrize('flags,transport', [
-    (['--reward=pm6'], 'in_step'), (['--reward=eht'], 'in_step'),
-    (['--reward=lj'], 'in_step'), (['--reward=morse'], 'in_step'),
+    (['--reward=pm6'], 'pipelined'), (['--reward=eht'], 'pipelined'),
+    (['--reward=lj'], 'pipelined'), (['--reward=morse'], 'pipelined'),
     (['--reward=pm6', '--host_reward_mode=loop'], 'pipelined'),
     (['--reward=pm6', '--host_reward_mode=loop_serial'], 'in_step'),
     (['--reward=pm6', '--host_reward_mode=callback'], 'in_step')],
@@ -319,7 +319,9 @@ def test_host_reward_options_run(tmp_path, flags, transport):
     iteration; the train info names the transport and the seconds spent in
     the host reward, and the pipelined transport counts its recomputes, in
     training and in evaluation. loop_serial steps in the env: the in-step
-    transport is the serial loop."""
+    transport is the serial loop. auto (the default) measures both
+    transports, the pipelined one first, so its one iteration is
+    pipelined."""
     config = _config(tmp_path, '--num_steps=8', '--save_rollouts=none', *flags)
     check_supported(config)
     run_experiment(config, device='cpu')
@@ -332,3 +334,4 @@ def test_host_reward_options_run(tmp_path, flags, transport):
     (evals, ) = _lines(tmp_path / 'results' / 'tiny_run-1_eval.txt')
     assert np.isfinite(evals['return_mean'])
     assert ('recomputes' in evals) == (transport == 'pipelined')
+    assert evals['transport'] == transport

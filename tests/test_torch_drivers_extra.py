@@ -374,9 +374,10 @@ def test_structures_raise_without_terminal_canvases(tmp_path):
 
 def test_solvation_penalty_reaches_both_transports(tmp_path):
     """A solvation run with a host reward trains alike through the in-step
-    and the pipelined transports (the same trajectories, so the same
-    metrics), and the penalty changes them: it reaches the pipelined
-    transport as it reaches the env's reward function."""
+    and the pipelined transports and the measured choice between them
+    (auto: the same trajectories, so the same metrics), and the penalty
+    changes them: it reaches the pipelined transport as it reaches the
+    env's reward function."""
     base = [a for a in TINY['solvation'] if not a.startswith('--reward')]
 
     def run(tag, *flags):
@@ -393,16 +394,22 @@ def test_solvation_penalty_reaches_both_transports(tmp_path):
                                            f'solv_run-1_{stream}.txt')]
                 for stream in ('train', 'opt', 'eval')}
 
-    in_step = run('in_step', '--host_reward_mode=auto',
+    auto = run('auto', '--host_reward_mode=auto', '--distance_penalty=0.05')
+    in_step = run('in_step', '--host_reward_mode=loop_serial',
                   '--distance_penalty=0.05')
     pipelined = run('pipelined', '--host_reward_mode=loop',
                     '--distance_penalty=0.05')
-    assert in_step == pipelined
+    assert in_step == pipelined == auto
     unpenalised = run('unpenalised', '--host_reward_mode=loop',
                       '--distance_penalty=0')
     assert unpenalised['train'] != pipelined['train']
-    assert _lines(tmp_path / 'pipelined' / 'results' /
-                  'solv_run-1_train.txt')[0]['transport'] == 'pipelined'
+
+    def transports(tag):
+        return [r['transport'] for r in _lines(
+            tmp_path / tag / 'results' / 'solv_run-1_train.txt')]
+    assert set(transports('pipelined')) == {'pipelined'}
+    assert set(transports('in_step')) == {'in_step'}
+    assert transports('auto')[:2] == ['pipelined', 'in_step']
 
 
 def test_driver_penalty_matches_jax():

@@ -388,6 +388,38 @@ def test_two_process_multihost_run(tmp_path):
                            params[rank], *ref)
 
 
+def test_auto_transport_at_w2(one_thread):
+    """--host_reward_mode=auto at W = 2 over gloo: the ranks lock in one
+    transport, also where each rank's own timings favour another (the
+    stubs: the MAX over the ranks of each timed probe decides); a 5
+    iterations' run (torch_parallel_ranks.AUTO_RUN) probes pipelined,
+    in_step, pipelined, in_step on both ranks and then keeps the same
+    transport on both, and its records and parameters are those of the same
+    run in one process (test_torch_parallel_draws.py's gates; the
+    transport, which each run measures for itself, aside)."""
+    results = spawn(ranks.auto_rank, 2, 2)
+    assert [r['rank'] for r in results] == [0, 1]
+    (choice, times), (choice1, times1) = (r['stub'] for r in results)
+    assert choice == choice1 and times == times1
+    assert min(times.values()) >= 0.05
+    want = ranks.draws_run('auto')
+    lr = ranks.draws_config('auto')['learning_rate']
+    steps = sum(r['num_opt_steps'] for n, r in want['records'] if n == 'opt')
+    transports = []
+    for res in results:
+        got = res['run']
+        train = [r['transport'] for n, r in got['records'] if n == 'train']
+        assert train[:4] == ['pipelined', 'in_step'] * 2
+        transports.append(train[4])
+        assert_params_rule(got['params'], want['params'], lr, steps)
+        assert_records_match(
+            [(n, {k: v for k, v in r.items() if k != 'transport'})
+             for n, r in got['records']],
+            [(n, {k: v for k, v in r.items() if k != 'transport'})
+             for n, r in want['records'] if n != 'eval' or res['rank'] == 0])
+    assert transports[0] == transports[1] in ('pipelined', 'in_step')
+
+
 def test_num_envs_must_divide_over_the_ranks(tmp_path):
     argv = O2_MLP + _dirs(tmp_path) + ['--num_devices=3']
     with pytest.raises(ValueError, match=r'num_envs \(4\).*3 data-parallel'):

@@ -4,6 +4,8 @@ themselves (test_torch_parallel.py, test_torch_parallel_draws.py,
 test_torch_driver.py) hold the results against the JAX package and against
 one process."""
 import dataclasses
+import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -217,10 +219,20 @@ DRAWS_RUNS = {
 }
 
 
+# --host_reward_mode=auto over 5 iterations of the O2 mlp model with the
+# host LJ reward (test_torch_parallel.py's test_auto_transport_at_w2): the
+# selector probes on iterations 0-3 and keeps its choice on the fifth
+AUTO_RUN = (['--formulas=O2', '--symbols=X,O', '--canvas_size=3',
+             '--bag_scale=3', '--model=mlp', '--network_width=16',
+             '--reward=lj', '--host_reward_mode=auto', '--seed=1',
+             '--num_steps=120'], (1, 2), None)
+RUNS = dict(DRAWS_RUNS, auto=AUTO_RUN)
+
+
 def draws_config(name):
     from molgym_tpu_torch.run_stochastic import build_parser
     from molgym_tpu_torch.tools.arg_parser import build_default_argparser
-    argv = ['--name=' + name] + DRAWS_RUNS[name][0] + DRAWS_SHAPE
+    argv = ['--name=' + name] + DRAWS_SHAPE + RUNS[name][0]
     parser = (build_parser() if any(a.startswith('--size_range=')
                                     for a in argv)
               else build_default_argparser())
@@ -228,7 +240,7 @@ def draws_config(name):
 
 
 def draws_run(name, mesh=None):
-    """One iteration of DRAWS_RUNS[name] through batch_ppo (with `mesh`:
+    """RUNS[name] through batch_ppo (with `mesh`:
     this rank's part; a writer evaluates), from random weights of seed 0:
     the global training rollout (numpy), the records and the parameters."""
     from molgym_tpu_torch.calculators.native import (METHOD_LJ,
@@ -237,7 +249,7 @@ def draws_run(name, mesh=None):
         TimedBatchCalculator, make_host_reward)
     from molgym_tpu_torch.run_stochastic import stochastic_envs
     from molgym_tpu_torch.spaces import symbols_to_zs
-    from molgym_tpu_torch.tools.driver import (host_loop_calculator,
+    from molgym_tpu_torch.tools.driver import (host_transport,
                                                make_reward_fn,
                                                ppo_config_from, standard_envs)
     from molgym_tpu_torch.tools.model_util import build_model
@@ -245,7 +257,7 @@ def draws_run(name, mesh=None):
     config = draws_config(name)
     space = ObservationSpace(config['canvas_size'],
                              symbols_to_zs(config['symbols']))
-    epsilon = DRAWS_RUNS[name][2]
+    epsilon = RUNS[name][2]
     if epsilon is None:
         reward_fn, host_calc = make_reward_fn(config)
     else:
@@ -273,8 +285,7 @@ def draws_run(name, mesh=None):
         num_eval_episodes=int(eval_envs.formulas.shape[0]),
         rollout_saver=Saver(), save_train_rollout=True,
         info_saver=records, seed=config['seed'], mesh=mesh,
-        host_loop_calculator=host_loop_calculator(
-            config['host_reward_mode'], host_calc))
+        **host_transport(config['host_reward_mode'], host_calc))
     return dict(rollouts=rollouts, records=records.lines,
                 params=params_of(agent))
 
@@ -285,3 +296,27 @@ def draws_rank(world):
     with make_mesh(world, 'cpu') as mesh:
         return dict(rank=mesh.rank, runs={name: draws_run(name, mesh)
                                           for name in DRAWS_RUNS})
+
+
+def _stub(delay):
+    def fn(params, states, generator):
+        time.sleep(delay)
+        return states, SimpleNamespace(rewards=torch.zeros(1))
+    return fn
+
+
+def auto_rank(world):
+    """In each of `world` ranks: a selector over stubs whose delays favour
+    the pipelined transport on rank 0 and the in-step one elsewhere (its
+    choice and timed seconds after 5 calls: the MAX over the ranks makes
+    them one), and the run RUNS['auto']."""
+    from molgym_tpu_torch.rl.rollout import AutoTransportRollout
+    with make_mesh(world, 'cpu') as mesh:
+        slow, fast = 0.05, 0.001
+        selector = AutoTransportRollout(
+            {'pipelined': _stub(fast if mesh.rank == 0 else slow),
+             'in_step': _stub(slow if mesh.rank == 0 else fast)}, mesh=mesh)
+        for _ in range(5):
+            selector(None, None, None)
+        return dict(rank=mesh.rank, stub=(selector.choice, selector.times),
+                    run=draws_run('auto', mesh))
