@@ -271,7 +271,19 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      --host_reward_mode=auto keeps for PM6 and for EHT
      (auto_transport_pm6, _eht) one of the port's two, bench.py's names
      without a counterpart listed, and the card's name in the record; the
-     record logged.
+     record logged;
+ 16. the port's fwd+bwd profiler (molgym_tpu_torch/profile_minibatch.py,
+     the counterpart of the JAX system's experiments/perf/
+     profile_minibatch.py) in this process: --trace at B = 140 (f32) and
+     the whole sweep (B = 140, 560, 2240), its lines logged: the trace's
+     launches a step equal to bench.profile_grad's launches of one call of
+     the same program (exact), its device ms a step within PROFILE_BUSY_TOL
+     of profile_grad's busy ms, each of the port's eight f32 kernels of
+     the fwd+bwd in its kernel list with launches a step equal to that
+     kernel's launch count over one call, and the sweep's rows finite,
+     B = 2240 the slowest, the ms per 140 rows falling with B (B = 140 and
+     560 take the same time within the host clock's spread), every MFU at
+     most 100%.
 
 The line before the last two is {"kernels": [...]}, then the card's name and
 power limit, and the last line is {"ok": true, "device": {...}}.
@@ -2478,6 +2490,63 @@ def run_data_parallel(device='cuda', argv=DP_RUN):
 # phase 15: the bench's settings, small enough for a smoke
 BENCH_SMOKE = dict(iters=3, iters_2240=2, samples=10, reps=1)
 
+# phase 16: the trace's device ms a step against profile_grad's busy ms of
+# one call (the profiler's own readings of the same program)
+PROFILE_BUSY_TOL = 0.15
+
+
+def run_profiler():
+    """Phase 16: profile_minibatch's --trace at B = 140 and --sweep in this
+    process, checked against bench.profile_grad and the launch counts of
+    one call of the same program (see the module docstring)."""
+    from molgym_tpu_torch import profile_minibatch as pm
+    from molgym_tpu_torch.ops.kernel_common import launch_counts
+
+    start = time.perf_counter()
+    fn, _cpu_fn = pm.build_grad_fn(pm.BATCH)
+    fn()
+    torch.cuda.synchronize()
+    before = dict(launch_counts)
+    fn()
+    torch.cuda.synchronize()
+    per_call = {k: launch_counts[k] - before[k] for k in pm.PORT_KERNELS}
+    prof = bench.profile_grad(fn)
+    with contextlib.redirect_stdout(sys.stderr):
+        summary = pm.run_trace(pm.BATCH, 'f32')
+        rows = pm.run_sweep()
+    if summary['launches_per_step'] != prof['launches_per_fwd_bwd']:
+        raise AssertionError(
+            f'profiler: {summary["launches_per_step"]} launches a step in the '
+            f'trace, profile_grad {prof["launches_per_fwd_bwd"]}')
+    busy_err = (abs(summary['device_ms_per_step'] - prof['device_busy_ms'])
+                / prof['device_busy_ms'])
+    if not busy_err <= PROFILE_BUSY_TOL:
+        raise AssertionError(
+            f'profiler: {summary["device_ms_per_step"]} device ms a step, '
+            f'profile_grad {prof["device_busy_ms"]} busy ms')
+    traced = pm.port_kernel_launches(summary)
+    if traced != per_call or not all(per_call.values()):
+        raise AssertionError(f'profiler: the port\'s kernels {traced} '
+                             f'launches a step, {per_call} counted a call')
+    # B = 140 and 560 take the same host time, within its spread (on an
+    # H100 at 700 W, 560 read 61.05 ms against 140's 67.48 in one sweep):
+    # the largest batch takes the longest, and the ms per 140 rows fall
+    ms = [r['ms'] for r in rows]
+    per_140 = [r['ms_per_140_rows'] for r in rows]
+    if not (all(np.isfinite([v for r in rows for v in r.values()]))
+            and [r['batch'] for r in rows] == list(pm.SWEEP)
+            and ms[-1] > max(ms[:-1])
+            and all(a > b for a, b in zip(per_140, per_140[1:]))
+            and all(0 < r['mfu_pct'] <= 100 for r in rows)):
+        raise AssertionError(f'profiler: sweep rows {rows}')
+    return dict(trace={k: v for k, v in summary.items()
+                       if k not in ('kernels', 'rollup')},
+                top_kernels=summary['kernels'][:12],
+                rollup=summary['rollup'][:12], sweep=rows,
+                profile_grad=prof, busy_err=busy_err, port_kernels=per_call,
+                gate=pm.gate('f32'), seconds=time.perf_counter() - start)
+
+
 # phase 14: the JAX package's trained checkpoints of thirteen experiments,
 # loaded through ModelIO.load from their experiments/ orbax paths (read from
 # the committed archives of molgym_tpu_torch/checkpoints): experiment ->
@@ -3349,6 +3418,21 @@ def main() -> int:
         f'{extra["auto_transport_eht"]} (EHT), timed probes '
         f'{json.dumps(extra["auto_transport_probe_ms"])} ms; '
         f'{time.perf_counter() - t0:.1f} s on {card}, nproc {extra["nproc"]}')
+
+    # phase 16: the port's fwd+bwd profiler, in this process
+    profiler = run_profiler()
+    log('profiler:', json.dumps(profiler))
+    sweep = ', '.join(f'B = {r["batch"]} {r["ms"]:.3f} ms (MFU '
+                      f'{r["mfu_pct"]:.3f}%, {r["ms_per_140_rows"]:.3f} ms per '
+                      '140 rows)' for r in profiler['sweep'])
+    log(f'phase 16, the profiler: trace at B = 140 '
+        f'{profiler["trace"]["launches_per_step"]:g} launches and '
+        f'{profiler["trace"]["device_ms_per_step"]:.3f} device ms a step '
+        f'(profile_grad {profiler["profile_grad"]["launches_per_fwd_bwd"]} '
+        f'and {profiler["profile_grad"]["device_busy_ms"]:.3f}), idle share '
+        f'{profiler["trace"]["idle_share"]:.3f}, grouped by '
+        f'{profiler["trace"]["grouped_by"]}; sweep {sweep}; '
+        f'{profiler["seconds"]:.1f} s on {card}')
     shared_counts = {k: sum(r['counts'][k]
                             for r in shared['evaluations'].values())
                      for k in training['counts']}
@@ -3525,7 +3609,7 @@ def main() -> int:
                                       for k, v in b70.items()},
                       'data_parallel': data_parallel,
                       'trained': trained, 'shared_draws': shared,
-                      'bench': bench_record}))
+                      'bench': bench_record, 'profiler': profiler}))
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

@@ -25,6 +25,9 @@ from the run's log and the reference's) and prints the family's verdict
 under THRESHOLDS beside them (`meets`): the thresholds
 that the port's seeds 1, 2 and 3 of a recorded run are held to when it is
 trained in full on the card, set from the JAX records before any such run.
+With --sampled (once for each of nine tags) and --reference_sampled, it
+adds the settling rule's verdict (`settle`, SETTLE_SEEDS) of a family that
+missed its threshold on greedy evaluations alone.
 """
 from __future__ import annotations
 
@@ -66,6 +69,19 @@ THRESHOLDS = {
 }
 EVALS_TO_MEET = 3
 SEEDS_TO_MEET = 2
+
+# The rule that settles a family whose port seeds 1-3 missed THRESHOLDS on
+# greedy evaluations alone (stochastic_pm6, ROADMAP Queue 3), fixed before
+# its seeds 1-9 were trained: the misses are the reference's greedy
+# protocol, not a fault, when (a) at least SETTLE_SEEDS_TO_MEET of
+# SETTLE_SEEDS port seeds meet the family's unchanged threshold (3 or fewer
+# of 9 seeds that each met it at the JAX seeds' rate of 2/3 would occur
+# 4.2% of the time), and (b) the mean of the port seeds' sampled means
+# (tools/diagnose_greedy.py --num_sampled 16 --seed 1 on each final
+# checkpoint) is at or above the lower of the JAX checkpoints' sampled means
+# (the same protocol) less the port means' standard deviation (n - 1).
+SETTLE_SEEDS = 9
+SETTLE_SEEDS_TO_MEET = 4
 
 
 def summarize(results_dir: str, tag: str,
@@ -138,6 +154,32 @@ def meets(family: str, summaries: Sequence[dict]) -> dict:
                 seeds=seeds, meets=sum(seeds) >= SEEDS_TO_MEET)
 
 
+def settle(family: str, summaries: Sequence[dict],
+           port_sampled: Sequence[float],
+           reference_sampled: Sequence[float]) -> dict:
+    """The settling rule's verdict (see SETTLE_SEEDS) on a family's
+    SETTLE_SEEDS port seeds (summarize's dicts), their sampled means in the
+    same order, and the JAX checkpoints' sampled means: 'not a fault' when
+    both conditions hold, else 'fault'."""
+    if not len(summaries) == len(port_sampled) == SETTLE_SEEDS:
+        raise ValueError(f'the rule takes {SETTLE_SEEDS} seeds and their '
+                         f'sampled means, not {len(summaries)} and '
+                         f'{len(port_sampled)}')
+    seeds = [seed_meets(family, s) for s in summaries]
+    mean = statistics.fmean(port_sampled)
+    sd = statistics.stdev(port_sampled)
+    floor = min(reference_sampled) - sd
+    seeds_hold = sum(seeds) >= SETTLE_SEEDS_TO_MEET
+    sampled_holds = mean >= floor
+    return dict(family=family, thresholds=THRESHOLDS[family], seeds=seeds,
+                seeds_met=sum(seeds), seeds_to_meet=SETTLE_SEEDS_TO_MEET,
+                seeds_hold=seeds_hold, sampled_mean=mean, sampled_sd=sd,
+                reference_sampled=list(reference_sampled),
+                sampled_floor=floor, sampled_holds=sampled_holds,
+                verdict=('not a fault' if seeds_hold and sampled_holds
+                         else 'fault'))
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     parser.add_argument('--tag', required=True, action='append',
@@ -153,6 +195,13 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                         'only (a record that a resumed run continued)')
     parser.add_argument('--family', choices=sorted(THRESHOLDS),
                         help="print the family's verdict (THRESHOLDS)")
+    parser.add_argument('--sampled', type=float, action='append',
+                        help="a port seed's sampled mean (diagnose_greedy), "
+                        'once for each --tag, in its order: with '
+                        '--reference_sampled and --family, prints the '
+                        'settling rule\'s verdict (settle)')
+    parser.add_argument('--reference_sampled', type=float, action='append',
+                        help="a JAX checkpoint's sampled mean, once for each")
     parser.add_argument('--logs', action='append',
                         help="the run's log directory, once for all runs "
                         'or once for each: adds the probes of '
@@ -184,6 +233,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     out = runs[0] if len(runs) == 1 else dict(runs=runs)
     if args.family:
         out['verdict'] = meets(args.family, [r['run'] for r in runs])
+        if args.sampled:
+            if not args.reference_sampled:
+                parser.error('--sampled needs --reference_sampled')
+            out['settlement'] = settle(args.family, [r['run'] for r in runs],
+                                       args.sampled, args.reference_sampled)
     print(json.dumps(out))
     return out
 

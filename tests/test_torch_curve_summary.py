@@ -5,10 +5,13 @@ from, the thresholds' rule on those records (sf6_pm6's seeds 1 and 3 meet
 it, seed 2, the 6-atom local optimum of experiments/sf6_pm6/README.md,
 does not; the single-seed records meet it; the seven other PM6
 families' records meet theirs at the seeds their thresholds were set for, stochastic_pm6 with 2 full evals of 4, qm9_pm6's
-4.25 atoms a mean over its formulas), synthetic curves below a floor, and
-the command line. The file reads experiments/ and writes
+4.25 atoms a mean over its formulas), synthetic curves below a floor, the
+settling rule of a family that missed on greedy evaluations (settle) on
+made-up seeds on both sides of each of its conditions, and the command
+line. The file reads experiments/ and writes
 only under pytest's tmp_path."""
 import json
+import statistics
 from pathlib import Path
 
 import pytest
@@ -231,3 +234,72 @@ def test_command_line_sums_up_a_family(tmp_path, capsys):
     assert run['median_iteration_s'] == 8.5   # of 2.0 .. 15.0
     assert run['total_iteration_s'] == 10.0 + sum(range(2, 16))
     assert run['reward_share'] == 0.25   # the first iteration left out
+
+
+
+def _nine(met):
+    """Nine stochastic_pm6 seeds, the first `met` of them meeting its
+    threshold (2 full evals of 4), the others 1 (a greedy miss)."""
+    return [dict(last10_train_return=0.15,
+                 last4_evals=_evals_at_nine(2 if i < met else 1))
+            for i in range(9)]
+
+
+# nine port seeds' sampled means, their mean 0.25
+SAMPLED = [0.25 + d for d in
+           (-0.15, -0.1, -0.05, 0.0, 0.0, 0.0, 0.05, 0.1, 0.15)]
+
+
+@pytest.mark.parametrize('met,k,verdict', [
+    (4, 0.0, 'not a fault'),     # both hold
+    (3, 0.0, 'fault'),           # (a) one seed short
+    (9, 0.0, 'not a fault'),
+    (4, 0.999, 'not a fault'),   # (b) the mean just above the floor
+    (4, 1.001, 'fault'),         # (b) just below it
+    (2, 2.0, 'fault')])          # neither
+def test_settling_rule_on_both_sides_of_each_condition(met, k, verdict):
+    """settle: (a) at least 4 of 9 seeds meet the unchanged threshold; (b)
+    the nine sampled means' mean at or above the lower JAX checkpoint's
+    mean less the nine's standard deviation (n - 1). The lower JAX mean is
+    set k standard deviations above the port's mean."""
+    sd = statistics.stdev(SAMPLED)
+    jax_low = statistics.fmean(SAMPLED) + k * sd
+    got = curve_summary.settle('stochastic_pm6', _nine(met), SAMPLED,
+                               [0.9, jax_low])
+    assert got['seeds'] == [True] * met + [False] * (9 - met)
+    assert got['seeds_met'] == met and got['seeds_to_meet'] == 4
+    assert got['seeds_hold'] == (met >= 4)
+    assert got['sampled_mean'] == pytest.approx(0.25)
+    assert got['sampled_sd'] == sd
+    assert got['sampled_floor'] == jax_low - sd
+    assert got['sampled_holds'] == (k < 1)
+    assert got['verdict'] == verdict
+    assert got['thresholds'] == (0.05, 0.45, 9, 2)
+
+
+def test_settling_rule_takes_nine_seeds():
+    with pytest.raises(ValueError, match='9 seeds'):
+        curve_summary.settle('stochastic_pm6', _nine(4)[:8], SAMPLED[:8],
+                             [0.3, 0.4])
+    with pytest.raises(ValueError, match='9 seeds'):
+        curve_summary.settle('stochastic_pm6', _nine(4), SAMPLED[:8],
+                             [0.3, 0.4])
+
+
+def test_command_line_settles_a_family(tmp_path, capsys):
+    """--sampled once for each of nine tags and --reference_sampled: the
+    verdict's settlement beside it."""
+    argv = ['--family=stochastic_pm6', f'--results={tmp_path}']
+    for seed in range(1, 10):
+        evals = _evals_at_nine(2 if seed <= 4 else 0)
+        _write_run(tmp_path, f'stochpm6_run-{seed}', [0.15] * 12, evals)
+        argv += [f'--tag=stochpm6_run-{seed}',
+                 f'--sampled={SAMPLED[seed - 1]}']
+    argv += ['--reference_sampled=0.3', '--reference_sampled=0.35']
+    out = curve_summary.main(argv)
+    assert json.loads(capsys.readouterr().out.splitlines()[-1]) == json.loads(
+        json.dumps(out))
+    assert out['verdict']['seeds'] == [True] * 4 + [False] * 5
+    assert out['settlement']['seeds_met'] == 4
+    assert out['settlement']['reference_sampled'] == [0.3, 0.35]
+    assert out['settlement']['verdict'] == 'not a fault'
