@@ -66,6 +66,17 @@ THRESHOLDS = {
     'halides_pm6': (0.30, 0.45, 5),
     'organics_pm6': (0.30, 0.55, 6),
     'sf6_internal_pm6': (-0.10, 0.50, 7),
+    # the device-reward records of one seed each (two for scaffold): the
+    # bf16 floors leave room for the f32 twin's seeds (experiments/sf6:
+    # last-10 0.960 / 0.954, a 4-atom eval in 1 of their last 4, the
+    # lowest full one 1.218); organics' eval plays its first bag only
+    # (--num_eval_episodes=1); scaffold's records evaluate 4 times a seed
+    # and place the whole bag only in their last evals (0.147 / 0.160), so
+    # one eval of 4 must meet
+    'sf6_bf16': (0.85, 1.10, 7),
+    'organics': (0.35, 0.50, 6),
+    'solvation': (0.25, 0.55, 9),
+    'scaffold': (-0.60, 0.12, 3, 1),
 }
 EVALS_TO_MEET = 3
 SEEDS_TO_MEET = 2

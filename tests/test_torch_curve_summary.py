@@ -5,8 +5,9 @@ from, the thresholds' rule on those records (sf6_pm6's seeds 1 and 3 meet
 it, seed 2, the 6-atom local optimum of experiments/sf6_pm6/README.md,
 does not; the single-seed records meet it; the seven other PM6
 families' records meet theirs at the seeds their thresholds were set for, stochastic_pm6 with 2 full evals of 4, qm9_pm6's
-4.25 atoms a mean over its formulas), synthetic curves below a floor, the
-settling rule of a family that missed on greedy evaluations (settle) on
+4.25 atoms a mean over its formulas; the device-reward records of
+sf6_bf16, organics, solvation and scaffold, whose two seeds need one full
+eval of 4 and miss at 2), synthetic curves below a floor, the settling rule of a family that missed on greedy evaluations (settle) on
 made-up seeds on both sides of each of its conditions, and the command
 line. The file reads experiments/ and writes
 only under pytest's tmp_path."""
@@ -36,6 +37,18 @@ RECORDS = {
                      (1.143, 1.138, 1.130, 1.129), 7),
     'h2oeht_run-1': ('h2o_eht', None, 0.3174,
                      (0.333, 0.335, 0.333, 0.332), 3),
+    # the device-reward records (an episode length of each eval where they
+    # differ): scaffold's two seeds evaluated 4 times each
+    'sf6bf16_run-1': ('sf6_bf16', None, 1.1846,
+                      (1.724, 1.586, 1.572, 1.544), 7),
+    'organics_run-1': ('organics', None, 0.5127,
+                       (0.701, 0.676, -0.146, 1.295), (6, 6, 5, 6)),
+    'solv_run-1': ('solvation', None, 0.3619,
+                   (0.581, 0.743, 0.948, 0.847), 9),
+    'scaffold_run-1': ('scaffold', None, -0.5937,
+                       (-0.6, -0.6, -0.6, 0.147), (1, 1, 2, 3)),
+    'scaffold_run-2': ('scaffold', None, -0.5679,
+                       (-0.6, -0.558, 0.104, 0.16), (1, 3, 3, 3)),
 }
 
 
@@ -52,7 +65,8 @@ def test_record_summaries(tag):
     assert round(got['last10_train_return'], 4) == last10
     digits = 4 if tag.startswith('sf6pm6') else 3
     assert [round(r, digits) for r, _n in got['last4_evals']] == list(evals)
-    assert [n for _r, n in got['last4_evals']] == [length] * 4
+    lengths = length if isinstance(length, tuple) else (length, ) * 4
+    assert tuple(n for _r, n in got['last4_evals']) == lengths
     assert got['final_eval'] == got['last4_evals'][-1][0]
 
 
@@ -65,10 +79,32 @@ def test_sf6_pm6_records_meet_two_of_three():
 
 @pytest.mark.parametrize('family,tag', [('sf6_internal', 'sf6int_run-1'),
                                         ('sf6_eht', 'sf6eht_run-1'),
-                                        ('h2o_eht', 'h2oeht_run-1')])
+                                        ('h2o_eht', 'h2oeht_run-1'),
+                                        ('sf6_bf16', 'sf6bf16_run-1'),
+                                        ('organics', 'organics_run-1'),
+                                        ('solvation', 'solv_run-1'),
+                                        ('scaffold', 'scaffold_run-1'),
+                                        ('scaffold', 'scaffold_run-2')])
 def test_single_seed_records_meet_their_family(family, tag):
     assert RECORDS[tag][0] == family
     assert curve_summary.seed_meets(family, record(tag))
+
+
+@pytest.mark.parametrize('tag', ['scaffold_run-1', 'scaffold_run-2'])
+def test_scaffold_records_need_only_their_last_eval(tag, monkeypatch):
+    """Each scaffold record places the whole bag above the eval floor in
+    one of its last 4 evals only: at the default count of evals to meet,
+    or at 2, it misses."""
+    summary = record(tag)
+    thresholds = curve_summary.THRESHOLDS['scaffold']
+    assert thresholds[3] == 1
+    for count in (thresholds[:3], thresholds[:3] + (2, )):
+        monkeypatch.setitem(curve_summary.THRESHOLDS, 'scaffold', count)
+        assert not curve_summary.seed_meets('scaffold', summary)
+    # both seeds meet the family's threshold, so the family meets it
+    monkeypatch.setitem(curve_summary.THRESHOLDS, 'scaffold', thresholds)
+    assert curve_summary.meets('scaffold', [record('scaffold_run-1'),
+                                            record('scaffold_run-2')])['meets']
 
 
 # family -> (experiment, tag, the JAX seeds that meet its threshold)
