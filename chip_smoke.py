@@ -283,7 +283,17 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      kernel's launch count over one call, and the sweep's rows finite,
      B = 2240 the slowest, the ms per 140 rows falling with B (B = 140 and
      560 take the same time within the host clock's spread), every MFU at
-     most 100%.
+     most 100%;
+ 17. the four recorded runs with a device reward that the port trains in
+     full (PERF.md section 5): experiments/sf6_bf16's, organics', solvation's
+     and scaffold's commands as molgym_tpu_torch/tools/recorded_run.py
+     resolves them (scaffold's from its table UNLOGGED, README.md's
+     command), at full width, cut to 2 iterations by --num_steps, each
+     through its driver's main with the checks of phase 7 (records, a
+     model at the last step that loads back equal, exact launch counts);
+     the counters that moved exactly RECORDED_KERNELS': the encoder's bf16
+     ones for sf6_bf16, the f32 ones for organics, the fused head's alone
+     for the two internal agents (solvation, scaffold).
 
 The line before the last two is {"kernels": [...]}, then the card's name and
 power limit, and the last line is {"ok": true, "device": {...}}.
@@ -2547,6 +2557,57 @@ def run_profiler():
                 gate=pm.gate('f32'), seconds=time.perf_counter() - start)
 
 
+# phase 17: the recorded runs with a device reward, as
+# tools/recorded_run.py resolves them (a log JSON, or an experiment that
+# its UNLOGGED table names), and the counters each one's path moves
+RECORDED = {
+    'sf6_bf16': os.path.join(EXPERIMENTS, 'sf6_bf16', 'logs',
+                             'sf6bf16_run-1.json'),
+    'organics': os.path.join(EXPERIMENTS, 'organics', 'logs',
+                             'organics_run-1.json'),
+    'solvation': os.path.join(EXPERIMENTS, 'solvation', 'logs',
+                              'solv_run-1.json'),
+    'scaffold': os.path.join(EXPERIMENTS, 'scaffold'),
+}
+_COVARIANT = ('cg_aggregate_edge_fused_ri', 'cg_aggregate_edge_fused_ri_bwd',
+              'cg_square_fused_ri', 'cg_square_fused_ri_bwd')
+_HEADS = ('masked_softmax', 'masked_softmax_bwd')
+_MIXER = ('cg_contract_ri', 'cg_contract_ri_bwd') + _HEADS
+RECORDED_KERNELS = {
+    'sf6_bf16': tuple(k + '_bf16' for k in _COVARIANT) + _MIXER,
+    'organics': _COVARIANT + _MIXER,
+    'solvation': _HEADS,
+    'scaffold': _HEADS,
+}
+RECORDED_ITERATIONS = 2
+
+
+def run_recorded(dev):
+    """Phase 17: each of RECORDED's commands, from recorded_run, for
+    RECORDED_ITERATIONS iterations through its driver (run_training's
+    checks); on the card the counters that moved must be RECORDED_KERNELS'.
+    Returns run_training's result by name."""
+    import importlib
+
+    from molgym_tpu_torch.tools import recorded_run
+    out = {}
+    for name, record in RECORDED.items():
+        module, argv = recorded_run.recorded_argv(record)
+        samples = recorded_run.parser_of(module).parse_args(
+            argv).num_steps_per_iter
+        argv += [f'--num_steps={RECORDED_ITERATIONS * samples}',
+                 '--log_level=WARNING']
+        res = run_training(dev, importlib.import_module(module),
+                           lambda m=module: recorded_run.parser_of(m), argv,
+                           iterations=RECORDED_ITERATIONS)
+        moved = sorted(k for k, n in res['counts'].items() if n)
+        if dev.type == 'cuda' and moved != sorted(RECORDED_KERNELS[name]):
+            raise AssertionError(f'phase 17 {name}: counters {moved} moved, '
+                                 f'expected {sorted(RECORDED_KERNELS[name])}')
+        out[name] = dict(res, module=module)
+    return out
+
+
 # phase 14: the JAX package's trained checkpoints of thirteen experiments,
 # loaded through ModelIO.load from their experiments/ orbax paths (read from
 # the committed archives of molgym_tpu_torch/checkpoints): experiment ->
@@ -3433,6 +3494,15 @@ def main() -> int:
         f'{profiler["trace"]["idle_share"]:.3f}, grouped by '
         f'{profiler["trace"]["grouped_by"]}; sweep {sweep}; '
         f'{profiler["seconds"]:.1f} s on {card}')
+
+    # phase 17: the four recorded runs with a device reward, 2 iterations
+    recorded = run_recorded(dev)
+    log('recorded runs:', json.dumps(recorded))
+    log('phase 17, ' + '; '.join(
+        f'{name} ({r["module"]}): {r["seconds"]:.1f} s, iteration ms '
+        f'{" / ".join(f"{t:.1f}" for t in r["iteration_ms"])}, counters '
+        f'{", ".join(k for k, n in r["counts"].items() if n)}'
+        for name, r in recorded.items()) + f' on {card}')
     shared_counts = {k: sum(r['counts'][k]
                             for r in shared['evaluations'].values())
                      for k in training['counts']}
@@ -3468,6 +3538,9 @@ def main() -> int:
                         trained['counts_by_family'].items()},
                     resume_launches=resume['counts'][name],
                     shared_draws_launches=shared_counts[name],
+                    recorded_training_launches={
+                        family: r['counts'][name]
+                        for family, r in recorded.items()},
                     **extra)
 
     def entry16(name, source, replaces, main, others, **extra):
@@ -3609,7 +3682,8 @@ def main() -> int:
                                       for k, v in b70.items()},
                       'data_parallel': data_parallel,
                       'trained': trained, 'shared_draws': shared,
-                      'bench': bench_record, 'profiler': profiler}))
+                      'bench': bench_record, 'profiler': profiler,
+                      'recorded': recorded}))
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

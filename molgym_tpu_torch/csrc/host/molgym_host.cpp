@@ -275,10 +275,10 @@ class ThreadPool {
             if (i >= n) break;
             fn(i);
           }
-          {
-            std::unique_lock<std::mutex> dlock(done_mu);
-            done.fetch_add(1);
-          }
+          // Signal while holding done_mu: once the caller sees every shard
+          // done it returns, and done_cv, a local of its frame, is gone.
+          std::unique_lock<std::mutex> dlock(done_mu);
+          done.fetch_add(1);
           done_cv.notify_one();
         });
       }

@@ -3,8 +3,11 @@
 
 The three sources `csrc/host/molgym_host.cpp`, `eht.cpp` and `nddo.cpp` are
 the port's copies of the JAX package's `csrc/` sources, equal to them but
-for the `#include` lines they lacked (tests/test_torch_package.py holds
-them so). They compile with the JAX package's Makefile flags into
+for the `#include` lines they lacked and one repair: molgym_host.cpp's
+thread pool signals a batch's condition variable under its mutex, where
+the original's caller could destroy it first
+(tests/test_torch_package.py holds them so; tests/test_torch_host_pool.py
+checks the pool under ThreadSanitizer). They compile with the JAX package's Makefile flags into
 `_build/libmolgym_host-<hash>.so`. The hash covers the sources, the
 compiler, the flags and this host's CPU identity: the library is built
 `-march=native`, so one built on another CPU may not run here, and its SCF

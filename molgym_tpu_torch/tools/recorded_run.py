@@ -10,6 +10,10 @@ which win:
         --log_dir=out/logs --results_dir=out/results \\
         --model_dir=/tmp/models --data_dir=/tmp/data
 
+A record whose configuration was not logged is named by its experiment's
+directory (`experiments/scaffold`), and its command is taken from
+UNLOGGED, a copy of the one its README gives.
+
 The record's directories and device are left out (the driver's defaults
 hold unless given: directories under the working directory, the card). An
 asset (the QM9 sample, the solute, the scaffold) is found by its recorded
@@ -28,6 +32,17 @@ from typing import List, Optional, Sequence, Tuple
 
 ASSETS = ('qm9_dataset', 'initial_structure', 'scaffold')
 LEFT_OUT = ('log_dir', 'model_dir', 'data_dir', 'results_dir', 'device')
+
+# experiment directory name -> (its script, the flags its README.md's
+# "Reproduce" command gives it), for the records that kept no log JSON
+UNLOGGED = {
+    'scaffold': ('run_scaffold.py', (
+        '--name=scaffold', '--scaffold=cube.xyz', '--formulas=H2O',
+        '--bag_scale=3', '--canvas_size=12', '--symbols=X,H,O,Ar',
+        '--reward=device_lj', '--num_steps=6144', '--num_steps_per_iter=256',
+        '--num_envs=8', '--mini_batch_size=128', '--model=internal',
+        '--seed=1', '--save_rollouts=eval')),
+}
 
 
 def driver_of(config: dict) -> str:
@@ -59,12 +74,39 @@ def find_asset(path: str, experiment_dir: str) -> str:
                             'the working directory')
 
 
+def unlogged_config(experiment_dir: str) -> dict:
+    """The configuration of UNLOGGED's command for `experiment_dir`, by
+    option name, as a log JSON would give the options it sets. Raises
+    ValueError for a flag its driver does not have."""
+    script, flags = UNLOGGED[os.path.basename(os.path.normpath(
+        experiment_dir))]
+    module = 'molgym_tpu_torch.' + os.path.splitext(script)[0]
+    actions = {s: a for a in parser_of(module)._actions
+               for s in a.option_strings}
+    config = {}
+    for flag in flags:
+        name, given, value = flag.partition('=')
+        if name not in actions:
+            raise ValueError(f'{experiment_dir}: {module} has no {name}')
+        config[actions[name].dest] = value if given else True
+    if driver_of(config) != module:
+        raise ValueError(f'{experiment_dir}: {script} is not the driver of '
+                         'its flags')
+    return config
+
+
 def recorded_argv(record: str) -> Tuple[str, List[str]]:
-    """(driver module, its flags) of the configuration `record`. Raises
+    """(driver module, its flags) of the configuration `record`: a log
+    JSON, or an experiment directory that UNLOGGED names. Raises
     ValueError for a recorded option the driver does not have."""
-    with open(record) as f:
-        config = json.load(f)
-    experiment_dir = os.path.dirname(os.path.dirname(os.path.abspath(record)))
+    if os.path.isdir(record):
+        config = unlogged_config(record)
+        experiment_dir = os.path.abspath(record)
+    else:
+        with open(record) as f:
+            config = json.load(f)
+        experiment_dir = os.path.dirname(os.path.dirname(
+            os.path.abspath(record)))
     module = driver_of(config)
     actions = {a.dest: a for a in parser_of(module)._actions
                if a.option_strings}

@@ -322,18 +322,48 @@ def _without_added_includes(copy: str, original: str) -> str:
                            and line.rstrip('\n') not in have))
 
 
+# source -> (the original's lines, the port's): the one repair of a copy.
+# ThreadPool::run_batch signals the batch's condition variable under its
+# mutex, where the original signals after releasing it and the caller may
+# already have returned and destroyed both (tests/test_torch_host_pool.py)
+REPAIRS = {
+    'molgym_host.cpp': (
+        '          {\n'
+        '            std::unique_lock<std::mutex> dlock(done_mu);\n'
+        '            done.fetch_add(1);\n'
+        '          }\n'
+        '          done_cv.notify_one();\n',
+        '          // Signal while holding done_mu: once the caller sees every'
+        ' shard\n'
+        '          // done it returns, and done_cv, a local of its frame, is'
+        ' gone.\n'
+        '          std::unique_lock<std::mutex> dlock(done_mu);\n'
+        '          done.fetch_add(1);\n'
+        '          done_cv.notify_one();\n'),
+}
+
+
 @pytest.mark.parametrize('name', ['molgym_host.cpp', 'eht.cpp', 'nddo.cpp'])
 def test_host_source_copies_equal_the_originals(name):
     """Each of the port's C++ sources is its csrc/ original once the
-    #include lines it adds are removed; nddo.cpp adds <cstdio>, which the
+    #include lines it adds are removed, but for its one repair in REPAIRS
+    (molgym_host.cpp's thread pool); nddo.cpp adds <cstdio>, which the
     original uses (std::fprintf) without including."""
     from molgym_tpu_torch import host_build
     assert name in host_build.SOURCES
     copy = (host_build.CSRC / name).read_text()
     original = (REPO_CSRC / name).read_text()
-    assert _without_added_includes(copy, original) == original
+    repaired = original
+    if name in REPAIRS:
+        was, now = REPAIRS[name]
+        assert original.count(was) == 1 and now not in original
+        repaired = original.replace(was, now)
+    assert _without_added_includes(copy, original) == repaired
     added = set(copy.splitlines()) - set(original.splitlines())
-    assert all(line.startswith('#include') for line in added)
+    repair_lines = set(REPAIRS[name][1].splitlines()) if name in REPAIRS \
+        else set()
+    assert all(line.startswith('#include')
+               for line in added - repair_lines)
     if name == 'nddo.cpp':
         assert added == {'#include <cstdio>'}
 
