@@ -27,7 +27,8 @@ that the port's seeds 1, 2 and 3 of a recorded run are held to when it is
 trained in full on the card, set from the JAX records before any such run.
 With --sampled (once for each of nine tags) and --reference_sampled, it
 adds the settling rule's verdict (`settle`, SETTLE_SEEDS) of a family that
-missed its threshold on greedy evaluations alone.
+missed its threshold; for a family of SETTLE_BY_TRAINING, --reference_tag
+(once for each JAX record in --reference) in their place.
 """
 from __future__ import annotations
 
@@ -91,8 +92,17 @@ SEEDS_TO_MEET = 2
 # (tools/diagnose_greedy.py --num_sampled 16 --seed 1 on each final
 # checkpoint) is at or above the lower of the JAX checkpoints' sampled means
 # (the same protocol) less the port means' standard deviation (n - 1).
+# The same rule settles solvation and scaffold (ROADMAP Queue 3), fixed
+# before their seeds 10-18 were trained (seeds 1-9 were read before any
+# rule existed, so they do not decide): solvation's (b) holds the nine
+# sampled means against the JAX solv_run-1 archive's; scaffold's record kept
+# no checkpoint, so for a family of SETTLE_BY_TRAINING (b) holds the nine
+# seeds' mean last-10 training return against the lower JAX record's
+# (summarize's last10_train_return of each record) less the nine's
+# standard deviation.
 SETTLE_SEEDS = 9
 SETTLE_SEEDS_TO_MEET = 4
+SETTLE_BY_TRAINING = frozenset({'scaffold'})
 
 
 def summarize(results_dir: str, tag: str,
@@ -166,28 +176,40 @@ def meets(family: str, summaries: Sequence[dict]) -> dict:
 
 
 def settle(family: str, summaries: Sequence[dict],
-           port_sampled: Sequence[float],
-           reference_sampled: Sequence[float]) -> dict:
+           port_sampled: Optional[Sequence[float]],
+           reference: Sequence[float]) -> dict:
     """The settling rule's verdict (see SETTLE_SEEDS) on a family's
-    SETTLE_SEEDS port seeds (summarize's dicts), their sampled means in the
-    same order, and the JAX checkpoints' sampled means: 'not a fault' when
-    both conditions hold, else 'fault'."""
-    if not len(summaries) == len(port_sampled) == SETTLE_SEEDS:
+    SETTLE_SEEDS port seeds (summarize's dicts): 'not a fault' when both
+    conditions hold, else 'fault'. (b) reads the seeds' sampled means
+    `port_sampled` (in the summaries' order) against the JAX checkpoints'
+    `reference`, or, for a family of SETTLE_BY_TRAINING (`port_sampled`
+    None), the summaries' last-10 training means against the JAX records'
+    `reference`."""
+    by_training = family in SETTLE_BY_TRAINING
+    if by_training != (port_sampled is None):
+        raise ValueError(f'{family}: the rule reads '
+                         + ('the last-10 training means, not sampled means'
+                            if by_training else 'the seeds\' sampled means'))
+    values = ([s['last10_train_return'] for s in summaries] if by_training
+              else list(port_sampled))
+    if not len(summaries) == len(values) == SETTLE_SEEDS:
         raise ValueError(f'the rule takes {SETTLE_SEEDS} seeds and their '
                          f'sampled means, not {len(summaries)} and '
-                         f'{len(port_sampled)}')
+                         f'{len(values)}')
     seeds = [seed_meets(family, s) for s in summaries]
-    mean = statistics.fmean(port_sampled)
-    sd = statistics.stdev(port_sampled)
-    floor = min(reference_sampled) - sd
+    mean = statistics.fmean(values)
+    sd = statistics.stdev(values)
+    floor = min(reference) - sd
     seeds_hold = sum(seeds) >= SETTLE_SEEDS_TO_MEET
-    sampled_holds = mean >= floor
+    measure_holds = mean >= floor
     return dict(family=family, thresholds=THRESHOLDS[family], seeds=seeds,
                 seeds_met=sum(seeds), seeds_to_meet=SETTLE_SEEDS_TO_MEET,
-                seeds_hold=seeds_hold, sampled_mean=mean, sampled_sd=sd,
-                reference_sampled=list(reference_sampled),
-                sampled_floor=floor, sampled_holds=sampled_holds,
-                verdict=('not a fault' if seeds_hold and sampled_holds
+                seeds_hold=seeds_hold,
+                measure=('last10_train_return' if by_training
+                         else 'sampled_mean'),
+                mean=mean, sd=sd, reference=list(reference), floor=floor,
+                measure_holds=measure_holds,
+                verdict=('not a fault' if seeds_hold and measure_holds
                          else 'fault'))
 
 
@@ -213,6 +235,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                         'settling rule\'s verdict (settle)')
     parser.add_argument('--reference_sampled', type=float, action='append',
                         help="a JAX checkpoint's sampled mean, once for each")
+    parser.add_argument('--reference_tag', action='append',
+                        help="a JAX record's tag in --reference, once for "
+                        'each: with a --family of SETTLE_BY_TRAINING, prints '
+                        "the settling rule's verdict from the records' "
+                        'last-10 training means')
     parser.add_argument('--logs', action='append',
                         help="the run's log directory, once for all runs "
                         'or once for each: adds the probes of '
@@ -249,6 +276,13 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                 parser.error('--sampled needs --reference_sampled')
             out['settlement'] = settle(args.family, [r['run'] for r in runs],
                                        args.sampled, args.reference_sampled)
+        elif args.reference_tag:
+            if not args.reference:
+                parser.error('--reference_tag needs --reference')
+            out['settlement'] = settle(
+                args.family, [r['run'] for r in runs], None,
+                [summarize(args.reference, tag)['last10_train_return']
+                 for tag in args.reference_tag])
     print(json.dumps(out))
     return out
 

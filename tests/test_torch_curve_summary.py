@@ -305,10 +305,11 @@ def test_settling_rule_on_both_sides_of_each_condition(met, k, verdict):
     assert got['seeds'] == [True] * met + [False] * (9 - met)
     assert got['seeds_met'] == met and got['seeds_to_meet'] == 4
     assert got['seeds_hold'] == (met >= 4)
-    assert got['sampled_mean'] == pytest.approx(0.25)
-    assert got['sampled_sd'] == sd
-    assert got['sampled_floor'] == jax_low - sd
-    assert got['sampled_holds'] == (k < 1)
+    assert got['measure'] == 'sampled_mean'
+    assert got['mean'] == pytest.approx(0.25)
+    assert got['sd'] == sd
+    assert got['floor'] == jax_low - sd
+    assert got['measure_holds'] == (k < 1)
     assert got['verdict'] == verdict
     assert got['thresholds'] == (0.05, 0.45, 9, 2)
 
@@ -337,5 +338,86 @@ def test_command_line_settles_a_family(tmp_path, capsys):
         json.dumps(out))
     assert out['verdict']['seeds'] == [True] * 4 + [False] * 5
     assert out['settlement']['seeds_met'] == 4
-    assert out['settlement']['reference_sampled'] == [0.3, 0.35]
+    assert out['settlement']['reference'] == [0.3, 0.35]
     assert out['settlement']['verdict'] == 'not a fault'
+
+
+def _nine_scaffold(met, last10):
+    """Nine scaffold seeds with the given last-10 means, the first `met` of
+    them meeting its threshold (one full eval of 4 at 0.12 or more), the
+    others none."""
+    full, short = (0.15, 3.0), (-0.6, 1.0)
+    return [dict(last10_train_return=m,
+                 last4_evals=[full if i < met else short] + [short] * 3)
+            for i, m in enumerate(last10)]
+
+
+# nine port seeds' last-10 means, their mean -0.55
+LAST10 = [-0.55 + d for d in
+          (-0.03, -0.02, -0.01, 0.0, 0.0, 0.0, 0.01, 0.02, 0.03)]
+
+
+@pytest.mark.parametrize('met,k,verdict', [
+    (4, 0.0, 'not a fault'),     # both hold
+    (3, 0.0, 'fault'),           # (a) one seed short
+    (4, 0.999, 'not a fault'),   # (b) the mean just above the floor
+    (4, 1.001, 'fault'),         # (b) just below it
+    (2, 2.0, 'fault')])          # neither
+def test_scaffold_rule_reads_the_last10_means(met, k, verdict):
+    """scaffold's record kept no checkpoint: (b) holds the nine seeds'
+    mean last-10 training return against the lower JAX record's less the
+    nine's standard deviation; (a) as for every family. The lower record's
+    is set k standard deviations above the port's mean."""
+    assert 'scaffold' in curve_summary.SETTLE_BY_TRAINING
+    sd = statistics.stdev(LAST10)
+    jax_low = statistics.fmean(LAST10) + k * sd
+    got = curve_summary.settle('scaffold', _nine_scaffold(met, LAST10), None,
+                               [jax_low, jax_low + 0.03])
+    assert got['seeds'] == [True] * met + [False] * (9 - met)
+    assert got['measure'] == 'last10_train_return'
+    assert got['mean'] == pytest.approx(-0.55)
+    assert got['sd'] == sd
+    assert got['floor'] == jax_low - sd
+    assert got['measure_holds'] == (k < 1)
+    assert got['verdict'] == verdict
+    assert got['thresholds'] == (-0.60, 0.12, 3, 1)
+
+
+def test_each_family_settles_by_its_measure():
+    """solvation's rule reads sampled means (its JAX archive exists),
+    scaffold's the last-10 means: the other measure is refused."""
+    assert 'solvation' not in curve_summary.SETTLE_BY_TRAINING
+    with pytest.raises(ValueError, match='sampled means'):
+        curve_summary.settle('solvation', _nine_scaffold(4, LAST10), None,
+                             [0.66])
+    with pytest.raises(ValueError, match='last-10'):
+        curve_summary.settle('scaffold', _nine_scaffold(4, LAST10), SAMPLED,
+                             [-0.59])
+    got = curve_summary.settle('solvation', _nine(4), SAMPLED, [0.66])
+    assert got['measure'] == 'sampled_mean'
+    assert got['floor'] == 0.66 - statistics.stdev(SAMPLED)
+
+
+def test_command_line_settles_scaffold_by_its_records(tmp_path, capsys):
+    """--reference_tag once for each JAX record: (b)'s reference is the
+    lower of the two committed records' last-10 means (-0.5937)."""
+    argv = ['--family=scaffold', f'--results={tmp_path}',
+            f'--reference={EXPERIMENTS / "scaffold" / "results"}',
+            '--reference_tag=scaffold_run-1', '--reference_tag=scaffold_run-2']
+    for seed in range(10, 19):
+        met = seed < 14
+        evals = [(0.15 if met else -0.6, 3.0 if met else 1.0)] + [
+            (-0.6, 1.0)] * 3
+        _write_run(tmp_path, f'scaffold_run-{seed}',
+                   [LAST10[seed - 10]] * 12, evals)
+        argv.append(f'--tag=scaffold_run-{seed}')
+    out = curve_summary.main(argv)
+    assert json.loads(capsys.readouterr().out.splitlines()[-1]) == json.loads(
+        json.dumps(out))
+    settled = out['settlement']
+    assert settled['seeds_met'] == 4
+    assert settled['reference'] == pytest.approx([-0.5937, -0.5679],
+                                                 abs=5e-5)
+    assert settled['floor'] == pytest.approx(
+        min(settled['reference']) - statistics.stdev(LAST10))
+    assert settled['verdict'] == 'not a fault'
