@@ -293,7 +293,30 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      model at the last step that loads back equal, exact launch counts);
      the counters that moved exactly RECORDED_KERNELS': the encoder's bf16
      ones for sf6_bf16, the f32 ones for organics, the fused head's alone
-     for the two internal agents (solvation, scaffold).
+     for the two internal agents (solvation, scaffold);
+ 18. the solvation and scaffold runs' sampled heads and rollouts, each at
+     its recorded configuration (molgym_tpu_torch/tools/head_draws.py, the
+     card's side of tests/test_torch_solvation_training.py and
+     test_torch_scaffold_training.py): one rollout at random weights from
+     a seed on the card, with exact launch counts (3 fused heads an act),
+     replayed by the CPU port's env and agent from the same states with the
+     element and position each card step was given: the observations,
+     every discrete field of every state (elements, bags, atom counts,
+     refill counts, formula cursors), the terminals and the refused
+     placements equal, positions and rewards within 1e-5, logp, v and the
+     bootstrap value within MODEL_TOL; then, at the trained weights of the
+     committed JAX archives (solv_run-1, and scafpm6_run-1 for the scaffold,
+     the kappa head's output layer scaled), 4,096 sampled actions at each
+     of the family's observations of that rollout (the solute alone,
+     mid-bag, after a refill; the cube alone, partway through the bag) on
+     the card, 512 rows an act (the fused head's sample mode on the card's
+     uniforms, the continuous heads on its normals), with exact launch
+     counts, and as many on the CPU: each set held to the distributions the
+     CPU port gives at its actions (focus and element by chi-square, each
+     continuous sub-action by KS and its scale, kappa given the continuous
+     ones; molgym_tpu_torch/tools/sampling_checks.py) and the two sets to
+     each other by the same statistics' two-sample forms, every p-value at
+     or above 1e-3.
 
 The line before the last two is {"kernels": [...]}, then the card's name and
 power limit, and the last line is {"ok": true, "device": {...}}.
@@ -2608,6 +2631,181 @@ def run_recorded(dev):
     return out
 
 
+# phase 18: the solvation and scaffold runs' sampled heads on the card
+# against the CPU port, and one rollout of each replayed on the CPU
+REPLAY_REWARD_TOL = 1e-5
+REPLAY_POSITION_TOL = 1e-5
+
+
+def _states_on(states, device):
+    import dataclasses
+    return dataclasses.replace(states, **{
+        f.name: getattr(states, f.name).to(device)
+        for f in dataclasses.fields(states)})
+
+
+def _check_states(got, want, where):
+    """Every discrete field of two EnvStates equal, the positions within
+    REPLAY_POSITION_TOL."""
+    for name in ('elements', 'bag', 'n_atoms', 'formula_cursor',
+                 'refill_count'):
+        if not torch.equal(getattr(got, name).cpu(),
+                           getattr(want, name).cpu()):
+            raise AssertionError(f'{where}: {name} differs')
+    err = float((got.positions.cpu() - want.positions.cpu()).abs().max())
+    if not err <= REPLAY_POSITION_TOL:
+        raise AssertionError(f'{where}: positions {err} apart')
+
+
+def replay_on_cpu(env, agent, start, steps, traj, end):
+    """A rollout that `steps` (head_draws.StepRecorder's) recorded on the
+    card, stepped again by the CPU port's `env` from the same `start` with
+    the element and position each card step was given, and scored by the
+    CPU `agent`: the observations, every discrete field of every state and
+    which placements were refused equal, positions and rewards within
+    1e-5, logp, v and the bootstrap value within MODEL_TOL. Returns the
+    largest differences and the cases the rollout went through."""
+    from molgym_tpu_torch.spaces import Observation
+    states, obs = env.reset(_states_on(start, 'cpu'))
+    cases = dict(refills=0, refused=0, hull_refusals=0, resets=0)
+    model_err = reward_err = 0.0
+    for t, rec in enumerate(steps):
+        where = f'replay step {t}'
+        want = Observation(traj.obs.elements[t], traj.obs.positions[t],
+                           traj.obs.bag[t])
+        if not (torch.equal(obs.elements, want.elements.cpu())
+                and torch.equal(obs.bag, want.bag.cpu())):
+            raise AssertionError(f'{where}: observation differs')
+        with torch.no_grad():
+            logp, _ent, v = agent.evaluate(obs, traj.actions[t].cpu())
+        model_err = max(model_err,
+                        float((logp - traj.logps[t].cpu()).abs().max()),
+                        float((v - traj.values[t].cpu()).abs().max()))
+        element, position = rec['element'].cpu(), rec['position'].cpu()
+        valid = env.reward_inputs(states, element.long(), position)[1]
+        if not torch.equal(valid, rec['valid'].cpu()):
+            raise AssertionError(f'{where}: refused placements differ')
+        result = env.step(states, element, position)
+        reward_err = max(reward_err, float(
+            (result.reward - traj.rewards[t].cpu()).abs().max()))
+        if not torch.equal(result.done, traj.terminals[t].cpu()):
+            raise AssertionError(f'{where}: terminals differ')
+        _check_states(result.state, rec['state'], where)
+        cases['refills'] += int((result.state.refill_count
+                                 > states.refill_count).sum())
+        cases['refused'] += int((~valid).sum())
+        if env.hull_a is not None:
+            outside = ((position @ env.hull_a.T + env.hull_b) > 1e-6).any(-1)
+            cases['hull_refusals'] += int((~valid & outside).sum())
+        cases['resets'] += int(result.done.sum())
+        states, obs = env.reset_if_terminal(result.state, result.done)
+        _check_states(states, rec['reset'], f'{where}: auto-reset')
+    _check_states(states, end, 'replay: the final states')
+    with torch.no_grad():
+        v = agent.evaluate(obs, torch.zeros_like(traj.actions[0].cpu()))[2]
+    model_err = max(model_err, float(
+        (v - traj.bootstrap_value.cpu()).abs().max()))
+    if not reward_err <= REPLAY_REWARD_TOL:
+        raise AssertionError(f'replay: rewards {reward_err} apart')
+    if not model_err <= MODEL_TOL:
+        raise AssertionError(f'replay: logp / v {model_err} apart')
+    return dict(steps=len(steps), model_err=model_err,
+                reward_err=reward_err, **cases)
+
+
+def run_sampled_heads(dev):
+    """Phase 18: for the solvation and scaffold runs (head_draws.FAMILIES)
+    at their recorded configurations, (ii) one rollout on `dev` at random
+    weights from a seed, with exact launch counts, replayed on the CPU
+    (replay_on_cpu); (i) at the trained weights (head_draws.trained_state),
+    draws_per_observation sampled actions at each of the family's
+    observations of that rollout on `dev` (the fused head's sample mode on
+    the card's uniforms, the continuous heads on its normals), CHUNK rows an
+    `act`, with exact launch counts, and as many on the CPU; each set
+    against the distributions the CPU port's head_distributions gives at
+    its actions, and the two sets against each other
+    (sampling_checks.check_draws and compare_draws), every p-value at or
+    above P_MIN. Returns each family's numbers."""
+    from molgym_tpu_torch.ops.kernel_common import (launch_counts,
+                                                    reset_launch_counts)
+    from molgym_tpu_torch.rl.rollout import make_rollout_fn
+    from molgym_tpu_torch.spaces import ObservationSpace, symbols_to_zs
+    from molgym_tpu_torch.tools import head_draws, sampling_checks
+    from molgym_tpu_torch.tools.model_util import build_model
+
+    out = {}
+    for name, spec in head_draws.FAMILIES.items():
+        _module, config = head_draws.recorded_config(name)
+        space = ObservationSpace(config['canvas_size'],
+                                 symbols_to_zs(config['symbols']))
+        env = head_draws.family_env(name, config, dev)
+        cpu_env = head_draws.family_env(name, config, 'cpu')
+        num_envs = config['num_envs']
+        steps = config['num_steps_per_iter'] // num_envs
+        torch.manual_seed(SEED + 7)
+        cpu_agent = build_model(config, space, device='cpu')
+        agent = build_model(config, space, device=dev)
+        agent.load_state_dict(cpu_agent.state_dict())
+
+        recorder = head_draws.StepRecorder(env)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        start = env.init_states(num_envs, gen)
+        _sync(dev)
+        reset_launch_counts()
+        end, traj = make_rollout_fn(env, agent, steps)(agent, start, gen)
+        _sync(dev)
+        rollout_counts = dict(launch_counts)
+        expected = expected_launches(per_forward_launches(agent), steps + 1,
+                                     0)
+        if dev.type == 'cuda' and rollout_counts != expected:
+            raise AssertionError(f'phase 18 {name} rollout: launches '
+                                 f'{rollout_counts}, expected {expected}')
+        replay = replay_on_cpu(cpu_env, cpu_agent, start, recorder.take(),
+                               traj, end)
+
+        state = head_draws.trained_state(name)
+        agent.load_state_dict(state)
+        cpu_agent.load_state_dict(state)
+        rows, ids = head_draws.repeat_rows(
+            head_draws.select_observations(name, traj.obs),
+            spec['draws_per_observation'])
+        rows = rows.map(lambda x: x.cpu())
+        _sync(dev)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        card = head_draws.draw_actions(
+            agent, rows, torch.Generator(device=dev).manual_seed(SEED + 1))
+        _sync(dev)
+        draw_seconds = time.perf_counter() - t0
+        draw_counts = dict(launch_counts)
+        acts = -(-len(ids) // head_draws.CHUNK)
+        expected = expected_launches(per_forward_launches(agent), acts, 0)
+        if dev.type == 'cuda' and draw_counts != expected:
+            raise AssertionError(f'phase 18 {name} draws: launches '
+                                 f'{draw_counts}, expected {expected}')
+        cpu = head_draws.draw_actions(cpu_agent, rows,
+                                      torch.Generator().manual_seed(SEED + 1))
+        card_heads = head_draws.head_distributions(cpu_agent, rows, card)
+        cpu_heads = head_draws.head_distributions(cpu_agent, rows, cpu)
+        p_values = dict(
+            card=sampling_checks.check_draws(card, ids, card_heads),
+            cpu=sampling_checks.check_draws(cpu, ids, cpu_heads),
+            card_vs_cpu=sampling_checks.compare_draws(
+                card, card_heads, cpu, cpu_heads, ids, ids))
+        failed = {k: sampling_checks.failures(p) for k, p in p_values.items()
+                  if sampling_checks.failures(p)}
+        if failed:
+            raise AssertionError(f'phase 18 {name}: draws below P_MIN '
+                                 f'{sampling_checks.P_MIN}: {failed}')
+        out[name] = dict(replay=replay, rollout_counts=rollout_counts,
+                         draws=len(ids), acts=acts, draw_counts=draw_counts,
+                         draw_seconds=draw_seconds,
+                         min_p={k: min(p.values())
+                                for k, p in p_values.items()},
+                         p_values=p_values)
+    return out
+
+
 # phase 14: the JAX package's trained checkpoints of thirteen experiments,
 # loaded through ModelIO.load from their experiments/ orbax paths (read from
 # the committed archives of molgym_tpu_torch/checkpoints): experiment ->
@@ -3503,6 +3701,19 @@ def main() -> int:
         f'{" / ".join(f"{t:.1f}" for t in r["iteration_ms"])}, counters '
         f'{", ".join(k for k, n in r["counts"].items() if n)}'
         for name, r in recorded.items()) + f' on {card}')
+
+    # phase 18: the solvation and scaffold runs' sampled heads and rollouts
+    sampled = run_sampled_heads(dev)
+    log('phase 18, ' + '; '.join(
+        f'{name}: rollout replayed on the CPU ({r["replay"]["steps"]} steps, '
+        f'refills {r["replay"]["refills"]}, hull refusals '
+        f'{r["replay"]["hull_refusals"]}, logp/v within '
+        f'{r["replay"]["model_err"]:.2e}, rewards within '
+        f'{r["replay"]["reward_err"]:.2e}), {r["draws"]} draws in '
+        f'{r["acts"]} acts ({r["draw_seconds"]:.2f} s), least p card '
+        f'{r["min_p"]["card"]:.4f}, CPU {r["min_p"]["cpu"]:.4f}, card vs '
+        f'CPU {r["min_p"]["card_vs_cpu"]:.4f}'
+        for name, r in sampled.items()) + f' on {card}')
     shared_counts = {k: sum(r['counts'][k]
                             for r in shared['evaluations'].values())
                      for k in training['counts']}
@@ -3541,6 +3752,12 @@ def main() -> int:
                     recorded_training_launches={
                         family: r['counts'][name]
                         for family, r in recorded.items()},
+                    sampled_heads_launches={
+                        family: r['draw_counts'][name]
+                        for family, r in sampled.items()},
+                    replayed_rollout_launches={
+                        family: r['rollout_counts'][name]
+                        for family, r in sampled.items()},
                     **extra)
 
     def entry16(name, source, replaces, main, others, **extra):
@@ -3683,7 +3900,7 @@ def main() -> int:
                       'data_parallel': data_parallel,
                       'trained': trained, 'shared_draws': shared,
                       'bench': bench_record, 'profiler': profiler,
-                      'recorded': recorded}))
+                      'recorded': recorded, 'sampled_heads': sampled}))
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

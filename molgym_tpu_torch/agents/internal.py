@@ -19,7 +19,7 @@ kappa]   (7,)
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -36,6 +36,16 @@ from molgym_tpu_torch.ops.masked import masked_sum, to_one_hot
 from molgym_tpu_torch.spaces import Observation
 
 NUM_SUBACTIONS = 7
+
+
+class HeadDistributions(NamedTuple):
+    """The distributions an action's sub-actions are drawn from, each given
+    the sub-actions before it: what `evaluate` scores them under."""
+    focus: torch.Tensor    # [B, N] probabilities over the canvas's slots
+    element: torch.Tensor  # [B, Z] probabilities, given the focus
+    means: torch.Tensor    # [B, 3] distance, angle, dihedral, given both
+    stds: torch.Tensor     # [3] their standard deviations
+    kappa: torch.Tensor    # [B, 2] probabilities, given the three
 
 
 class AtomMLPEncoder(nn.Module):
@@ -135,13 +145,13 @@ class InternalAC(nn.Module):
         latent = torch.cat([atom_feats, latent_bag[:, None, :].expand(
             batch, self.canvas_size, latent_bag.shape[-1])], dim=-1)
 
-        _p, focus, focus_logp, focus_ent = categorical_head(
+        focus_p, focus, focus_logp, focus_ent = categorical_head(
             self.phi_focus(latent)[..., 0], focus_mask, generator,
             index=given(1), deterministic=deterministic)
         focused = torch.gather(
             latent, 1, focus[:, None, None].expand(-1, 1, latent.shape[-1]))[:, 0]
 
-        _p, element, element_logp, element_ent = categorical_head(
+        element_p, element, element_logp, element_ent = categorical_head(
             self.phi_element(focused), obs.bag > 0, generator,
             index=given(2), deterministic=deterministic)
         element_oh = to_one_hot(element, self.num_zs)
@@ -163,7 +173,7 @@ class InternalAC(nn.Module):
         latent_bag_next = self.phi_beta(bag_f - element_oh)
         kappa_logits = self._surrogate_kappa_logits(
             obs, n_atoms, focus, element, cont, latent_bag_next)
-        _p, kappa, kappa_logp, _kappa_ent = categorical_head(
+        kappa_p, kappa, kappa_logp, _kappa_ent = categorical_head(
             kappa_logits, torch.ones_like(kappa_logits, dtype=torch.bool),
             generator, index=given(6), deterministic=deterministic)
 
@@ -188,16 +198,23 @@ class InternalAC(nn.Module):
         position = zmat.position_atom(obs.positions, n_atoms, focus,
                                       cont[:, 0], cont[:, 1],
                                       sign * cont[:, 2])
-        return AgentOutput(action_flat=actions, element=element,
-                           position=position, logp=logp, ent=ent, v=v)
+        return (AgentOutput(action_flat=actions, element=element,
+                            position=position, logp=logp, ent=ent, v=v),
+                HeadDistributions(focus_p, element_p, means, stds, kappa_p))
 
     def act(self, obs: Observation, generator: Rng,
             deterministic: bool = False) -> AgentOutput:
-        return self._step(obs, None, generator, deterministic)
+        return self._step(obs, None, generator, deterministic)[0]
 
     def evaluate(self, obs: Observation, action_flat: torch.Tensor):
-        out = self._step(obs, action_flat, None, False)
+        out = self._step(obs, action_flat, None, False)[0]
         return out.logp, out.ent, out.v
+
+    def head_distributions(self, obs: Observation,
+                           action_flat: torch.Tensor) -> HeadDistributions:
+        """The distributions of each sub-action of `action_flat`, given the
+        ones before it (HeadDistributions)."""
+        return self._step(obs, action_flat, None, False)[1]
 
 
 def make_mlp_internal_agent(num_zs: int, canvas_size: int,

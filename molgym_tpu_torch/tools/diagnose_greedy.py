@@ -27,7 +27,9 @@ tests/test_torch_driver_checkpoints.py):
   * sampled, over --num_sampled envs (--eval_sample_k semantics): the mean
     episode length, the fraction of episodes that place every atom of
     their bag, the mean return and the best (a formula's best episode,
-    averaged over the formulas: the eval stream's return_best_mean).
+    averaged over the formulas: the eval stream's return_best_mean);
+  * for an internal agent, its learned log-stds of the distance, angle and
+    dihedral heads (the sampled policy's spread).
 
 Each finding is printed on a line of its own; the last line is one JSON
 object {"diagnose_greedy": {...}} with every number (`diagnose` returns it).
@@ -235,9 +237,12 @@ def diagnose(model_path: str, num_sampled: int = 16, seed: int = 1,
                           seed, zs, model)
     returns = np.array([[e['ret'] for e in env_eps] for env_eps in sampled])
     flat = [e for env_eps in sampled for e in env_eps]
+    # the internal agents' learned log-stds of distance, angle and dihedral
+    log_stds = getattr(agent, 'log_stds', None)
     return dict(
         model_path=model_path, steps=steps, model=model, formulas=formulas,
         device=str(env.device), seed=seed,
+        log_stds=None if log_stds is None else log_stds.tolist(),
         greedy=dict(
             envs=GREEDY_ENVS,
             mean=float(np.mean([[e['ret'] for e in g] for g in greedy])),
@@ -285,6 +290,9 @@ def report_lines(result: dict) -> List[str]:
         f'mean length {s["mean_length"]:.3f}, complete fraction '
         f'{s["complete_fraction"]:.3f}, mean return {s["mean"]:.6f}, best '
         f'{s["best"]:.6f}')
+    if result['log_stds'] is not None:
+        lines.append('log_stds (distance, angle, dihedral): ' + ' '.join(
+            f'{x:.6f}' for x in result['log_stds']))
     lines.append(json.dumps({'diagnose_greedy': result}))
     return lines
 
