@@ -316,7 +316,21 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      continuous sub-action by KS and its scale, kappa given the continuous
      ones; molgym_tpu_torch/tools/sampling_checks.py) and the two sets to
      each other by the same statistics' two-sample forms, every p-value at
-     or above 1e-3.
+     or above 1e-3;
+ 19. the solvation run at the TPU's default matmul precision
+     (molgym_tpu_torch/tools/tpu_precision.py: every product of the
+     internal agent on bf16-rounded operands, f32 accumulation): a rollout
+     at full width and random weights from a seed on the card, then
+     `evaluate` at its 140 rows and 32 samples' loss gradients (one sample
+     a loss) under the emulation on the card and on the CPU, at least
+     PRECISION_BULK of the samples of logp, ent, v and the gradients within
+     PRECISION_BULK_TOL of their scale (a quantity's RMS, a gradient's
+     norm), and the card outside the emulation at most PRECISION_NONE
+     within it (logp, v, gradients); then 2 iterations of the record's
+     command through the tool, its tag marked `_tpudefault`, with the
+     checks of phase 7 (records, a model that loads back equal, exact
+     launch counts of the fused head, the only counters moved) and rounded
+     products and focus rows counted in the run.
 
 The line before the last two is {"kernels": [...]}, then the card's name and
 power limit, and the last line is {"ok": true, "device": {...}}.
@@ -2806,6 +2820,152 @@ def run_sampled_heads(dev):
     return out
 
 
+# phase 19: the solvation record's internal agent at the TPU's default
+# matmul precision (molgym_tpu_torch/tools/tpu_precision.py), the card
+# against the CPU, both emulating, at full width. A sample whose
+# intermediate lies within an f32 ulp or two of a bf16 rounding boundary
+# rounds apart on the two, and the difference grows through its later
+# roundings to the size of the f32-to-bf16 one: the bulk of the samples is
+# held (tests/test_torch_tpu_precision.py's measure; at this width the CPU
+# port against the interpreted JAX package keeps 0.63-1.0 of them)
+PRECISION_BULK_TOL = 1e-5   # of the quantity's RMS, of a gradient's norm
+PRECISION_BULK = 0.5        # the samples within it, card against CPU
+PRECISION_NONE = 0.1        # the f32 card's samples within it, at most
+PRECISION_GRAD_SAMPLES = 32
+PRECISION_ITERATIONS = 2
+
+
+def _precision_outputs(agent, loss_fn, data, emulate):
+    """`evaluate`'s (logp, ent, v) at every row of `data` and the first
+    PRECISION_GRAD_SAMPLES rows' loss gradients, one sample a loss
+    (flattened, the agent's parameter order), all on the CPU, under
+    tpu_default_precision where `emulate`."""
+    from molgym_tpu_torch.tools.tpu_precision import tpu_default_precision
+    device = next(agent.parameters()).device
+    data = {k: v.map(lambda x: x.to(device)) if k == 'obs' else v.to(device)
+            for k, v in data.items()}
+    with (tpu_default_precision() if emulate else contextlib.nullcontext()):
+        with torch.no_grad():
+            evaluated = [x.cpu().double() for x in agent.evaluate(
+                data['obs'], data['act'])]
+        grads = []
+        for i in range(PRECISION_GRAD_SAMPLES):
+            agent.zero_grad(set_to_none=True)
+            rows = slice(i, i + 1)
+            loss, _info = loss_fn(
+                data['obs'].map(lambda x: x[rows]), data['act'][rows],
+                data['logp'][rows], data['adv'][rows], data['ret'][rows],
+                torch.ones(1, device=device))
+            loss.backward()
+            grads.append(torch.cat([p.grad.reshape(-1) for p in
+                                    agent.parameters()]).cpu().double())
+    agent.zero_grad(set_to_none=True)
+    return evaluated, grads
+
+
+def precision_agreement(got, want):
+    """name -> (the share of samples within PRECISION_BULK_TOL, the largest
+    difference): evaluate's logp, ent and v, each of its RMS over the
+    samples, and each sample's gradient, of its norm."""
+    out = {}
+    for name, g, w in zip(('logp', 'ent', 'v'), got[0], want[0]):
+        err = (g - w).abs() / w.square().mean().sqrt()
+        out[name] = ((err <= PRECISION_BULK_TOL).double().mean().item(),
+                     err.max().item())
+    err = torch.stack([(g - w).norm() / w.norm()
+                       for g, w in zip(got[1], want[1])])
+    out['grad'] = ((err <= PRECISION_BULK_TOL).double().mean().item(),
+                   err.max().item())
+    return out
+
+
+def run_precision(dev):
+    """Phase 19: (i) a rollout of the solvation record's agent at full width
+    on `dev` at random weights from a seed (f32), then `evaluate` at its 140
+    rows and PRECISION_GRAD_SAMPLES samples' loss gradients under the
+    emulation on `dev` and on the CPU: at least PRECISION_BULK of the
+    samples within PRECISION_BULK_TOL in each, all finite; the same on `dev`
+    outside the emulation at most PRECISION_NONE within it (logp, v and the
+    gradients; teeth). (ii) PRECISION_ITERATIONS iterations of the record's
+    command through the tool (tpu_precision.emulated_argv and run) with
+    run_training's checks (records, a model that loads back equal, exact
+    launch counts: the fused head's alone on the card), its tag marked,
+    rounded products and focus rows counted in the run."""
+    import types
+
+    from molgym_tpu_torch.rl import buffer, ppo
+    from molgym_tpu_torch.rl.rollout import make_rollout_fn
+    from molgym_tpu_torch.spaces import ObservationSpace, symbols_to_zs
+    from molgym_tpu_torch.tools import head_draws, recorded_run
+    from molgym_tpu_torch.tools import tpu_precision as tp
+    from molgym_tpu_torch.tools.driver import ppo_config_from
+    from molgym_tpu_torch.tools.model_util import build_model
+
+    t0 = time.perf_counter()
+    _module, config = head_draws.recorded_config('solvation')
+    space = ObservationSpace(config['canvas_size'],
+                             symbols_to_zs(config['symbols']))
+    env = head_draws.family_env('solvation', config, dev)
+    num_envs = config['num_envs']
+    torch.manual_seed(SEED + 9)
+    cpu_agent = build_model(config, space, device='cpu')
+    agent = build_model(config, space, device=dev)
+    agent.load_state_dict(cpu_agent.state_dict())
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    _end, traj = make_rollout_fn(
+        env, agent, config['num_steps_per_iter'] // num_envs)(
+            agent, env.init_states(num_envs, gen), gen)
+    ppo_config = ppo_config_from(config)
+    data = buffer.compute_ppo_data(traj, ppo_config.gamma, ppo_config.lam)
+    outputs = {
+        name: _precision_outputs(a, ppo.make_loss_fn(a, ppo_config), data,
+                                 emulate)
+        for name, a, emulate in (('card', agent, True),
+                                 ('cpu', cpu_agent, True),
+                                 ('card_f32', agent, False))}
+    for name, (evaluated, grads) in outputs.items():
+        if not all(torch.isfinite(x).all() for x in evaluated + grads):
+            raise AssertionError(f'phase 19: non-finite outputs on {name}')
+    agreement = precision_agreement(outputs['card'], outputs['cpu'])
+    teeth = precision_agreement(outputs['card_f32'], outputs['cpu'])
+    short = {k: v for k, v in agreement.items() if v[0] < PRECISION_BULK}
+    if short:
+        raise AssertionError(f'phase 19: the card under the emulation '
+                             f'against the CPU, {short} of the samples '
+                             f'within {PRECISION_BULK_TOL}: {agreement}')
+    alike = {k: teeth[k] for k in ('logp', 'v', 'grad')
+             if teeth[k][0] > PRECISION_NONE}
+    if alike:
+        raise AssertionError(f'phase 19: the f32 card agrees with the '
+                             f'emulated CPU in {alike}: {teeth}')
+    checks_seconds = time.perf_counter() - t0
+
+    record = RECORDED['solvation']
+    samples = config['num_steps_per_iter']
+    module, argv = tp.emulated_argv(record, [
+        f'--num_steps={PRECISION_ITERATIONS * samples}',
+        '--log_level=WARNING'])
+    before = dict(tp.product_counts)
+    res = run_training(dev, types.SimpleNamespace(
+        main=lambda a: tp.run(module, a)),
+        lambda: recorded_run.parser_of(module), argv,
+        iterations=PRECISION_ITERATIONS,
+        inspect=lambda cfg, tag: dict(tag=tag))
+    products = {k: n - before.get(k, 0) for k, n in tp.product_counts.items()
+                if n != before.get(k, 0)}
+    if not res['tag'].startswith('solv' + tp.TAG_SUFFIX):
+        raise AssertionError(f'phase 19: the run\'s tag {res["tag"]}')
+    if not products.get('linear') or not products.get('focus'):
+        raise AssertionError(f'phase 19: rounded products {products}')
+    moved = sorted(k for k, n in res['counts'].items() if n)
+    if dev.type == 'cuda' and moved != sorted(_HEADS):
+        raise AssertionError(f'phase 19: counters {moved} moved, expected '
+                             f'{sorted(_HEADS)}')
+    return dict(res, module=module, agreement=agreement, f32=teeth,
+                products=products, checks_seconds=checks_seconds,
+                rows=int(data['act'].shape[0]))
+
+
 # phase 14: the JAX package's trained checkpoints of thirteen experiments,
 # loaded through ModelIO.load from their experiments/ orbax paths (read from
 # the committed archives of molgym_tpu_torch/checkpoints): experiment ->
@@ -3714,6 +3874,23 @@ def main() -> int:
         f'{r["min_p"]["card"]:.4f}, CPU {r["min_p"]["cpu"]:.4f}, card vs '
         f'CPU {r["min_p"]["card_vs_cpu"]:.4f}'
         for name, r in sampled.items()) + f' on {card}')
+
+    # phase 19: the solvation record at the TPU's default matmul precision
+    precision = run_precision(dev)
+    log('phase 19, the solvation agent under tpu_default_precision: card '
+        'against CPU, the samples within '
+        f'{PRECISION_BULK_TOL} (the largest difference) '
+        + ', '.join(f'{k} {a:.3f} ({m:.2e})'
+                    for k, (a, m) in precision['agreement'].items())
+        + '; the f32 card ' + ', '.join(
+            f'{k} {a:.3f} ({m:.2e})' for k, (a, m) in precision['f32'].items())
+        + f' ({precision["checks_seconds"]:.1f} s); {PRECISION_ITERATIONS} '
+        f'iterations of {precision["tag"]}: {precision["seconds"]:.1f} s, '
+        'iteration ms '
+        + ' / '.join(f'{t:.1f}' for t in precision['iteration_ms'])
+        + f', rounded products {json.dumps(precision["products"])}, '
+        'counters ' + ', '.join(k for k, n in precision['counts'].items()
+                                 if n) + f' on {card}')
     shared_counts = {k: sum(r['counts'][k]
                             for r in shared['evaluations'].values())
                      for k in training['counts']}
@@ -3758,6 +3935,7 @@ def main() -> int:
                     replayed_rollout_launches={
                         family: r['rollout_counts'][name]
                         for family, r in sampled.items()},
+                    precision_training_launches=precision['counts'][name],
                     **extra)
 
     def entry16(name, source, replaces, main, others, **extra):
@@ -3900,7 +4078,8 @@ def main() -> int:
                       'data_parallel': data_parallel,
                       'trained': trained, 'shared_draws': shared,
                       'bench': bench_record, 'profiler': profiler,
-                      'recorded': recorded, 'sampled_heads': sampled}))
+                      'recorded': recorded, 'sampled_heads': sampled,
+                      'precision': precision}))
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

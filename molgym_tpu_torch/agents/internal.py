@@ -19,7 +19,7 @@ kappa]   (7,)
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -36,6 +36,13 @@ from molgym_tpu_torch.ops.masked import masked_sum, to_one_hot
 from molgym_tpu_torch.spaces import Observation
 
 NUM_SUBACTIONS = 7
+
+# Applied to the focused atom's latent row when set, None otherwise.
+# tools/tpu_precision.py sets it while it emulates the TPU's default matmul
+# precision: the JAX package selects the row by a one-hot einsum, which
+# there rounds the row, and the gradient flowing back into it, to bf16; the
+# gather below is exact.
+focus_select_hook: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
 
 
 class HeadDistributions(NamedTuple):
@@ -150,6 +157,8 @@ class InternalAC(nn.Module):
             index=given(1), deterministic=deterministic)
         focused = torch.gather(
             latent, 1, focus[:, None, None].expand(-1, 1, latent.shape[-1]))[:, 0]
+        if focus_select_hook is not None:
+            focused = focus_select_hook(focused)
 
         element_p, element, element_logp, element_ent = categorical_head(
             self.phi_element(focused), obs.bag > 0, generator,

@@ -28,11 +28,14 @@ trained in full on the card, set from the JAX records before any such run.
 With --sampled (once for each of nine tags) and --reference_sampled, it
 adds the settling rule's verdict (`settle`, SETTLE_SEEDS) of a family that
 missed its threshold; for a family of SETTLE_BY_TRAINING, --reference_tag
-(once for each JAX record in --reference) in their place.
+(once for each JAX record in --reference) in their place. With
+--precision, the same rule on seeds trained under the emulation of the
+TPU's default matmul precision (settle_by_precision).
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import re
@@ -103,6 +106,20 @@ SEEDS_TO_MEET = 2
 SETTLE_SEEDS = 9
 SETTLE_SEEDS_TO_MEET = 4
 SETTLE_BY_TRAINING = frozenset({'scaffold'})
+
+# solvation's rule said 'fault' on seeds 10-18; the cause no CPU test
+# reaches is the record's arithmetic (one seed, trained on a TPU v5e at
+# the TPU's default matmul precision). Fixed before they were trained: the
+# same rule (`settle`), unchanged, on SETTLE_SEEDS fresh seeds (19-27)
+# trained under tools/tpu_precision.py's emulation of that precision (their
+# tags carry its TAG_SUFFIX), each sampled mean read as before, in f32 on
+# the CPU. 'not a fault': the gap is the record's precision, a known
+# difference by design; 'fault': precision is ruled out, the item stays
+# open. Family -> the emulated runs' tag suffix.
+SETTLE_BY_PRECISION = {'solvation': '_tpudefault'}
+PRECISION_OUTCOMES = {
+    'not a fault': "known difference by design: the record's TPU precision",
+    'fault': 'precision ruled out: the item stays open'}
 
 
 def summarize(results_dir: str, tag: str,
@@ -213,6 +230,26 @@ def settle(family: str, summaries: Sequence[dict],
                          else 'fault'))
 
 
+def settle_by_precision(family: str, tags: Sequence[str],
+                        summaries: Sequence[dict],
+                        port_sampled: Sequence[float],
+                        reference: Sequence[float]) -> dict:
+    """`settle`'s verdict on seeds trained under the emulation of the TPU's
+    default matmul precision (SETTLE_BY_PRECISION), with its outcome
+    (PRECISION_OUTCOMES). Raises for another family or a tag of a run not
+    trained under the emulation."""
+    if family not in SETTLE_BY_PRECISION:
+        raise ValueError(f'{family}: no precision rule')
+    marker = SETTLE_BY_PRECISION[family] + '_run-'
+    unmarked = [t for t in tags if marker not in t]
+    if unmarked:
+        raise ValueError(f'{unmarked}: not trained under the emulation '
+                         f'(no {marker!r} in the tag)')
+    out = settle(family, summaries, port_sampled, reference)
+    return dict(out, precision='tpu_default',
+                outcome=PRECISION_OUTCOMES[out['verdict']])
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     parser.add_argument('--tag', required=True, action='append',
@@ -240,12 +277,18 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                         'each: with a --family of SETTLE_BY_TRAINING, prints '
                         "the settling rule's verdict from the records' "
                         'last-10 training means')
+    parser.add_argument('--precision', action='store_true',
+                        help='with --sampled: the seeds were trained under '
+                        'the emulation of the TPU\'s default matmul '
+                        'precision; prints settle_by_precision\'s verdict')
     parser.add_argument('--logs', action='append',
                         help="the run's log directory, once for all runs "
                         'or once for each: adds the probes of '
                         '--host_reward_mode=auto (the reference\'s from '
                         'the logs beside its results)')
     args = parser.parse_args(argv)
+    if args.precision and not (args.family and args.sampled):
+        parser.error('--precision needs --family and --sampled')
 
     def per_tag(name, given):
         if len(given) not in (1, len(args.tag)):
@@ -274,8 +317,12 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         if args.sampled:
             if not args.reference_sampled:
                 parser.error('--sampled needs --reference_sampled')
-            out['settlement'] = settle(args.family, [r['run'] for r in runs],
-                                       args.sampled, args.reference_sampled)
+            settle_fn = (functools.partial(settle_by_precision,
+                                           tags=args.tag)
+                         if args.precision else settle)
+            out['settlement'] = settle_fn(
+                args.family, summaries=[r['run'] for r in runs],
+                port_sampled=args.sampled, reference=args.reference_sampled)
         elif args.reference_tag:
             if not args.reference:
                 parser.error('--reference_tag needs --reference')

@@ -421,3 +421,73 @@ def test_command_line_settles_scaffold_by_its_records(tmp_path, capsys):
     assert settled['floor'] == pytest.approx(
         min(settled['reference']) - statistics.stdev(LAST10))
     assert settled['verdict'] == 'not a fault'
+
+
+@pytest.mark.parametrize('met,k,outcome', [
+    (4, 0.0, "known difference by design: the record's TPU precision"),
+    (3, 0.0, 'precision ruled out: the item stays open'),
+    (4, 0.999, "known difference by design: the record's TPU precision"),
+    (4, 1.001, 'precision ruled out: the item stays open')])
+def test_precision_rule_settles_solvation_on_emulated_seeds(met, k, outcome):
+    """settle_by_precision: solvation's rule, unchanged (settle), on nine
+    seeds trained under tools/tpu_precision.py's emulation, the outcome
+    beside the verdict; a tag without the emulation's marker, another
+    family, or eight seeds are refused."""
+    from molgym_tpu_torch.tools.tpu_precision import TAG_SUFFIX
+    assert curve_summary.SETTLE_BY_PRECISION == {'solvation': TAG_SUFFIX}
+    tags = [f'solv{TAG_SUFFIX}_run-{s}' for s in range(19, 28)]
+    sd = statistics.stdev(SAMPLED)
+    reference = [statistics.fmean(SAMPLED) + k * sd]
+    got = curve_summary.settle_by_precision('solvation', tags,
+                                            _nine_solvation(met), SAMPLED,
+                                            reference)
+    want = curve_summary.settle('solvation', _nine_solvation(met), SAMPLED,
+                                reference)
+    assert {k: v for k, v in got.items()
+            if k not in ('precision', 'outcome')} == want
+    assert got['precision'] == 'tpu_default' and got['outcome'] == outcome
+    assert got['seeds_met'] == met
+    with pytest.raises(ValueError, match='emulation'):
+        curve_summary.settle_by_precision(
+            'solvation', tags[:8] + ['solv_run-27'], _nine_solvation(met),
+            SAMPLED, reference)
+    with pytest.raises(ValueError, match='no precision rule'):
+        curve_summary.settle_by_precision('scaffold', tags, _nine(4),
+                                          SAMPLED, reference)
+    with pytest.raises(ValueError, match='9 seeds'):
+        curve_summary.settle_by_precision('solvation', tags[:8],
+                                          _nine_solvation(met)[:8],
+                                          SAMPLED[:8], reference)
+
+
+def _nine_solvation(met):
+    """Nine solvation seeds at a last-10 of 0.3, the first `met` of them
+    with 3 full evals of 4 at 0.6 (its threshold: 0.25, 0.55, 9 atoms), the
+    others 2."""
+    full, short = (0.6, 9.0), (0.2, 5.0)
+    return [dict(last10_train_return=0.3,
+                 last4_evals=[full] * (3 if i < met else 2) + [short] * (
+                     1 if i < met else 2))
+            for i in range(9)]
+
+
+def test_command_line_settles_solvation_by_precision(tmp_path, capsys):
+    """--precision with --sampled: the emulated seeds' settlement and its
+    outcome; without --sampled it is refused."""
+    argv = ['--family=solvation', f'--results={tmp_path}', '--precision']
+    for seed, summary in zip(range(19, 28), _nine_solvation(5)):
+        tag = f'solv_tpudefault_run-{seed}'
+        _write_run(tmp_path, tag, [0.3] * 12, summary['last4_evals'])
+        argv += [f'--tag={tag}', f'--sampled={SAMPLED[seed - 19]}']
+    out = curve_summary.main(argv + ['--reference_sampled=0.661021'])
+    assert json.loads(capsys.readouterr().out.splitlines()[-1]) == json.loads(
+        json.dumps(out))
+    settled = out['settlement']
+    assert settled['seeds_met'] == 5
+    assert settled['floor'] == pytest.approx(0.661021 - statistics.stdev(
+        SAMPLED))
+    assert settled['verdict'] == 'fault'
+    assert settled['outcome'] == 'precision ruled out: the item stays open'
+    with pytest.raises(SystemExit):
+        curve_summary.main(['--family=solvation', f'--results={tmp_path}',
+                            '--tag=solv_tpudefault_run-19', '--precision'])
