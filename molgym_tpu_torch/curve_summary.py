@@ -30,7 +30,15 @@ adds the settling rule's verdict (`settle`, SETTLE_SEEDS) of a family that
 missed its threshold; for a family of SETTLE_BY_TRAINING, --reference_tag
 (once for each JAX record in --reference) in their place. With
 --precision, the same rule on seeds trained under the emulation of the
-TPU's default matmul precision (settle_by_precision).
+TPU's default matmul precision (settle_by_precision). With --jax_tag,
+--jax_results and --jax_sampled (the JAX package's own seeds of the same
+command) beside --sampled, the seed-spread rule (settle_by_reference,
+SPREAD_SEEDS) in their place.
+
+    python3 -m molgym_tpu_torch.curve_summary \\
+        --seed_spread=molgym_tpu_torch/records/seed_spread_solvation.json
+
+prints a committed seed-spread record's verdict and both p-values.
 """
 from __future__ import annotations
 
@@ -120,6 +128,26 @@ SETTLE_BY_PRECISION = {'solvation': '_tpudefault'}
 PRECISION_OUTCOMES = {
     'not a fault': "known difference by design: the record's TPU precision",
     'fault': 'precision ruled out: the item stays open'}
+
+# solvation's and scaffold's rules said 'fault' against one JAX draw each;
+# this one, fixed before any of its seeds ran, asks whether the port's
+# seeds train worse than the JAX package's own seeds of the same command
+# (its driver, the record's flags, f32 on a CPU): SPREAD_SEEDS fresh seeds
+# of each arm, read by the same tools. (a) A one-sided Fisher exact test
+# that the port's count of seeds meeting THRESHOLDS is lower than the JAX
+# arm's; (b) a one-sided Mann-Whitney U test that the port's sampled means
+# (diagnose_greedy --num_sampled 16 --seed 1 on each final checkpoint) lie
+# below the JAX arm's. Each holds at p >= SPREAD_P; both holding: the
+# reference's seed spread, not a fault. Its size when the arms are equal:
+# (a) 2.5-3.3% at meet rates 0.3-0.7 (exact, Fisher's test is
+# conservative), (b) 5%, so about 8% false 'fault' in all; (b)'s power at
+# 18 against 18 for a shift of one sd (normal means) about 0.9
+# (tests/test_torch_curve_summary.py::test_spread_rule_size).
+SPREAD_SEEDS = 18
+SPREAD_P = 0.05
+SPREAD_OUTCOMES = {
+    'not a fault': "the reference's seed spread",
+    'fault': 'the port trains worse than the reference\'s seeds'}
 
 
 def summarize(results_dir: str, tag: str,
@@ -250,11 +278,67 @@ def settle_by_precision(family: str, tags: Sequence[str],
                 outcome=PRECISION_OUTCOMES[out['verdict']])
 
 
+def settle_by_reference(family: str, port_summaries: Sequence[dict],
+                        port_sampled: Sequence[float],
+                        jax_summaries: Sequence[dict],
+                        jax_sampled: Sequence[float]) -> dict:
+    """The seed-spread rule's verdict (see SPREAD_SEEDS) on SPREAD_SEEDS
+    port seeds against as many JAX seeds of the same command: each arm's
+    summarize dicts and sampled means, in one order. Raises ValueError for
+    another count of seeds or a sampled mean too many or too few."""
+    from scipy.stats import fisher_exact, mannwhitneyu
+    arms = dict(port=(port_summaries, port_sampled),
+                jax=(jax_summaries, jax_sampled))
+    for name, (summaries, sampled) in arms.items():
+        if not len(summaries) == len(sampled) == SPREAD_SEEDS:
+            raise ValueError(f'{name}: the rule takes {SPREAD_SEEDS} seeds '
+                             f'and their sampled means, not '
+                             f'{len(summaries)} and {len(sampled)}')
+    out = dict(family=family, thresholds=THRESHOLDS[family])
+    for name, (summaries, sampled) in arms.items():
+        seeds = [seed_meets(family, s) for s in summaries]
+        last10 = [s['last10_train_return'] for s in summaries]
+        out[name] = dict(seeds=seeds, seeds_met=sum(seeds),
+                         sampled_mean=statistics.fmean(sampled),
+                         sampled_sd=statistics.stdev(sampled),
+                         last10_mean=statistics.fmean(last10),
+                         last10_sd=statistics.stdev(last10))
+    met = [out[name]['seeds_met'] for name in arms]
+    seeds_p = float(fisher_exact([[met[0], SPREAD_SEEDS - met[0]],
+                                  [met[1], SPREAD_SEEDS - met[1]]],
+                                 alternative='less')[1])
+    measure_p = float(mannwhitneyu(port_sampled, jax_sampled,
+                                   alternative='less').pvalue)
+    seeds_hold, measure_holds = seeds_p >= SPREAD_P, measure_p >= SPREAD_P
+    verdict = 'not a fault' if seeds_hold and measure_holds else 'fault'
+    return dict(out, p=SPREAD_P, seeds_p=seeds_p, seeds_hold=seeds_hold,
+                measure='sampled_mean', measure_p=measure_p,
+                measure_holds=measure_holds, verdict=verdict,
+                outcome=SPREAD_OUTCOMES[verdict])
+
+
+def read_seed_spread(path: str) -> dict:
+    """settle_by_reference's verdict on a committed seed-spread record
+    (molgym_tpu_torch/records/seed_spread_<family>.json: for each arm,
+    each seed's summarize dict, sampled mean and complete fraction)."""
+    with open(path) as f:
+        spread = json.load(f)
+
+    def arm(name):
+        seeds = spread[name]['seeds']
+        return ([s['summary'] for s in seeds],
+                [s['sampled_mean'] for s in seeds])
+    (port_summaries, port_sampled), (jax_summaries, jax_sampled) = (
+        arm('port'), arm('jax'))
+    return settle_by_reference(spread['family'], port_summaries,
+                               port_sampled, jax_summaries, jax_sampled)
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
-    parser.add_argument('--tag', required=True, action='append',
+    parser.add_argument('--tag', action='append',
                         help='e.g. sf6lj_run-1; once for each run')
-    parser.add_argument('--results', required=True, action='append',
+    parser.add_argument('--results', action='append',
                         help="the run's results directory: once for all "
                         'runs, or once for each')
     parser.add_argument('--reference', help="the JAX record's results "
@@ -286,14 +370,41 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                         'or once for each: adds the probes of '
                         '--host_reward_mode=auto (the reference\'s from '
                         'the logs beside its results)')
+    parser.add_argument('--jax_tag', action='append',
+                        help="a JAX seed's tag of the same command, once for "
+                        'each: with --sampled, --jax_sampled and --family, '
+                        "prints the seed-spread rule's verdict "
+                        '(settle_by_reference)')
+    parser.add_argument('--jax_results', action='append',
+                        help="the JAX seeds' results directory: once for "
+                        'all, or once for each --jax_tag')
+    parser.add_argument('--jax_sampled', type=float, action='append',
+                        help="a JAX seed's sampled mean, once for each "
+                        '--jax_tag, in its order')
+    parser.add_argument('--seed_spread',
+                        help='a committed seed-spread record '
+                        '(molgym_tpu_torch/records/seed_spread_<family>.json)'
+                        ": prints its verdict and both p-values, alone")
     args = parser.parse_args(argv)
+    if args.seed_spread:
+        out = dict(seed_spread=args.seed_spread,
+                   settlement=read_seed_spread(args.seed_spread))
+        print(json.dumps(out))
+        return out
+    if not (args.tag and args.results):
+        parser.error('--tag and --results are required without '
+                     '--seed_spread')
     if args.precision and not (args.family and args.sampled):
         parser.error('--precision needs --family and --sampled')
+    if args.jax_tag and not (args.family and args.sampled and args.jax_results
+                             and args.jax_sampled):
+        parser.error('--jax_tag needs --family, --sampled, --jax_results '
+                     'and --jax_sampled')
 
-    def per_tag(name, given):
-        if len(given) not in (1, len(args.tag)):
-            parser.error(f'give --{name} once, or once for each --tag')
-        return given * (len(args.tag) // len(given))
+    def per_tag(name, given, tags=args.tag, tag_flag='tag'):
+        if len(given) not in (1, len(tags)):
+            parser.error(f'give --{name} once, or once for each --{tag_flag}')
+        return given * (len(tags) // len(given))
     results = per_tag('results', args.results)
     logs = per_tag('logs', args.logs) if args.logs else [None] * len(args.tag)
     runs = []
@@ -314,7 +425,14 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     out = runs[0] if len(runs) == 1 else dict(runs=runs)
     if args.family:
         out['verdict'] = meets(args.family, [r['run'] for r in runs])
-        if args.sampled:
+        if args.jax_tag:
+            out['settlement'] = settle_by_reference(
+                args.family, [r['run'] for r in runs], args.sampled,
+                [summarize(directory, tag) for tag, directory in zip(
+                    args.jax_tag, per_tag('jax_results', args.jax_results,
+                                          args.jax_tag, 'jax_tag'))],
+                args.jax_sampled)
+        elif args.sampled:
             if not args.reference_sampled:
                 parser.error('--sampled needs --reference_sampled')
             settle_fn = (functools.partial(settle_by_precision,

@@ -8,13 +8,15 @@ families' records meet theirs at the seeds their thresholds were set for, stocha
 4.25 atoms a mean over its formulas; the device-reward records of
 sf6_bf16, organics, solvation and scaffold, whose two seeds need one full
 eval of 4 and miss at 2), synthetic curves below a floor, the settling rule of a family that missed on greedy evaluations (settle) on
-made-up seeds on both sides of each of its conditions, and the command
-line. The file reads experiments/ and writes
+made-up seeds on both sides of each of its conditions, the seed-spread
+rule (settle_by_reference) on synthetic arms with its size and power, and
+the command line. The file reads experiments/ and writes
 only under pytest's tmp_path."""
 import json
 import statistics
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 from molgym_tpu_torch import curve_summary
@@ -491,3 +493,125 @@ def test_command_line_settles_solvation_by_precision(tmp_path, capsys):
     with pytest.raises(SystemExit):
         curve_summary.main(['--family=solvation', f'--results={tmp_path}',
                             '--tag=solv_tpudefault_run-19', '--precision'])
+
+
+def _solvation_seeds(met, n=18):
+    """`n` solvation seeds at a last-10 of 0.3, the first `met` of them
+    meeting the threshold (_nine_solvation's evals)."""
+    full, short = (0.6, 9.0), (0.2, 5.0)
+    return [dict(last10_train_return=0.3,
+                 last4_evals=[full] * (3 if i < met else 2) + [short] * (
+                     1 if i < met else 2))
+            for i in range(n)]
+
+
+# eighteen sampled means of one arm, drawn once (mean 0.45, sd 0.15)
+SPREAD = [float(x) for x in
+          np.random.default_rng(25).normal(0.45, 0.15, size=18)]
+
+
+@pytest.mark.parametrize('port_met,jax_met,shift,verdict,fails', [
+    (9, 9, 0.0, 'not a fault', None),    # the same arms
+    (9, 9, -2.0, 'fault', 'measure'),    # port 2 sd lower: (b)
+    (3, 15, 0.0, 'fault', 'seeds'),      # 3 of 18 against 15: (a)
+    (15, 3, 0.0, 'not a fault', None)])  # one-sided: the port higher
+def test_seed_spread_rule_on_synthetic_arms(port_met, jax_met, shift,
+                                            verdict, fails):
+    """settle_by_reference: (a) Fisher's exact test that the port meets
+    less often, (b) Mann-Whitney's that its sampled means lie lower, each
+    one-sided at p >= 0.05; the port's means are the JAX arm's in another
+    order, moved by `shift` of their sd."""
+    sd = statistics.stdev(SPREAD)
+    port = [x + shift * sd for x in reversed(SPREAD)]
+    out = curve_summary.settle_by_reference(
+        'solvation', _solvation_seeds(port_met), port,
+        _solvation_seeds(jax_met), SPREAD)
+    assert out['verdict'] == verdict
+    assert out['outcome'] == curve_summary.SPREAD_OUTCOMES[verdict]
+    assert out['port']['seeds_met'] == port_met
+    assert out['jax']['seeds_met'] == jax_met
+    assert out['jax']['sampled_mean'] == pytest.approx(
+        statistics.fmean(SPREAD))
+    assert out['port']['last10_mean'] == pytest.approx(0.3)
+    assert out['seeds_hold'] == (fails != 'seeds')
+    assert out['measure_holds'] == (fails != 'measure')
+    from scipy.stats import fisher_exact, mannwhitneyu
+    assert out['seeds_p'] == pytest.approx(fisher_exact(
+        [[port_met, 18 - port_met], [jax_met, 18 - jax_met]],
+        alternative='less')[1])
+    assert out['measure_p'] == pytest.approx(
+        mannwhitneyu(port, SPREAD, alternative='less').pvalue)
+    if fails == 'seeds':
+        assert out['seeds_p'] < 0.01
+    if shift == 0.0:
+        assert out['measure_p'] > 0.4   # the same values
+
+
+def test_seed_spread_rule_takes_eighteen_seeds_each():
+    seeds = _solvation_seeds(9)
+    with pytest.raises(ValueError, match='port: the rule takes 18'):
+        curve_summary.settle_by_reference('solvation', seeds[:17],
+                                          SPREAD[:17], seeds, SPREAD)
+    with pytest.raises(ValueError, match='jax: the rule takes 18'):
+        curve_summary.settle_by_reference('solvation', seeds, SPREAD,
+                                          seeds, SPREAD[:17])
+    with pytest.raises(ValueError, match='port: .* 18 and 19'):
+        curve_summary.settle_by_reference('solvation', seeds,
+                                          SPREAD + [0.5], seeds, SPREAD)
+
+
+def test_spread_rule_size():
+    """The size and power that SPREAD_SEEDS' comment states: (a)'s false
+    'fault' rate by exact enumeration of both arms' meet counts at meet
+    rates 0.3, 0.5 and 0.7 (2.5-3.3%), (b)'s by 2,000 draws of normal
+    means each way (5%, and about 0.9 for a shift of one sd)."""
+    from scipy.stats import binom, fisher_exact, mannwhitneyu
+    n, p_min = curve_summary.SPREAD_SEEDS, curve_summary.SPREAD_P
+    rejected = np.array([[fisher_exact([[a, n - a], [b, n - b]],
+                                       alternative='less')[1] < p_min
+                          for b in range(n + 1)] for a in range(n + 1)])
+    sizes = [float(binom.pmf(np.arange(n + 1), n, rate)
+                   @ rejected @ binom.pmf(np.arange(n + 1), n, rate))
+             for rate in (0.3, 0.5, 0.7)]
+    assert sizes == pytest.approx([0.0247, 0.0326, 0.0247], abs=5e-4)
+    rng = np.random.default_rng(0)
+    jax = rng.normal(size=(2000, n))
+    port = rng.normal(size=(2000, n))
+    size = np.mean(mannwhitneyu(port, jax, alternative='less',
+                                axis=1).pvalue < p_min)
+    power = np.mean(mannwhitneyu(port - 1.0, jax, alternative='less',
+                                 axis=1).pvalue < p_min)
+    assert 0.035 <= size <= 0.065
+    assert 0.86 <= power <= 0.93
+    assert 1 - (1 - max(sizes)) * (1 - size) < 0.1
+
+
+def test_command_line_settles_by_the_reference_seeds(tmp_path, capsys):
+    """--jax_tag, --jax_results and --jax_sampled beside --sampled: the
+    seed-spread rule over both arms' results; --jax_tag without
+    --jax_sampled is refused."""
+    argv = ['--family=solvation']
+    for arm, seeds, met in (('port', range(28, 46), 12),
+                            ('jax', range(3, 21), 10)):
+        directory = tmp_path / arm
+        for i, (seed, summary) in enumerate(zip(seeds,
+                                                _solvation_seeds(met))):
+            tag = f'solv_run-{seed}'
+            _write_run(directory, tag, [0.3] * 12, summary['last4_evals'])
+            if arm == 'port':
+                argv += [f'--tag={tag}', f'--sampled={SPREAD[i]}']
+            else:
+                argv += [f'--jax_tag={tag}',
+                         f'--jax_sampled={SPREAD[17 - i]}']
+    argv += [f'--results={tmp_path / "port"}',
+             f'--jax_results={tmp_path / "jax"}']
+    out = curve_summary.main(argv)
+    assert json.loads(capsys.readouterr().out.splitlines()[-1]) == json.loads(
+        json.dumps(out))
+    settled = out['settlement']
+    assert (settled['port']['seeds_met'], settled['jax']['seeds_met']) == (
+        12, 10)
+    assert settled['verdict'] == 'not a fault'
+    with pytest.raises(SystemExit):
+        curve_summary.main([a for a in argv
+                            if not a.startswith('--jax_sampled')])
