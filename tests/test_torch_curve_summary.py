@@ -615,3 +615,49 @@ def test_command_line_settles_by_the_reference_seeds(tmp_path, capsys):
     with pytest.raises(SystemExit):
         curve_summary.main([a for a in argv
                             if not a.startswith('--jax_sampled')])
+
+
+RECORDS_DIR = Path(curve_summary.__file__).resolve().parent / 'records'
+
+
+# family -> (the port's meeting seeds, the JAX arm's, (a)'s p, (b)'s p):
+# the verdicts PERF.md §6 reports (PR 25)
+SPREAD_VERDICTS = {
+    'solvation': (8, 11, 0.252543, 0.357987),
+    'scaffold': (1, 3, 0.301299, 0.854414),
+}
+
+
+@pytest.mark.parametrize('family', list(SPREAD_VERDICTS))
+def test_committed_seed_spreads_read_to_their_verdicts(family, capsys):
+    """molgym_tpu_torch/records/seed_spread_<family>.json, read by
+    --seed_spread: both arms' 18 fresh seeds (the port's solvation 28-45
+    and scaffold 19-36 on the card, the JAX package's 3-20 on a CPU), each
+    summary meeting THRESHOLDS as the record's numbers say, and the
+    verdict with both p-values: not a fault, the reference's seed
+    spread."""
+    path = RECORDS_DIR / f'seed_spread_{family}.json'
+    out = curve_summary.main([f'--seed_spread={path}'])
+    assert json.loads(capsys.readouterr().out.splitlines()[-1]) == json.loads(
+        json.dumps(out))
+    settled = out['settlement']
+    port_met, jax_met, seeds_p, measure_p = SPREAD_VERDICTS[family]
+    assert settled['family'] == family
+    assert (settled['port']['seeds_met'], settled['jax']['seeds_met']) == (
+        port_met, jax_met)
+    assert settled['seeds_p'] == pytest.approx(seeds_p, abs=5e-7)
+    assert settled['measure_p'] == pytest.approx(measure_p, abs=5e-7)
+    assert settled['verdict'] == 'not a fault'
+    assert settled['outcome'] == "the reference's seed spread"
+    spread = json.loads(path.read_text())
+    first = {'solvation': 28, 'scaffold': 19}[family]
+    assert [s['seed'] for s in spread['port']['seeds']] == list(
+        range(first, first + 18))
+    assert [s['seed'] for s in spread['jax']['seeds']] == list(range(3, 21))
+    assert spread['port']['trained_on'] == 'NVIDIA H100 80GB HBM3, 700.00 W'
+    for arm in ('port', 'jax'):
+        for s in spread[arm]['seeds']:
+            assert s['tag'].endswith(f'_run-{s["seed"]}')
+            assert 0.0 <= s['complete_fraction'] <= 1.0
+            assert s['summary']['iterations'] == (50 if family == 'solvation'
+                                                  else 24)
