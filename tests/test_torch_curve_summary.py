@@ -441,9 +441,9 @@ def test_precision_rule_settles_solvation_on_emulated_seeds(met, k, outcome):
     sd = statistics.stdev(SAMPLED)
     reference = [statistics.fmean(SAMPLED) + k * sd]
     got = curve_summary.settle_by_precision('solvation', tags,
-                                            _nine_solvation(met), SAMPLED,
+                                            _solvation_seeds(met), SAMPLED,
                                             reference)
-    want = curve_summary.settle('solvation', _nine_solvation(met), SAMPLED,
+    want = curve_summary.settle('solvation', _solvation_seeds(met), SAMPLED,
                                 reference)
     assert {k: v for k, v in got.items()
             if k not in ('precision', 'outcome')} == want
@@ -451,33 +451,33 @@ def test_precision_rule_settles_solvation_on_emulated_seeds(met, k, outcome):
     assert got['seeds_met'] == met
     with pytest.raises(ValueError, match='emulation'):
         curve_summary.settle_by_precision(
-            'solvation', tags[:8] + ['solv_run-27'], _nine_solvation(met),
+            'solvation', tags[:8] + ['solv_run-27'], _solvation_seeds(met),
             SAMPLED, reference)
     with pytest.raises(ValueError, match='no precision rule'):
         curve_summary.settle_by_precision('scaffold', tags, _nine(4),
                                           SAMPLED, reference)
     with pytest.raises(ValueError, match='9 seeds'):
         curve_summary.settle_by_precision('solvation', tags[:8],
-                                          _nine_solvation(met)[:8],
+                                          _solvation_seeds(met)[:8],
                                           SAMPLED[:8], reference)
 
 
-def _nine_solvation(met):
-    """Nine solvation seeds at a last-10 of 0.3, the first `met` of them
+def _solvation_seeds(met, n=9):
+    """`n` solvation seeds at a last-10 of 0.3, the first `met` of them
     with 3 full evals of 4 at 0.6 (its threshold: 0.25, 0.55, 9 atoms), the
     others 2."""
     full, short = (0.6, 9.0), (0.2, 5.0)
     return [dict(last10_train_return=0.3,
                  last4_evals=[full] * (3 if i < met else 2) + [short] * (
                      1 if i < met else 2))
-            for i in range(9)]
+            for i in range(n)]
 
 
 def test_command_line_settles_solvation_by_precision(tmp_path, capsys):
     """--precision with --sampled: the emulated seeds' settlement and its
     outcome; without --sampled it is refused."""
     argv = ['--family=solvation', f'--results={tmp_path}', '--precision']
-    for seed, summary in zip(range(19, 28), _nine_solvation(5)):
+    for seed, summary in zip(range(19, 28), _solvation_seeds(5)):
         tag = f'solv_tpudefault_run-{seed}'
         _write_run(tmp_path, tag, [0.3] * 12, summary['last4_evals'])
         argv += [f'--tag={tag}', f'--sampled={SAMPLED[seed - 19]}']
@@ -493,16 +493,6 @@ def test_command_line_settles_solvation_by_precision(tmp_path, capsys):
     with pytest.raises(SystemExit):
         curve_summary.main(['--family=solvation', f'--results={tmp_path}',
                             '--tag=solv_tpudefault_run-19', '--precision'])
-
-
-def _solvation_seeds(met, n=18):
-    """`n` solvation seeds at a last-10 of 0.3, the first `met` of them
-    meeting the threshold (_nine_solvation's evals)."""
-    full, short = (0.6, 9.0), (0.2, 5.0)
-    return [dict(last10_train_return=0.3,
-                 last4_evals=[full] * (3 if i < met else 2) + [short] * (
-                     1 if i < met else 2))
-            for i in range(n)]
 
 
 # eighteen sampled means of one arm, drawn once (mean 0.45, sd 0.15)
@@ -524,8 +514,8 @@ def test_seed_spread_rule_on_synthetic_arms(port_met, jax_met, shift,
     sd = statistics.stdev(SPREAD)
     port = [x + shift * sd for x in reversed(SPREAD)]
     out = curve_summary.settle_by_reference(
-        'solvation', _solvation_seeds(port_met), port,
-        _solvation_seeds(jax_met), SPREAD)
+        'solvation', _solvation_seeds(port_met, 18), port,
+        _solvation_seeds(jax_met, 18), SPREAD)
     assert out['verdict'] == verdict
     assert out['outcome'] == curve_summary.SPREAD_OUTCOMES[verdict]
     assert out['port']['seeds_met'] == port_met
@@ -548,7 +538,7 @@ def test_seed_spread_rule_on_synthetic_arms(port_met, jax_met, shift,
 
 
 def test_seed_spread_rule_takes_eighteen_seeds_each():
-    seeds = _solvation_seeds(9)
+    seeds = _solvation_seeds(9, 18)
     with pytest.raises(ValueError, match='port: the rule takes 18'):
         curve_summary.settle_by_reference('solvation', seeds[:17],
                                           SPREAD[:17], seeds, SPREAD)
@@ -595,7 +585,7 @@ def test_command_line_settles_by_the_reference_seeds(tmp_path, capsys):
                             ('jax', range(3, 21), 10)):
         directory = tmp_path / arm
         for i, (seed, summary) in enumerate(zip(seeds,
-                                                _solvation_seeds(met))):
+                                                _solvation_seeds(met, 18))):
             tag = f'solv_run-{seed}'
             _write_run(directory, tag, [0.3] * 12, summary['last4_evals'])
             if arm == 'port':
@@ -621,7 +611,7 @@ RECORDS_DIR = Path(curve_summary.__file__).resolve().parent / 'records'
 
 
 # family -> (the port's meeting seeds, the JAX arm's, (a)'s p, (b)'s p):
-# the verdicts PERF.md §6 reports (PR 25)
+# the verdicts PERF.md §6 reports
 SPREAD_VERDICTS = {
     'solvation': (8, 11, 0.252543, 0.357987),
     'scaffold': (1, 3, 0.301299, 0.854414),
@@ -659,5 +649,6 @@ def test_committed_seed_spreads_read_to_their_verdicts(family, capsys):
         for s in spread[arm]['seeds']:
             assert s['tag'].endswith(f'_run-{s["seed"]}')
             assert 0.0 <= s['complete_fraction'] <= 1.0
+            assert s['rollout_update_s'] > 0.0
             assert s['summary']['iterations'] == (50 if family == 'solvation'
                                                   else 24)

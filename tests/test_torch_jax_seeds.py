@@ -3,7 +3,8 @@ its command for each family is the port's recorded command
 (tools/recorded_run.py) with --device=cpu, and the record's configuration
 key for key under the JAX driver's parser; its conversion of a JAX
 checkpoint into a port checkpoint file gives the committed solv_run-1
-archive's state dict bit for bit. Writes only under pytest's tmp_path."""
+archive's state dict bit for bit; its `compare` and `table` steps read the
+committed records. Writes only under pytest's tmp_path."""
 import json
 from pathlib import Path
 
@@ -109,3 +110,32 @@ def test_conversion_is_the_archive_bit_for_bit(tmp_path):
                                         ('28-30,41', [28, 29, 30, 41])])
 def test_seed_list(text, seeds):
     assert torch_jax_seeds.seed_list(text) == seeds
+
+
+def test_against_record_reads_a_record_as_itself(tmp_path):
+    """`compare`'s numbers: a committed scaffold record against itself is
+    0 on every key both lines hold, and a run one line short is refused."""
+    results = ROOT / 'experiments' / 'scaffold' / 'results'
+    diff = torch_jax_seeds.against_record('scaffold', results,
+                                          'scaffold_run-1')
+    assert set(diff) == {'train', 'eval'}
+    assert {'return_mean', 'value_mean', 'logp_mean'} <= set(diff['train'])
+    assert all(v == 0.0 for mode in diff.values() for v in mode.values())
+    for mode in ('train', 'eval'):
+        lines = (results / f'scaffold_run-1_{mode}.txt').read_text()
+        if mode == 'eval':
+            lines = ''.join(lines.splitlines(keepends=True)[:-1])
+        (tmp_path / f'scaffold_run-1_{mode}.txt').write_text(lines)
+    with pytest.raises(ValueError, match='eval'):
+        torch_jax_seeds.against_record('scaffold', tmp_path, 'scaffold_run-1')
+
+
+def test_table_rows_of_the_committed_records():
+    """`table`: one row a seed index, one cell a seed of each arm of each
+    record, in the records' order."""
+    records = [ROOT / 'molgym_tpu_torch' / 'records' / f'seed_spread_{f}.json'
+               for f in ('solvation', 'scaffold')]
+    rows = torch_jax_seeds.table_rows(records)
+    assert len(rows) == 18
+    cells = [c.strip() for c in rows[0].strip('|').split('|')]
+    assert [c.split()[0] for c in cells] == ['28', '3', '19', '3']

@@ -17,8 +17,7 @@ becomes a port checkpoint file, <workdir>/port/models/<tag>_steps-<n>.model
 with the run's configuration at <workdir>/port/logs/<tag>.json, so that
 tools/diagnose_greedy.py reads it as it reads any port run: the orbax
 restore of tests/torch_export_checkpoints.py, convert.checkpoint_from_jax,
-the agent's load_state_dict, the port's ModelIO.save. `convert` does that
-last step alone. `compare` prints how far a run of a recorded seed
+the agent's load_state_dict, the port's ModelIO.save. `compare` prints how far a run of a recorded seed
 (scaffold's 1 and 2) lies from the committed record, key by key.
 
     python -m tests.torch_jax_seeds record --family=solvation \\
@@ -28,8 +27,9 @@ last step alone. `compare` prints how far a run of a recorded seed
 
 writes the seed-spread record that curve_summary --seed_spread reads:
 for each seed of each arm (a run dir holding logs/ models/ results/),
-summarize's dict, and diagnose_greedy's sampled mean and complete
-fraction (--num_sampled 16 --seed 1, on the CPU); `table --out=<that
+summarize's dict, diagnose_greedy's sampled mean and complete fraction
+(--num_sampled 16 --seed 1, on the CPU) and the median rollout plus
+update seconds; `table --out=<that
 JSON> [--out=<another>]` prints them side by side as markdown rows.
 
 A helper, not a test: it imports molgym_tpu (only to restore a JAX
@@ -41,6 +41,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import json
+import multiprocessing
 import os
 import shutil
 import statistics
@@ -196,7 +197,8 @@ def _diagnose(model_path: str) -> Tuple[float, float]:
 
 def rollout_update_s(results: Path, tag: str) -> float:
     """The median of an iteration's rollout plus update seconds (the
-    first left out): the JAX records' opt lines keep no iteration_time."""
+    first left out), which both packages' train and opt lines keep (the
+    JAX package's no iteration_time)."""
     from molgym_tpu_torch.tools.analysis import read_jsonl
     train = read_jsonl(str(results / f'{tag}_train.txt'))
     opt = read_jsonl(str(results / f'{tag}_opt.txt'))
@@ -206,20 +208,19 @@ def rollout_update_s(results: Path, tag: str) -> float:
 
 def arm_record(family: str, run_dir: Path, seeds: List[int],
                jobs: int) -> List[dict]:
-    """Each seed's summary, sampled mean and complete fraction."""
+    """Each seed's summary, sampled mean, complete fraction and median
+    rollout plus update seconds."""
     from molgym_tpu_torch.curve_summary import summarize
     tags = [tag_of(family, s) for s in seeds]
     paths = [str(final_checkpoint(run_dir / 'models', t)) for t in tags]
-    with concurrent.futures.ProcessPoolExecutor(jobs) as pool:
+    with concurrent.futures.ProcessPoolExecutor(
+            jobs, mp_context=multiprocessing.get_context('spawn')) as pool:
         sampled = list(pool.map(_diagnose, paths))
-    out = []
-    for seed, tag, (mean, complete) in zip(seeds, tags, sampled):
-        summary = summarize(str(run_dir / 'results'), tag)
-        summary.setdefault('median_iteration_s', rollout_update_s(
-            run_dir / 'results', tag))
-        out.append(dict(seed=seed, tag=tag, summary=summary,
-                        sampled_mean=mean, complete_fraction=complete))
-    return out
+    return [dict(seed=seed, tag=tag,
+                 summary=summarize(str(run_dir / 'results'), tag),
+                 sampled_mean=mean, complete_fraction=complete,
+                 rollout_update_s=rollout_update_s(run_dir / 'results', tag))
+            for seed, tag, (mean, complete) in zip(seeds, tags, sampled)]
 
 
 def table_rows(paths: List[Path]) -> List[str]:
@@ -227,7 +228,7 @@ def table_rows(paths: List[Path]) -> List[str]:
     each arm of each record in row i; a cell: the seed, whether it meets
     THRESHOLDS, its last-10, its last 4 greedy evals (the atoms placed
     where short), its sampled mean (complete fraction) and its median
-    iteration seconds."""
+    rollout plus update seconds."""
     from molgym_tpu_torch.curve_summary import THRESHOLDS, seed_meets
     columns = []
     for path in paths:
@@ -245,20 +246,20 @@ def table_rows(paths: List[Path]) -> List[str]:
                     f'{s["seed"]} {"✓" if meets else "✗"} '
                     f'{summary["last10_train_return"]:.4f}; {evals}; '
                     f'{s["sampled_mean"]:.6f} ({s["complete_fraction"]:.4f});'
-                    f' {summary["median_iteration_s"]:.3f}')
+                    f' {s["rollout_update_s"]:.3f}')
             columns.append(cells)
     return ['| ' + ' | '.join(row) + ' |' for row in zip(*columns)]
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
-    parser.add_argument('step', choices=['run', 'convert', 'compare',
-                                         'record', 'table'])
+    parser.add_argument('step', choices=['run', 'compare', 'record',
+                                         'table'])
     parser.add_argument('--family', required=True, choices=sorted(RECORDS))
     parser.add_argument('--seeds', type=seed_list,
-                        help='run, convert: e.g. 3-20')
+                        help='run, compare: e.g. 3-20')
     parser.add_argument('--workdir', type=Path,
-                        help='run, convert: where the JAX runs write')
+                        help='run, compare: where the JAX runs write')
     parser.add_argument('--jobs', type=int, default=4,
                         help='processes at a time (default 4)')
     parser.add_argument('--port', type=Path, help="record: the port's run "
@@ -282,13 +283,10 @@ def main(argv=None) -> int:
             print(json.dumps(dict(tag=tag, max_abs_diff=against_record(
                 args.family, args.workdir / 'results', tag))))
         return 0
-    if args.step in ('run', 'convert'):
-        if args.step == 'run':
-            failed = [r for r in run_seeds(args.family, args.seeds,
-                                           args.workdir, args.jobs)
-                      if r['rc'] != 0]
-            if failed:
-                return 1
+    if args.step == 'run':
+        if any(r['rc'] != 0 for r in run_seeds(args.family, args.seeds,
+                                               args.workdir, args.jobs)):
+            return 1
         convert_seeds(args.family, args.seeds, args.workdir)
         return 0
     record = dict(
