@@ -1,0 +1,6 @@
+"""device_idle_pct of the train cells: see harness/readers.py."""
+from harness import readers
+
+
+def read(ctx):
+    return readers.device_idle_pct(ctx)

@@ -1,0 +1,6 @@
+"""mfu_pct of the sample cells: see harness/readers.py."""
+from harness import readers
+
+
+def read(ctx):
+    return readers.mfu_pct(ctx)
